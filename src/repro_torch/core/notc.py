@@ -1,0 +1,62 @@
+"""Friction-free binomial American pricing (the paper's appendix).
+
+    pi_N = intrinsic(S_N)
+    pi_n(i) = max(intrinsic(S_n(i)), (p pi_{n+1}(i+1) + (1-p) pi_{n+1}(i)) / r)
+
+* :func:`price_notc_np` — the port's own numpy oracle (O(N^2) loop).
+* :func:`notc_rows` — the fixed-buffer backward induction over a batch of
+  contracts ``(R, N+1)``, payoff as data (``_notc_kernel`` /
+  ``_notc_one_jnp`` of the JAX package, with the row dimension written
+  out where JAX used ``vmap``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .lattice import LatticeModel
+from .payoff import PayoffProcess
+
+__all__ = ["price_notc_np", "intrinsic_grid", "notc_rows"]
+
+
+def intrinsic_grid(model: LatticeModel, payoff: PayoffProcess,
+                   level: int) -> np.ndarray:
+    return np.maximum(payoff.intrinsic(model.stock_level(level)), 0.0)
+
+
+def price_notc_np(model: LatticeModel, payoff: PayoffProcess) -> float:
+    """Numpy oracle, vectorised per level."""
+    n, r, p = model.n_steps, model.r, model.p
+    v = intrinsic_grid(model, payoff, n)
+    for lvl in range(n - 1, -1, -1):
+        cont = (p * v[1:lvl + 2] + (1.0 - p) * v[:lvl + 1]) / r
+        v = np.maximum(intrinsic_grid(model, payoff, lvl), cont)
+    return float(v[0])
+
+
+def notc_rows(s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2, *,
+              n_steps: int) -> torch.Tensor:
+    """Plain level walk over rows: every argument a ``(R,)`` float64
+    tensor on one device; returns the ``(R,)`` prices."""
+    col = lambda a: a[:, None]
+    s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2 = map(
+        col, (s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2))
+    dt = maturity / n_steps
+    u = torch.exp(sigma * torch.sqrt(dt))
+    r = torch.exp(rate * dt)
+    p = (r - 1.0 / u) / (u - 1.0 / u)
+    idx = torch.arange(n_steps + 1, dtype=s0.dtype, device=s0.device)
+
+    def intrinsic(lvl: float):
+        s = s0 * torch.exp((2.0 * idx - lvl) * sigma * torch.sqrt(dt))
+        pay = (alpha * k1 + w1 * torch.clamp_min(s - k1, 0.0)
+               + w2 * torch.clamp_min(s - k2, 0.0) + zeta * s)
+        return torch.where(idx <= lvl, torch.clamp_min(pay, 0.0), 0.0)
+
+    v = intrinsic(float(n_steps))
+    for lvl in range(n_steps - 1, -1, -1):
+        cont = (p * torch.roll(v, -1, dims=1) + (1.0 - p) * v) / r
+        v = torch.maximum(intrinsic(float(lvl)), cont)
+    return v[:, 0]
+

@@ -1,0 +1,152 @@
+"""Blocked binomial backward induction (no-TC lattice) on the card.
+
+Port of the JAX package's ``kernels/binomial_step.py`` (Pallas kernels
+``_round_kernel`` and ``_round_kernel_param``): one round advances every
+``block``-lane tile of node values ``levels`` backward steps,
+
+    cont = (p * v[i+1] + (1-p) * v[i]) / r,   v[i] = max(intrinsic, cont),
+
+reading the right-neighbour block as a halo (clamped at the last block)
+so that ``levels <= block`` steps never let the stale tail reach the
+owned lanes.  Steps whose level is below 0 are no-ops.
+
+``lattice_round_param`` carries the payoff as data (the 11-slot
+``PARAM_SCALARS`` layout); ``lattice_round`` bakes put/call in as
+``kind`` with 6 scalars.  Both take a row dimension: ``v (R, P)`` and
+``scalars (R, n)``, where JAX vmapped over contracts.
+
+On a CUDA tensor the wrapper launches ``csrc/binomial_step.cu``; on a
+CPU tensor it runs the plain version below, which repeats the kernel's
+block/halo structure step for step.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["lattice_round", "lattice_round_param", "lattice_round_plain",
+           "DEFAULT_BLOCK", "PARAM_SCALARS", "KIND_SCALARS", "LAUNCHES",
+           "MAX_BLOCK"]
+
+DEFAULT_BLOCK = 256
+MAX_BLOCK = 1024
+# [lvl0, p_up, inv_r, s0, sig_sqrt_dt, alpha, zeta, w1, w2, k1, k2]
+PARAM_SCALARS = 11
+# [lvl0, p_up, inv_r, strike, s0, sig_sqrt_dt]
+KIND_SCALARS = 6
+_KINDS = {"param": 0, "put": 1, "call": 2}
+
+# kernel launches per entry point (never bumped by the plain version)
+LAUNCHES = {"lattice_round_param": 0, "lattice_round": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"lattice_round_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
+
+
+def _intrinsic(s, sc, kind: str):
+    if kind == "put":
+        return torch.clamp_min(sc[3] - s, 0.0)
+    if kind == "call":
+        return torch.clamp_min(s - sc[3], 0.0)
+    alpha, zeta, w1, w2, k1, k2 = (sc[5 + j] for j in range(6))
+    pay = (alpha * k1 + w1 * torch.clamp_min(s - k1, 0.0)
+           + w2 * torch.clamp_min(s - k2, 0.0) + zeta * s)
+    return torch.clamp_min(pay, 0.0)
+
+
+def lattice_round_plain(v, scalars, *, levels: int, block: int,
+                        kind: str = "param"):
+    """Plain PyTorch version of one round: ``v (R, P)``, ``scalars (R, n)``.
+
+    Builds each block's ``2*block``-lane buffer (block + clamped right
+    halo), runs ``levels`` steps with a wrapping shift like the TPU
+    kernel's ``roll``, and keeps the owned ``block`` lanes.
+    """
+    R, P = v.shape
+    nblk = P // block
+    blocks = v.reshape(R, nblk, block)
+    nxt = torch.clamp(torch.arange(nblk, device=v.device) + 1, max=nblk - 1)
+    buf = torch.cat([blocks, blocks[:, nxt]], dim=2)        # (R, nblk, 2B)
+    idx = (torch.arange(nblk, device=v.device)[:, None] * block
+           + torch.arange(2 * block, device=v.device)).to(v.dtype)
+    sc = [scalars[:, j, None, None] for j in range(scalars.shape[1])]
+    if kind == "param":
+        lvl0, p_up, inv_r, s0, sig = sc[:5]
+    else:
+        lvl0, p_up, inv_r, _, s0, sig = sc[:6]
+    for j in range(levels):
+        lvl = lvl0 - (j + 1)
+        cont = (p_up * torch.roll(buf, -1, dims=2) + (1.0 - p_up) * buf) * inv_r
+        s = s0 * torch.exp((2.0 * idx - lvl) * sig)
+        new = torch.maximum(_intrinsic(s, sc, kind), cont)
+        buf = torch.where(lvl >= 0, new, buf)
+    return buf[:, :, :block].reshape(R, P).contiguous()
+
+
+def _check(v, scalars, levels: int, block: int, n_scalars: int):
+    if v.dim() != 2 or scalars.dim() != 2:
+        raise ValueError("need v (R, P) and scalars (R, n)")
+    R, P = v.shape
+    if scalars.shape != (R, n_scalars):
+        raise ValueError(f"scalars must have shape ({R}, {n_scalars}), "
+                         f"got {tuple(scalars.shape)}")
+    if v.dtype != torch.float64 or scalars.dtype != torch.float64:
+        raise TypeError("the lattice kernel takes float64 tensors")
+    if v.device != scalars.device:
+        raise ValueError("v and scalars must be on one device")
+    if not (1 <= block <= MAX_BLOCK) or P % block != 0:
+        raise ValueError(f"P={P} must be a multiple of block={block} "
+                         f"(1 <= block <= {MAX_BLOCK})")
+    if not (1 <= levels <= block):
+        raise ValueError(f"need 1 <= levels <= block, got levels={levels}")
+
+
+def _launch(v, scalars, levels: int, block: int, kind: str):
+    if not (v.is_contiguous() and scalars.is_contiguous()):
+        raise ValueError("the lattice kernel takes contiguous tensors")
+    lib = _build.load("binomial_step", _SIGNATURES)
+    R, P = v.shape
+    out = torch.empty_like(v)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    err = lib.lattice_round_launch(v.data_ptr(), scalars.data_ptr(),
+                                   out.data_ptr(), R, P, block, levels,
+                                   _KINDS[kind], stream)
+    _build.check(err, "lattice_round_launch")
+    return out
+
+
+def _round(v, scalars, levels, block, kind, name, n_scalars):
+    squeeze = v.dim() == 1
+    if squeeze:
+        v, scalars = v[None], scalars[None]
+    _check(v, scalars, levels, block, n_scalars)
+    if v.device.type == "cuda":
+        out = _launch(v, scalars, levels, block, kind)
+        LAUNCHES[name] += 1
+    elif v.device.type == "cpu":
+        out = lattice_round_plain(v, scalars, levels=levels, block=block,
+                                  kind=kind)
+    else:
+        raise ValueError(f"unsupported device {v.device}")
+    return out[0] if squeeze else out
+
+
+def lattice_round_param(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK):
+    """One round with the payoff as data: ``v (P,)`` or ``(R, P)``,
+    ``scalars (11,)`` or ``(R, 11)`` in ``PARAM_SCALARS`` order."""
+    return _round(v, scalars, levels, block, "param", "lattice_round_param",
+                  PARAM_SCALARS)
+
+
+def lattice_round(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK,
+                  kind: str = "put"):
+    """One round with put/call baked in: ``scalars (6,)`` or ``(R, 6)``
+    = ``[lvl0, p_up, inv_r, strike, s0, sig_sqrt_dt]``."""
+    if kind not in ("put", "call"):
+        raise ValueError(f"kind must be 'put' or 'call', got {kind!r}")
+    return _round(v, scalars, levels, block, kind, "lattice_round",
+                  KIND_SCALARS)

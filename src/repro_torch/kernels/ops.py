@@ -1,0 +1,45 @@
+"""Single-contract entry point through the lattice kernel.
+
+``price_notc_kernel`` prices the appendix American put or call with a
+host loop over rounds, one ``lattice_round`` (``levels`` steps, one HBM
+round trip per block) per round — the port of the JAX package's
+``kernels/ops.py::price_notc_kernel``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.device import DEFAULT_DTYPE, resolve_device
+from ..core.lattice import LatticeModel
+from .binomial_step import DEFAULT_BLOCK, lattice_round
+
+__all__ = ["price_notc_kernel"]
+
+
+def price_notc_kernel(model: LatticeModel, strike: float, *,
+                      kind: str = "put", levels: int = 64,
+                      block: int = DEFAULT_BLOCK, device="cuda") -> float:
+    """Price through the blocked lattice kernel (plain version on CPU)."""
+    dev = resolve_device(device)
+    f64 = lambda x: torch.tensor(float(x), dtype=DEFAULT_DTYPE, device=dev)
+    n = model.n_steps
+    s0, sigma, rate, mat, k = (f64(x) for x in (model.s0, model.sigma,
+                                                model.rate, model.maturity,
+                                                strike))
+    dt = mat / n
+    u = torch.exp(sigma * torch.sqrt(dt))
+    r = torch.exp(rate * dt)
+    p_up = (r - 1.0 / u) / (u - 1.0 / u)
+    sig = sigma * torch.sqrt(dt)
+    P = -(-(n + 1) // block) * block
+    idx = torch.arange(P, dtype=DEFAULT_DTYPE, device=dev)
+    s_leaf = s0 * torch.exp((2.0 * idx - n) * sig)
+    pay = k - s_leaf if kind == "put" else s_leaf - k
+    v = torch.clamp_min(pay, 0.0)[None]
+    scalars = torch.stack([f64(n), p_up, 1.0 / r, k, s0, sig])[None]
+    for rr in range(math.ceil(n / levels)):
+        scalars[0, 0] = float(n - rr * levels)
+        v = lattice_round(v, scalars, levels=levels, block=block, kind=kind)
+    return float(v[0, 0])

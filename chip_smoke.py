@@ -21,9 +21,31 @@ backend (the kernels):
 It checks the launch counts of that run, ask >= bid, the knot counts
 against the capacity, a subset of each grid re-priced by the plain
 level walk (``backend="torch"``) and small inputs against the numpy
-oracle, and prints how a call's knot count grows with N.  The line before the last is a JSON object with each kernel's
-times and bound; the last line is ``{"ok": true, "device": {...}}``.
-Exits non-zero, printing no result, without a CUDA device or outside a
+oracle, and prints how a call's knot count grows with N.
+
+Then it serves recurrentgemma-2b at its published width (26 layers,
+d_model 2560, random weights from a seeded generator on the card,
+float32) through ``repro_torch.serve.engine.LMEngine``: batch 4, a
+4096-token prompt, 32 greedy tokens.  It holds ``flash_attention``
+against its plain version on the inputs that the first local-attention
+layer receives in that prefill (float32, max abs difference <= 2e-5),
+and ``lru_scan`` against its plain version, bit for bit, on the inputs
+of the first RG-LRU layer and on seeded inputs of the same shape whose
+decay is slow (a in (0.9, 1), h0 nonzero): the model's random init
+decays so fast that its own inputs leave the carry a_t * h_{t-1} below
+one ulp of h.  It times ``scaled_dot_product_attention`` with the same
+window mask as a yardstick, checks the launch counts of the serve (8
+``flash_attention`` and 18 ``lru_scan`` a prefill, none in decode), and
+that a prefill of 4096 tokens and a decode of token 4096 give a prefill
+of 4097's last logits (the kernels' ragged last tile).  Last it
+profiles one prefill and four decode steps (``torch.profiler``): device
+time by kernel and the device's idle share within the profiled window.
+TF32 is switched off for matrix products and cuDNN before the LM runs,
+so every product compared is full float32.
+
+The line before the last is a JSON object with each kernel's times and
+bound; the last line is ``{"ok": true, "device": {...}}``.  Exits
+non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
 import importlib
@@ -39,6 +61,7 @@ TOL = 1e-9
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
+FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # float64 operations one PWL lane-level step does per knot of its state:
 # two envelopes (merge with evaluations, crossings, compaction) and one
 # cone (suffix/prefix minima, crossings, an envelope).  An estimate from
@@ -49,6 +72,16 @@ RZ_OPS_PER_KNOT = 300
 # csrc/binomial_step.cu (the exp counted as one)
 LATTICE_OPS = {"param": 22, "put": 14, "call": 14}
 CB_STEPS = 120    # depth of the call/bull-spread grid
+# the LM serve: recurrentgemma-2b at full width
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "recurrentgemma-2b", 4, 4096, 32
+# flash against its plain version: the bound JAX's own flash is held to.
+# lru_scan rounds as its plain version does (no fused multiply-add) and
+# is held to equality, within the float32 contract's 2e-6.
+FLASH_TOL = 2e-5
+# prefill(T) + decode(T) against prefill(T + 1), last logits: float32
+# through 26 layers, sums of up to 7680 terms in other orders (flash
+# kernel against naive decode attention, cuBLAS at other shapes)
+CONSIST_TOL = 1e-3
 
 
 class SmokeError(RuntimeError):
@@ -241,6 +274,276 @@ def rz_phase(torch, R, RS, P, tc_grid, cb_grid, capacity):
     return out
 
 
+def live_pairs(np, T, S, causal, window):
+    """(query, key) pairs the masks leave live, positions from 0."""
+    t = np.arange(T)
+    hi = np.minimum(t + 1, S) if causal else np.full(T, S)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros(T, np.int64)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def capture_kernel_inputs(ops, fn):
+    """Run ``fn()`` and keep copies of the first inputs that
+    ``ops.flash_attention`` and ``ops.lru_scan`` receive in it."""
+    seen = {}
+    orig = {name: getattr(ops, name) for name in ("flash_attention",
+                                                   "lru_scan")}
+
+    def wrap(name):
+        def call(*args, **kw):
+            if name not in seen:
+                seen[name] = ([a.clone() for a in args], dict(kw))
+            return orig[name](*args, **kw)
+        return call
+    for name in orig:
+        setattr(ops, name, wrap(name))
+    try:
+        out = fn()
+    finally:
+        for name, f in orig.items():
+            setattr(ops, name, f)
+    return out, seen
+
+
+def lm_kernel_phase(torch, np, FL, LS, seen):
+    """lru_scan and flash_attention vs their plain versions on the inputs
+    the full-width prefill gave them (lru_scan also on slow-decay inputs
+    of the same shape); SDPA with the same mask as the attention kernel's
+    yardstick."""
+    import torch.nn.functional as F
+    out = {}
+    (a, b, h0), _ = seen["lru_scan"]
+    # the captured a is about exp(-16): h_t is b_t to within an ulp, so a
+    # kernel that dropped the carry would pass on them.  Slow decay, as
+    # trained RG-LRU gates have, makes the carry dominate.
+    g = torch.Generator(device=a.device).manual_seed(7)
+    slow = (0.9 + 0.1 * torch.rand(a.shape, generator=g, device=a.device),
+            torch.randn(a.shape, generator=g, device=a.device),
+            torch.randn(h0.shape, generator=g, device=a.device))
+    errs = {}
+    for label, xs in (("prefill inputs", (a, b, h0)), ("slow decay", slow)):
+        got = LS.lru_scan(*xs)
+        want = LS.lru_scan_plain(*xs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        errs[label] = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        carry = float((want[0] - xs[1]).abs().max())
+        print(f"[kernel] lru_scan {label}: equal to plain {same}, max abs "
+              f"err {errs[label]:.3e}, max |h_t - b_t| {carry:.3e}", flush=True)
+        check(same, f"lru_scan {label}: kernel differs from plain "
+              f"(max abs err {errs[label]})")
+    del slow, got, want
+    err = max(errs.values())
+    ms = cuda_ms(torch, lambda: LS.lru_scan(a, b, h0), 20)
+    plain_ms = cuda_ms(torch, lambda: LS.lru_scan_plain(a, b, h0), 2)
+    n = a.numel()
+    t_bytes = (3 * n + 2 * h0.numel()) * 4 / HBM_BYTES_PER_S
+    t_ops = 2 * n / FP32_OPS_PER_S
+    out["lru_scan"] = dict(max_abs_err=err, errs=errs, ms=ms,
+                           plain_ms=plain_ms,
+                           bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations", library_ms=None,
+                           shape=list(a.shape))
+    print(f"[kernel] lru_scan: a,b {tuple(a.shape)} max_abs_err={err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={out['lru_scan']['bound_ms']:.4f}", flush=True)
+
+    (q, k, v), kw = seen["flash_attention"]
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    got = FL.flash_attention(q, k, v, **kw)
+    want = FL.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= FLASH_TOL, f"flash_attention: kernel vs plain max abs err "
+          f"{err}")
+    ms = cuda_ms(torch, lambda: FL.flash_attention(q, k, v, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: FL.flash_attention_plain(q, k, v, **kw),
+                       2)
+    # the library's attention on the same inputs, heads first, the KV head
+    # repeated for every query head, the same causal-window mask
+    qs = q.transpose(1, 2)
+    ks = k.transpose(1, 2).expand(B, H, S, hd).contiguous()
+    vs = v.transpose(1, 2).expand(B, H, S, hd).contiguous()
+    pos_q = torch.arange(T, device=q.device)[:, None]
+    pos_k = torch.arange(S, device=q.device)[None, :]
+    mask = pos_q >= pos_k if kw["causal"] else torch.ones_like(pos_q >= pos_k)
+    if kw["window"] is not None:
+        mask &= pos_q - pos_k < kw["window"]
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    lib_err = float((sdpa().transpose(1, 2) - got).abs().max())
+    lib_ms = cuda_ms(torch, sdpa, 5)
+    del ks, vs
+    pairs = live_pairs(np, T, S, kw["causal"], kw["window"]) * B * H
+    t_ops = 4 * hd * pairs / FP32_OPS_PER_S
+    t_bytes = 2 * (q.numel() + k.numel()) * 4 / HBM_BYTES_PER_S
+    out["flash_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_ms, library_max_abs_diff=lib_err, live_pairs=pairs,
+        q_shape=list(q.shape), kv_shape=list(k.shape), window=kw["window"])
+    print(f"[kernel] flash_attention: q {tuple(q.shape)} k,v {tuple(k.shape)} "
+          f"window={kw['window']} live_pairs={pairs} max_abs_err={err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={out['flash_attention']['bound_ms']:.4f} "
+          f"sdpa_ms={lib_ms:.4f} (sdpa vs kernel {lib_err:.3e})", flush=True)
+    return out
+
+
+def profile_window(torch, fn):
+    """Device time by kernel name over ``fn()`` from ``torch.profiler``,
+    and the same window's host-clock time (which the tracing inflates)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    by_name, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            n_kernels += 1
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e6)
+    return wall_s, n_kernels, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def lm_profile(torch, T_, model, cfg, run, prompt, timings, n_dec=4):
+    """Where a full-width prefill and ``n_dec`` decode steps spend device
+    time, and the device's idle share: 1 - device busy time over the
+    host-clock time of the same profiled window.  The tracing slows the
+    host, so the share is an upper bound on the unprofiled serve's; that
+    serve's own host-clock time is printed beside it."""
+    state = {}
+
+    def do_prefill():
+        state["last"], state["cache"] = T_.prefill(
+            model, {"tokens": prompt[:, :LM_PROMPT]}, cfg, run,
+            max_len=LM_PROMPT + n_dec)
+
+    def do_decode():
+        tok = torch.argmax(state["last"], dim=-1)[:, None]
+        for i in range(n_dec):
+            logits, _ = T_.decode_step(model, state["cache"], tok,
+                                       LM_PROMPT + i, cfg, run)
+            tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+    out = {}
+    for label, fn, steps, unprofiled_s in (
+            ("prefill", do_prefill, 1, timings["prefill_s"]),
+            ("decode", do_decode, n_dec,
+             timings["decode_s"] / timings["decode_steps"])):
+        wall_s, n_kernels, kernels = profile_window(torch, fn)
+        busy_s = sum(t for _, t in kernels) / steps
+        top = [(name[:70], t / steps) for name, t in kernels[:6]]
+        profiled_s = wall_s / steps
+        idle = 1.0 - busy_s / profiled_s if busy_s else None
+        out[label] = dict(device_busy_s=busy_s, profiled_wall_s=profiled_s,
+                          unprofiled_s=unprofiled_s, idle_share=idle,
+                          kernels=n_kernels / steps, top_kernels_s=top)
+        share = ", ".join(f"{n} {t * 1e3:.3f} ms" for n, t in top)
+        print(f"[profile] {label} (per {'step' if steps > 1 else 'call'}): "
+              f"{n_kernels / steps:.0f} kernels, device busy "
+              f"{busy_s * 1e3:.3f} ms of {profiled_s * 1e3:.3f} ms under the "
+              f"profiler (idle share "
+              f"{'not measured' if idle is None else f'{idle:.3f}'}; "
+              f"unprofiled serve {unprofiled_s * 1e3:.3f} ms); "
+              f"top kernels: {share}", flush=True)
+    return out
+
+
+def lm_phase(torch, np, mod, all_launches):
+    """recurrentgemma-2b at full width: the prefill/decode consistency
+    check (capturing the kernels' inputs), each kernel against its plain
+    version, then the serve through ``LMEngine.generate``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    T_, cfgs, ops = mod("models.transformer"), mod("configs"), \
+        mod("kernels.ops")
+    FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
+    dev = torch.device("cuda")
+    cfg = cfgs.get_config(LM_ARCH)
+    run = T_.RunCfg(impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, init_s = wall(torch, lambda: T_.init_lm(cfg, gen, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1),
+                           generator=gen, device=dev)
+    print(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({n_params * 4 / 1e9:.3f} GB float32), "
+          f"initialised on the card in {init_s:.2f} s", flush=True)
+
+    # prefill(T) + decode(T) against prefill(T + 1): 4097 rows leave the
+    # kernel's last 64-row tile ragged
+    ((last, cache), seen), pre_s = wall(torch, lambda: capture_kernel_inputs(
+        ops, lambda: T_.prefill(model, {"tokens": prompt[:, :LM_PROMPT]}, cfg,
+                                run, max_len=LM_PROMPT + 1)))
+    dec, _ = T_.decode_step(model, cache, prompt[:, LM_PROMPT:], LM_PROMPT,
+                            cfg, run)
+    del cache
+    full, full_s = wall(torch, lambda: T_.prefill(model, {"tokens": prompt},
+                                                  cfg, run)[0])
+    d = float((dec[:, 0] - full).abs().max())
+    finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+    print(f"[check] {LM_ARCH} prefill {LM_PROMPT} ({pre_s:.3f} s) + decode "
+          f"of token {LM_PROMPT} vs prefill {LM_PROMPT + 1} ({full_s:.3f} s):"
+          f" max |d| logits {d:.3e} (tol {CONSIST_TOL}), logits "
+          f"{tuple(full.shape)} finite {finite}, max |logit| "
+          f"{float(full.abs().max()):.3f}", flush=True)
+    check(finite and tuple(full.shape) == (LM_BATCH, cfg.vocab),
+          "LM logits finite and of shape (B, V)")
+    check(d <= CONSIST_TOL, f"prefill/decode consistency {d}")
+    del dec, full
+
+    kern = lm_kernel_phase(torch, np, FL, LS, seen)
+    del seen
+
+    # the serve, through the engine a user calls
+    eng = mod("serve.engine").LMEngine(model, cfg, run, batch=LM_BATCH,
+                                       max_len=LM_PROMPT + LM_NEW)
+    prompt_np = prompt[:, :LM_PROMPT].cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in all_launches:
+        for key in counts:
+            counts[key] = 0
+    out, gen_s = wall(torch, lambda: eng.generate(prompt_np, LM_NEW))
+    launches = {"flash_attention": FL.LAUNCHES["flash_attention"],
+                "lru_scan": LS.LAUNCHES["lru_scan"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tm = eng.timings
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
+    want = {"flash_attention": kinds.count("local"),
+            "lru_scan": kinds.count("rglru")}
+    decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
+    tok_s = LM_BATCH * LM_NEW / gen_s
+    print(f"[main] {LM_ARCH} serve: batch {LM_BATCH}, prompt {LM_PROMPT}, "
+          f"{LM_NEW} new tokens in {gen_s:.3f} s: prefill "
+          f"{tm['prefill_s']:.3f} s, decode {decode_ms:.3f} ms/token, "
+          f"{tok_s:.2f} tokens/s ({LM_BATCH * LM_NEW} generated), "
+          f"{LM_BATCH * (LM_PROMPT + LM_NEW) / gen_s:.1f} prompt+generated "
+          f"tokens/s; launches {json.dumps(launches)}; peak device memory "
+          f"{peak_gb:.3f} GB", flush=True)
+    check(launches == want, f"LM launches {launches}, want {want} (one "
+          "prefill, none in decode)")
+    check(out.shape == (LM_BATCH, LM_NEW) and (out >= 0).all()
+          and (out < cfg.vocab).all(), "generated tokens")
+    top2 = torch.topk(last, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1] > CONSIST_TOL).cpu().numpy()
+    first = torch.argmax(last, dim=-1).cpu().numpy()
+    check((out[sure, 0] == first[sure]).all(),
+          "first served token vs the checked prefill's argmax")
+    prof = lm_profile(torch, T_, model, cfg, run, prompt, tm)
+    return kern, launches, dict(profile=prof,
+        params=n_params, init_s=init_s, prefill_s=tm["prefill_s"],
+        decode_ms_per_token=decode_ms, tokens_per_s=tok_s, generate_s=gen_s,
+        peak_device_gb=peak_gb, consistency_max_abs=d,
+        check_prefill_s=pre_s, check_prefill_4097_s=full_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -272,9 +575,10 @@ def main() -> int:
 
     # 1. build
     t = time.perf_counter()
-    build.build_all(["binomial_step", "rz_step"])
-    print(f"[build] nvcc x2 in parallel: {time.perf_counter() - t:.1f} s",
-          flush=True)
+    names = ["binomial_step", "rz_step", "lru_scan", "flash_attention"]
+    build.build_all(names)
+    print(f"[build] nvcc x{len(names)} in parallel: "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
 
     put_cfg, notc_cfg = cfgs.PAPER_PUT, cfgs.PAPER_NOTC
     capacity = put_cfg.capacity
@@ -406,6 +710,12 @@ def main() -> int:
     print(f"[knots] max_pieces at capacity 128: {json.dumps(grown)}",
           flush=True)
 
+    # 4. the language model's serve path at full width
+    FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
+    lm_kern, lm_launches, lm = lm_phase(
+        torch, np, mod, (B.LAUNCHES, RS.LAUNCHES, FL.LAUNCHES, LS.LAUNCHES))
+    launches.update(lm_launches)
+
     src = "src/repro_torch/csrc/"
     kernels = []
     for name, rec, source, replaces in (
@@ -423,12 +733,27 @@ def main() -> int:
             bound_note=("estimate: 300 float64 operations per knot per "
                         "live lane-level" if name == "rz_round" else
                         "counted from the source, the exp as one operation")))
+    for name, replaces, note in (
+            ("lru_scan", "src/repro/kernels/lru_scan.py:31",
+             "12 bytes per element (a, b read, h written) over 3.35 TB/s"),
+            ("flash_attention", "src/repro/kernels/flash_attention.py:29",
+             "4*hd float32 operations per live (query, key) pair over "
+             "67 TFLOP/s")):
+        rec = lm_kern[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + name + ".cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            bound_note=note))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
                    lattice_round_call_x256=lat["lattice_round call x256"],
                    rz_deep=rz["single-block-deep"],
-                   rz_call_bull_deep=rz["call-bull-deep"], rz_halo=rz["halo"])
+                   rz_call_bull_deep=rz["call-bull-deep"], rz_halo=rz["halo"],
+                   lm=lm, lm_kernels=lm_kern)
     print("[summary] " + json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,14 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
-The port has no weights; its state is the PWL records the engines carry
-and the scenario grids they price.  These converters take and give
-plain numpy arrays, so neither package imports the other:
+These converters take and give plain numpy arrays, so neither package
+imports the other:
 
 * a PWL as ``(xs, ys, sl, sr, m)`` arrays <-> :class:`core.pwl.PWL`;
-* a scenario grid's numpy columns -> :class:`scenarios.ScenarioGrid`.
+* a scenario grid's numpy columns -> :class:`scenarios.ScenarioGrid`;
+* the numpy leaves of the JAX ``init_lm`` tree -> the port's
+  :class:`models.transformer.LM` (``lm_params_from_jax``), and any tree
+  grouped as the JAX stack groups its layers (params or a decode
+  cache) -> one dict a layer (``layer_trees``).
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import numpy as np
 import torch
 
 from .core.pwl import PWL
+from .models.transformer import LM
 from .scenarios import ScenarioGrid
 
-__all__ = ["pwl_from_numpy", "pwl_to_numpy", "grid_from_columns"]
+__all__ = ["pwl_from_numpy", "pwl_to_numpy", "grid_from_columns",
+           "layer_trees", "lm_params_from_jax"]
 
 
 def pwl_from_numpy(xs, ys, sl, sr, m, *, device="cpu") -> PWL:
@@ -47,3 +52,52 @@ def grid_from_columns(grid) -> ScenarioGrid:
     kw["payoff"] = tuple(kw["payoff"])
     kw["shape"] = tuple(kw["shape"])
     return ScenarioGrid(**kw)
+
+
+def layer_trees(tree, cfg) -> list:
+    """One nested dict a layer, in layer order, from a tree grouped as the
+    JAX stack groups its layers: ``tree["scan"]["b{j}"]`` holds pattern
+    position ``j`` of every repetition (its leaves with a leading ``reps``
+    axis when there are several), ``tree["rem{r}"]`` the remainder."""
+    pat = cfg.block_pattern
+    reps, rem = divmod(cfg.n_layers, len(pat))
+
+    def pick(node, r):
+        if isinstance(node, dict):
+            return {key: pick(val, r) for key, val in node.items()}
+        return np.asarray(node) if r is None else np.asarray(node)[r]
+    out = [pick(tree["scan"][f"b{j}"], r if reps > 1 else None)
+           for r in range(reps) for j in range(len(pat))]
+    return out + [pick(tree[f"rem{r}"], None) for r in range(rem)]
+
+
+def _copy_tree(module, tree, where: str) -> None:
+    names = {name for name, _ in module.named_children()} | {
+        name for name, _ in module.named_parameters(recurse=False)}
+    if set(tree) != names:
+        raise KeyError(f"{where}: JAX leaves {sorted(tree)} do not match the "
+                       f"port's {sorted(names)}")
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            _copy_tree(getattr(module, name), node, f"{where}.{name}")
+        else:
+            leaf = getattr(module, name)
+            src = torch.tensor(np.asarray(node, np.float32))
+            if src.shape != leaf.shape:
+                raise ValueError(f"{where}.{name}: shape {tuple(src.shape)} "
+                                 f"!= {tuple(leaf.shape)}")
+            leaf.data.copy_(src)
+
+
+def lm_params_from_jax(params_np, cfg, *, device="cpu") -> LM:
+    """The port's model holding the weights of a JAX ``init_lm`` tree
+    (its leaves as numpy arrays): every leaf is copied, and a leaf that
+    is missing or left over raises."""
+    model = LM(cfg, device=device)
+    reps, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
+    stack = {f"rem{r}" for r in range(rem)} | ({"scan"} if reps else set())
+    tree = {k: v for k, v in params_np.items() if k not in stack}
+    tree["blocks"] = {str(i): t for i, t in
+                      enumerate(layer_trees(params_np, cfg))}
+    _copy_tree(model, tree, "model")
+    return model

@@ -1,0 +1,137 @@
+"""Causal / sliding-window GQA flash attention on the card.
+
+Port of the JAX package's ``kernels/flash_attention.py`` (Pallas kernel
+``_fa_kernel``): ``q (B, T, H, hd)``, ``k, v (B, S, KVH, hd)``, float32,
+give ``(B, T, H, hd)``; query head ``h`` reads KV head ``h // (H / KVH)``.
+Positions start at 0 for queries and keys alike (a prefill); a key is
+live for a query if ``pos_q >= pos_k`` (``causal``) and
+``pos_q - pos_k < window`` (``window`` not None).
+
+On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``, which
+is causal only and takes head_dim 64 or 256 (what the ported models use);
+it raises for anything else.  On a CPU tensor it runs the plain version
+below, which also takes ``causal=False``: the online-softmax loop of
+the JAX package's ``models/layers.py::_attn_flash`` written out in
+PyTorch (float32 ``m``, ``l``, ``acc``, masks built per chunk).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_plain", "mask_bias",
+           "LAUNCHES", "KERNEL_HEAD_DIMS"]
+
+# kernel launches (never bumped by the plain version)
+LAUNCHES = {"flash_attention": 0}
+KERNEL_HEAD_DIMS = (64, 256)  # the reduced models' and recurrentgemma-2b's
+_MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _I, ctypes.c_float, _P]}
+
+
+def mask_bias(pos_q, pos_k, *, causal: bool, window, neg: float = _MASK_NEG):
+    """(Tq, Tk) additive mask in float32 (0 / ``neg``)."""
+    live = torch.ones(pos_q.shape[0], pos_k.shape[0], dtype=torch.bool,
+                      device=pos_q.device)
+    if causal:
+        live &= pos_q[:, None] >= pos_k[None, :]
+    if window is not None:
+        live &= pos_q[:, None] - pos_k[None, :] < window
+    return torch.where(live, 0.0, neg).to(torch.float32)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
+                          q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Plain PyTorch version: ``_attn_flash``'s online softmax over KV
+    chunks, one q chunk at a time (a ragged last chunk is allowed)."""
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, T, KVH, G, hd)
+    pos_q = torch.arange(T, device=q.device)
+    pos_k = torch.arange(S, device=q.device)
+    out = torch.empty_like(qg)
+    for q0 in range(0, T, q_chunk):
+        qi = qg[:, q0:q0 + q_chunk]
+        cq = qi.shape[1]
+        m = torch.full((B, KVH, G, cq), -math.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KVH, G, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, cq, KVH, G, hd), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, S, kv_chunk):
+            kj, vj = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            bias = mask_bias(pos_q[q0:q0 + cq], pos_k[k0:k0 + kv_chunk],
+                             causal=causal, window=window)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qi, kj) * scale + bias
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskh->bqkgh", p, vj)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        l = torch.clamp_min(l, 1e-30)
+        out[:, q0:q0 + cq] = acc / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, T, H, hd)
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (B, T, H, hd) and k, v (B, S, KVH, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2] != 0:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if any(x.dtype != torch.float32 for x in (q, k, v)):
+        raise TypeError("flash_attention takes float32 tensors")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def _launch(q, k, v, causal: bool, window):
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    if not causal:
+        raise ValueError("the flash_attention kernel is causal only "
+                         "(causal=False runs on the CPU's plain version)")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    for x in (q, k, v):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("the flash_attention kernel takes contiguous, "
+                             "16-byte aligned tensors")
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H,
+        KVH, hd, 0 if window is None else int(window),
+        1.0 / math.sqrt(hd), stream)
+    _build.check(err, "flash_attention_launch")
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Attention over positions ``0..T-1`` (queries) and ``0..S-1`` (keys):
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    _check(q, k, v, window)
+    if q.device.type == "cuda":
+        out = _launch(q, k, v, causal, window)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    raise ValueError(f"unsupported device {q.device}")

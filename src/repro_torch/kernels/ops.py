@@ -1,9 +1,12 @@
-"""Single-contract entry point through the lattice kernel.
+"""Entry points through the kernels, the port of the JAX package's
+``kernels/ops.py``.
 
 ``price_notc_kernel`` prices the appendix American put or call with a
 host loop over rounds, one ``lattice_round`` (``levels`` steps, one HBM
-round trip per block) per round — the port of the JAX package's
-``kernels/ops.py::price_notc_kernel``.
+round trip per block) per round.  ``flash_attention`` and ``lru_scan``
+are the language model's two kernels: the model layers call them here,
+where the JAX model calls their references (``_attn_flash``,
+``_linear_scan_chunked``).
 """
 from __future__ import annotations
 
@@ -13,9 +16,11 @@ import torch
 
 from ..core.device import DEFAULT_DTYPE, resolve_device
 from ..core.lattice import LatticeModel
+from . import flash_attention as _fa
+from . import lru_scan as _ls
 from .binomial_step import DEFAULT_BLOCK, lattice_round
 
-__all__ = ["price_notc_kernel"]
+__all__ = ["price_notc_kernel", "flash_attention", "lru_scan"]
 
 
 def price_notc_kernel(model: LatticeModel, strike: float, *,
@@ -43,3 +48,19 @@ def price_notc_kernel(model: LatticeModel, strike: float, *,
         scalars[0, 0] = float(n - rr * levels)
         v = lattice_round(v, scalars, levels=levels, block=block, kind=kind)
     return float(v[0, 0])
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Causal/windowed GQA flash attention over positions from 0.
+
+    q: (B, T, H, hd);  k, v: (B, S, KVH, hd);  returns (B, T, H, hd).
+    """
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def lru_scan(a, b, h0):
+    """Linear recurrence h_t = a_t h_{t-1} + b_t along T.
+
+    a, b: (B, T, W); h0: (B, W); returns (h_seq (B, T, W), h_last (B, W)).
+    """
+    return _ls.lru_scan(a, b, h0)

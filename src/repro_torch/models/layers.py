@@ -1,0 +1,255 @@
+"""Model layers: norms, rotary, GQA attention, gated MLP, RG-LRU.
+
+The port of the JAX package's ``models/layers.py`` for the blocks that
+recurrentgemma-2b runs (MoE and mamba wait: ROADMAP Queue A #11).  The
+weights live in ``nn.Module`` containers in the JAX layout (``(in, out)``
+matrices, used as ``x @ w``), under the JAX leaf names, so that
+converting a JAX tree is a copy; the apply functions take a container
+and read its leaves, as the JAX functions read a params dict.
+
+Compute is float32, the type of the port's kernels.  Two calls go to
+the kernels where the JAX model calls their references:
+
+* ``attention(impl="flash")`` with ``T > 1`` calls ``ops.flash_attention``
+  (JAX: ``_attn_flash``); its positions are ``0..T-1``, a prefill;
+* ``rglru_block`` with ``T > 1`` calls ``ops.lru_scan`` (JAX:
+  ``_linear_scan_chunked``).
+
+The RG-LRU's short convolution stays a sum of shifted products, as in
+the JAX package, and does not go through ``conv1d`` (cuDNN would run it
+in TF32 by default).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from ..kernels.flash_attention import mask_bias as _mask_bias
+
+__all__ = ["RMSNorm", "Attention", "MLP", "RGLRU", "dense_init_", "rmsnorm",
+           "apply_rope", "attention", "mlp", "rglru_block"]
+
+_RGLRU_C = 8.0
+
+
+def _leaf(*shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: float = 1.0) -> None:
+    """Fill ``w`` as the JAX package's ``_dense_init``: a normal truncated
+    to [-2, 2], times ``scale / sqrt(fan_in)`` with ``fan_in = w.shape[0]``
+    (the inverse normal CDF of a uniform draw, as ``trunc_normal_`` does)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    w.uniform_(2.0 * lo - 1.0, 1.0 - 2.0 * lo, generator=generator)
+    w.erfinv_().mul_(math.sqrt(2.0) * scale / math.sqrt(w.shape[0]))
+    w.clamp_(-2.0 * scale / math.sqrt(w.shape[0]),
+             2.0 * scale / math.sqrt(w.shape[0]))
+
+
+# --------------------------------------------------------------------- #
+# weight containers
+# --------------------------------------------------------------------- #
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, device):
+        super().__init__()
+        self.scale = _leaf(d, device=device)
+
+    def init_(self, generator) -> None:
+        self.scale.fill_(1.0)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        h, kvh = cfg.n_heads, cfg.n_kv_heads
+        self.wq = _leaf(d, h * hd, device=device)
+        self.wk = _leaf(d, kvh * hd, device=device)
+        self.wv = _leaf(d, kvh * hd, device=device)
+        self.wo = _leaf(h * hd, d, device=device)
+        if cfg.qkv_bias:
+            self.bq = _leaf(h * hd, device=device)
+            self.bk = _leaf(kvh * hd, device=device)
+            self.bv = _leaf(kvh * hd, device=device)
+        if cfg.qk_norm:
+            self.q_norm = _leaf(hd, device=device)
+            self.k_norm = _leaf(hd, device=device)
+
+    def init_(self, generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, generator)
+        for name, fill in (("bq", 0.0), ("bk", 0.0), ("bv", 0.0),
+                           ("q_norm", 1.0), ("k_norm", 1.0)):
+            if hasattr(self, name):
+                getattr(self, name).fill_(fill)
+
+
+class MLP(nn.Module):
+    """Gated feed-forward (``swiglu`` or gated ``gelu``)."""
+
+    def __init__(self, d: int, f: int, *, device):
+        super().__init__()
+        self.wi = _leaf(d, f, device=device)
+        self.wg = _leaf(d, f, device=device)
+        self.wo = _leaf(f, d, device=device)
+
+    def init_(self, generator) -> None:
+        for w in (self.wi, self.wg, self.wo):
+            dense_init_(w, generator)
+
+
+class RGLRU(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        d, w, dc = cfg.d_model, cfg.lru_width, cfg.recurrent.d_conv
+        self.w_in = _leaf(d, w, device=device)
+        self.w_gate = _leaf(d, w, device=device)
+        self.conv = _leaf(dc, w, device=device)
+        self.lam = _leaf(w, device=device)
+        self.w_ig = _leaf(w, device=device)
+        self.w_rg = _leaf(w, device=device)
+        self.w_out = _leaf(w, d, device=device)
+
+    def init_(self, generator) -> None:
+        dense_init_(self.w_in, generator)
+        dense_init_(self.w_gate, generator)
+        dense_init_(self.conv, generator, scale=0.1)
+        self.lam.fill_(4.0)          # sigmoid(4) = 0.982: slow decay
+        self.w_ig.fill_(0.5)
+        self.w_rg.fill_(0.5)
+        dense_init_(self.w_out, generator)
+
+
+# --------------------------------------------------------------------- #
+# norms and rotary position embedding
+# --------------------------------------------------------------------- #
+def rmsnorm(p: RMSNorm, x, eps: float = 1e-6):
+    var = x.square().mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * p.scale
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, T, H, hd), positions: (B, T) or (T,)."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freq
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# --------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------- #
+def _qk_head_norm(x, scale, eps: float):
+    var = x.square().mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * scale
+
+
+def _attn_naive(q, k, v, bias):
+    """q: (B,T,KVH,G,hd)  k,v: (B,S,KVH,hd)  bias: (T,S) additive."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("btkgh,bskh->bkgts", q, k) * scale + bias
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgts,bskh->btkgh", w, v)
+
+
+def _project_qkv(p: Attention, x, cfg: ModelConfig):
+    B, T, _ = x.shape
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // kvh
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, T, kvh, g, hd)
+    k = k.reshape(B, T, kvh, hd)
+    v = v.reshape(B, T, kvh, hd)
+    if cfg.qk_norm:
+        q = _qk_head_norm(q, p.q_norm, cfg.norm_eps)
+        k = _qk_head_norm(k, p.k_norm, cfg.norm_eps)
+    return q, k, v
+
+
+def attention(p: Attention, x, cfg: ModelConfig, *,
+              window: Optional[int] = None, impl: str = "flash"):
+    """Causal self attention of ``x (B, T, D)`` at positions ``0..T-1``
+    (a prefill).  Returns ``(out, (k, v))`` so callers can build a KV
+    cache.  ``impl="flash"`` with ``T > 1`` runs the flash kernel;
+    ``"naive"`` materialises the scores."""
+    B, T, _ = x.shape
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    g = cfg.n_heads // kvh
+    q, k, v = _project_qkv(p, x, cfg)
+    positions = torch.arange(T, device=x.device)
+    q = apply_rope(q.reshape(B, T, kvh * g, hd), positions,
+                   cfg.rope_theta).reshape(B, T, kvh, g, hd)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if impl == "flash" and T > 1:
+        out = ops.flash_attention(q.reshape(B, T, kvh * g, hd), k, v,
+                                  causal=True, window=window)
+    elif impl in ("flash", "naive"):
+        bias = _mask_bias(positions, positions, causal=True, window=window)
+        out = _attn_naive(q, k, v, bias)
+    else:
+        raise ValueError(f"impl must be 'flash' or 'naive', got {impl!r}")
+    return out.reshape(B, T, cfg.n_heads * hd) @ p.wo, (k, v)
+
+
+# --------------------------------------------------------------------- #
+# feed-forward
+# --------------------------------------------------------------------- #
+def mlp(p: MLP, x, kind: str):
+    gate = x @ p.wg
+    act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
+    return (act * (x @ p.wi)) @ p.wo
+
+
+# --------------------------------------------------------------------- #
+# RG-LRU recurrent block (recurrentgemma / Griffin)
+# --------------------------------------------------------------------- #
+def _rglru_coeffs(p: RGLRU, xc):
+    """a_t, b_t of h_t = a_t h + b_t from the conv output xc (B, T, W)."""
+    r = torch.sigmoid(xc * p.w_rg)
+    i = torch.sigmoid(xc * p.w_ig)
+    log_a = -_RGLRU_C * F.softplus(p.lam) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * xc)
+    return a, b
+
+
+def rglru_block(p: RGLRU, x, cfg: ModelConfig, *, state=None):
+    """Returns ``(out, (conv_state, h_last))``; ``state`` is
+    ``(conv_state (B, d_conv-1, W), h (B, W))`` for decode."""
+    B, T, _ = x.shape
+    w, dc = cfg.lru_width, cfg.recurrent.d_conv
+    xb = x @ p.w_in
+    gate = x @ p.w_gate
+    if state is None:
+        conv_state = torch.zeros(B, dc - 1, w, dtype=x.dtype, device=x.device)
+        h0 = torch.zeros(B, w, dtype=torch.float32, device=x.device)
+    else:
+        conv_state, h0 = state
+    xpad = torch.cat([conv_state, xb], dim=1)
+    xc = sum(xpad[:, i:i + T, :] * p.conv[i] for i in range(dc))
+    # a copy: a view would keep the whole (B, T + dc - 1, W) buffer alive
+    new_conv_state = xpad[:, -(dc - 1):, :].clone() if dc > 1 else conv_state
+    a, b = _rglru_coeffs(p, xc)
+    if T == 1:
+        h_last = a[:, 0] * h0 + b[:, 0]
+        h_seq = h_last[:, None, :]
+    else:
+        h_seq, h_last = ops.lru_scan(a, b, h0)
+    out = (h_seq * F.gelu(gate, approximate="tanh")) @ p.w_out
+    return out, (new_conv_state, h_last)

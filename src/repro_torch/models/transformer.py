@@ -1,0 +1,209 @@
+"""Model assembly for decoder-only LMs: init, prefill and decode.
+
+The port of the JAX package's ``models/transformer.py`` for decoder-only
+stacks of ``attn``, ``local`` and ``rglru`` blocks (cross attention,
+encoders, MoE and mamba wait: ROADMAP Queue A #11).  Every block is
+pre-norm with a residual and carries a gated MLP.
+
+The JAX package groups the layers into a scanned stack of pattern
+repetitions plus remainder layers; the port holds one flat list,
+``LM.blocks``, in layer order (repetition ``r``, sub-block ``j`` is
+layer ``r * len(pattern) + j``; remainder ``r`` follows them).  Its
+cache is the same list: one dict a layer, ``{"k", "v"}`` of shape
+``(B, max_len, KVH, hd)`` for attention and ``{"conv", "h"}`` for
+RG-LRU.  ``decode_step`` updates the cache in place (JAX returns a new
+one): that saves a copy of every KV cache per token.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..core.device import resolve_device
+from . import layers as L
+
+__all__ = ["RunCfg", "Block", "LM", "init_lm", "embed_tokens", "prefill",
+           "init_cache", "decode_step"]
+
+_KINDS = ("attn", "local", "rglru")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCfg:
+    """How the model runs.  The port computes in float32, the type of its
+    kernels (bfloat16 waits: ROADMAP Queue A #11), and defaults to
+    ``impl="flash"`` so that prefill goes through the attention kernel
+    (the JAX package defaults to bfloat16 and ``"naive"``)."""
+    impl: str = "flash"            # prefill attention: flash | naive
+
+
+class Block(nn.Module):
+    """One pre-norm block: mixer (attention or RG-LRU) and gated MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device):
+        super().__init__()
+        if kind not in _KINDS:
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported yet (ROADMAP Queue A #11)")
+        if cfg.moe is not None or cfg.n_encoder_layers:
+            raise NotImplementedError(
+                "MoE and encoder-decoder models are not ported yet "
+                "(ROADMAP Queue A #11)")
+        self.kind = kind
+        self.norm1 = L.RMSNorm(cfg.d_model, device=device)
+        if kind == "rglru":
+            self.rglru = L.RGLRU(cfg, device=device)
+        else:
+            self.attn = L.Attention(cfg, device=device)
+        self.norm2 = L.RMSNorm(cfg.d_model, device=device)
+        if cfg.d_ff:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device)
+
+
+class LM(nn.Module):
+    """The weights of a decoder-only LM (uninitialised until ``init_lm`` or
+    ``convert.lm_params_from_jax`` fills them)."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cpu"):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, d, device=device),
+                                  requires_grad=False)
+        self.blocks = nn.ModuleList(
+            Block(cfg, cfg.block_kind(i), device=device)
+            for i in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(d, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(d, cfg.vocab, device=device),
+                                        requires_grad=False)
+
+    @property
+    def head(self):
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
+            device="cuda") -> LM:
+    """Random weights from ``generator`` (on ``device``), distributed as the
+    JAX package's ``init_lm`` draws them.  The two packages' generators
+    give different numbers: parity tests copy JAX's weights instead."""
+    model = LM(cfg, device=resolve_device(device))
+    L.dense_init_(model.embed, generator)
+    for module in model.modules():
+        if hasattr(module, "init_"):
+            module.init_(generator)
+    if not cfg.tie_embeddings:
+        L.dense_init_(model.lm_head, generator)
+    return model
+
+
+def embed_tokens(model: LM, tokens):
+    return model.embed[tokens]
+
+
+def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg):
+    """Pre-norm block over a whole sequence from position 0.
+    Returns ``(x, cache entry)``."""
+    h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
+    if blk.kind == "rglru":
+        out, (conv, hh) = L.rglru_block(blk.rglru, h, cfg)
+        entry = {"conv": conv, "h": hh}
+    else:
+        window = cfg.local_window if blk.kind == "local" else None
+        out, (k, v) = L.attention(blk.attn, h, cfg, window=window,
+                                  impl=run.impl)
+        entry = {"k": k, "v": v}
+    x = x + out
+    if cfg.d_ff:
+        x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
+                      cfg.mlp_kind)
+    return x, entry
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, *,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """One zeroed cache entry a layer."""
+    dev = resolve_device(device)
+    hd, kvh, w = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.lru_width
+    cache = []
+    for i in range(cfg.n_layers):
+        if cfg.block_kind(i) == "rglru":
+            cache.append({
+                "conv": torch.zeros(B, cfg.recurrent.d_conv - 1, w, device=dev),
+                "h": torch.zeros(B, w, device=dev)})
+        else:
+            cache.append({"k": torch.zeros(B, max_len, kvh, hd, device=dev),
+                          "v": torch.zeros(B, max_len, kvh, hd, device=dev)})
+    return cache
+
+
+@torch.inference_mode()
+def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
+            max_len: Optional[int] = None):
+    """Serve-side prefill.  ``batch["tokens"]``: (B, S) int64.
+
+    Returns ``(last_logits (B, V), cache)`` with the KV caches filled for
+    positions ``[0, S)`` (cache length ``max_len`` or ``S``).
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    max_len = max_len or S
+    x = embed_tokens(model, tokens)
+    cache = init_cache(cfg, B, max_len, device=x.device)
+    for blk, c in zip(model.blocks, cache):
+        x, entry = _apply_block(blk, x, cfg, run)
+        if "k" in entry:
+            c["k"][:, :S] = entry["k"]
+            c["v"][:, :S] = entry["v"]
+        else:
+            c.update(entry)
+    x = L.rmsnorm(model.final_norm, x[:, -1], cfg.norm_eps)
+    return x @ model.head, cache
+
+
+def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
+    """One block, T = 1, against its cache entry (updated in place)."""
+    h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
+    B = x.shape[0]
+    if blk.kind == "rglru":
+        out, (conv, hh) = L.rglru_block(blk.rglru, h, cfg,
+                                        state=(c["conv"], c["h"]))
+        c["conv"], c["h"] = conv, hh
+    else:
+        hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+        g = cfg.n_heads // kvh
+        q, k, v = L._project_qkv(blk.attn, h, cfg)
+        positions = torch.full((1,), pos, device=x.device)
+        q = L.apply_rope(q.reshape(B, 1, kvh * g, hd), positions,
+                         cfg.rope_theta).reshape(B, 1, kvh, g, hd)
+        c["k"][:, pos] = L.apply_rope(k, positions, cfg.rope_theta)[:, 0]
+        c["v"][:, pos] = v[:, 0]
+        window = cfg.local_window if blk.kind == "local" else None
+        bias = L._mask_bias(positions, torch.arange(c["k"].shape[1],
+                                                    device=x.device),
+                            causal=True, window=window, neg=-float("inf"))
+        out = L._attn_naive(q, c["k"], c["v"], bias)
+        out = out.reshape(B, 1, cfg.n_heads * hd) @ blk.attn.wo
+    x = x + out
+    if cfg.d_ff:
+        x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
+                      cfg.mlp_kind)
+    return x
+
+
+@torch.inference_mode()
+def decode_step(model: LM, cache, tokens, pos: int, cfg: ModelConfig,
+                run: RunCfg):
+    """One decoding step.  ``tokens``: (B, 1); ``pos``: the position of
+    ``tokens``.  Returns ``(logits (B, 1, V), cache)``, the cache updated
+    in place."""
+    x = embed_tokens(model, tokens)
+    for blk, c in zip(model.blocks, cache):
+        x = _decode_block(blk, c, x, cfg, pos)
+    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    return x @ model.head, cache

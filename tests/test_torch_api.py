@@ -231,6 +231,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+             if "repro_torch" in str(p)}
+    assert {"kernels/flash_attention.py", "kernels/lru_scan.py",
+            "models/layers.py", "models/transformer.py", "serve/engine.py",
+            "launch/serve.py", "configs/base.py",
+            "configs/recurrentgemma_2b.py"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path

@@ -7,9 +7,13 @@ machine without them it runs as
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: the kernels repeat their plain versions' float64 arithmetic
-operation for operation (no fused multiply-add), so values agree to
-1e-9 and knot counts exactly.
+Tolerance: the pricing kernels repeat their plain versions' float64
+arithmetic operation for operation (no fused multiply-add), so values
+agree to 1e-9 and knot counts exactly.  ``lru_scan`` rounds as its plain
+version does and agrees bit for bit; ``flash_attention`` sums in another
+order than its plain version's matrix products and is held to 2e-5,
+the bound JAX's own flash attention is held to.  TF32 is off for the
+comparisons (and restored after them).
 """
 import numpy as np
 import pytest
@@ -17,8 +21,12 @@ import torch
 
 from repro_torch import api
 from repro_torch.core.rz import leaf_level, rz_level_step_lanes, rz_params
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import binomial_step as TB
+from repro_torch.kernels import flash_attention as TF
+from repro_torch.kernels import lru_scan as TL
 from repro_torch.kernels import rz_step as TR
+from repro_torch.models import transformer as TT
 
 TOL = 1e-9
 
@@ -30,6 +38,17 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
 
 
 def _lattice_inputs(kind, rows, P, device):
@@ -116,3 +135,72 @@ def test_grids_on_card_match_the_plain_walks(cuda):
     nt_ref = api.price_grid(g, execution=api.ExecutionConfig(
         engine="notc", backend="torch"))
     np.testing.assert_allclose(nt.ask, nt_ref.ask, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("B,T,W", [(2, 77, 2560), (3, 256, 100)])
+def test_lru_scan_kernel_matches_plain(cuda, B, T, W):
+    """T = 77 leaves a tail after the kernel's 16-step unroll; W = 100 a
+    ragged last block of channels."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.rand(B, T, W, generator=g, device=cuda)
+    b = torch.randn(B, T, W, generator=g, device=cuda)
+    h0 = torch.randn(B, W, generator=g, device=cuda)
+    n0 = TL.LAUNCHES["lru_scan"]
+    got_seq, got_last = TL.lru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert TL.LAUNCHES["lru_scan"] == n0 + 1
+    want_seq, want_last = TL.lru_scan_plain(a, b, h0)
+    assert torch.equal(got_seq, want_seq) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.parametrize("hd,G", [(64, 1), (64, 4), (256, 10)])
+@pytest.mark.parametrize("window", [None, 100], ids=["causal", "window"])
+def test_flash_kernel_matches_plain(no_tf32, hd, G, window):
+    """T = 200 and S = 200 leave the kernel's last 64-row tiles ragged."""
+    g = torch.Generator(device=no_tf32).manual_seed(hd + G)
+    B, T, KVH = 2, 200, 2
+    q = torch.randn(B, T, KVH * G, hd, generator=g, device=no_tf32)
+    k = torch.randn(B, T, KVH, hd, generator=g, device=no_tf32)
+    v = torch.randn(B, T, KVH, hd, generator=g, device=no_tf32)
+    n0 = TF.LAUNCHES["flash_attention"]
+    got = TF.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES["flash_attention"] == n0 + 1
+    want = TF.flash_attention_plain(q, k, v, causal=True, window=window,
+                                    q_chunk=64, kv_chunk=48)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+def test_flash_kernel_refuses_what_it_cannot_run(cuda):
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros(1, 8, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="causal only"):
+        TF.flash_attention(q, q[:, :, :1], q[:, :, :1], causal=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        TF.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q[:, :, :1], q[:, :, :1])
+
+
+def test_reduced_lm_on_card_matches_cpu(no_tf32):
+    """8-layer reduced recurrentgemma (head_dim 64) through the kernels on
+    the card against the plain versions on the CPU, same weights:
+    float32 sums in other orders on two devices, 1e-4 on the logits."""
+    cfg = reduced_config(get_config("recurrentgemma-2b"), n_layers=8,
+                         d_model=256, n_heads=4)
+    make = lambda: TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
+    cpu_model, card_model = make(), make().to(no_tf32)
+    toks = torch.randint(0, cfg.vocab, (2, 130),
+                         generator=torch.Generator().manual_seed(2))
+    n_fa, n_ls = TF.LAUNCHES["flash_attention"], TL.LAUNCHES["lru_scan"]
+    want, _ = TT.prefill(cpu_model, {"tokens": toks}, cfg, TT.RunCfg())
+    got, _ = TT.prefill(card_model, {"tokens": toks.to(no_tf32)}, cfg,
+                        TT.RunCfg())
+    assert TF.LAUNCHES["flash_attention"] == n_fa + 2
+    assert TL.LAUNCHES["lru_scan"] == n_ls + 6
+    assert (got.cpu() - want).abs().max().item() <= 1e-4

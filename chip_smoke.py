@@ -5,8 +5,9 @@
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, started together), holds each kernel against its plain PyTorch
-version on the card at the main path's shapes (float64, max abs
-difference <= 1e-9 and identical knot counts), then drives the port's
+version on the card at the main path's shapes (float64: the lattice
+kernel bit for bit, also on edge cases at small rows; ``rz_round`` to
+1e-9 with identical knot counts), then drives the port's
 main path through ``repro_torch.api.price_grid`` with the default
 backend (the kernels):
 
@@ -50,6 +51,7 @@ checkout of the repository.
 """
 import importlib
 import json
+import re
 import os
 import subprocess
 import sys
@@ -68,9 +70,12 @@ FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # the algorithm in csrc/rz_step.cu, not a count of its instructions, so
 # rz_round's bound is marked as an estimate in the kernels line.
 RZ_OPS_PER_KNOT = 300
-# float64 operations per node and level of the lattice step, counted from
-# csrc/binomial_step.cu (the exp counted as one)
-LATTICE_OPS = {"param": 22, "put": 14, "call": 14}
+# float64 operations the lattice round needs: 5 per node and level (p*up,
+# q*v, their sum, *inv_r, the max), and the intrinsic once per distinct
+# spot j = 2i - lvl, counted from the expression of each kind (the exp as
+# one): s0 * exp(j * sig) and the payoff with its clamp
+LATTICE_STEP_OPS = 5
+LATTICE_INTRINSIC_OPS = {"param": 15, "put": 5, "call": 5}
 CB_STEPS = 120    # depth of the call/bull-spread grid
 # the LM serve: recurrentgemma-2b at full width
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "recurrentgemma-2b", 4, 4096, 32
@@ -131,55 +136,122 @@ def max_pwl_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a[:4], b[:4]))
 
 
+def print_ptxas(source, log):
+    """One ``[ptxas]`` line per kernel of a source: registers, stack and
+    spills as ``nvcc -Xptxas=-v`` reported them."""
+    entry, facts = None, []
+    for ln in log.splitlines() + ["Compiling entry function 'end'"]:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            if entry and facts:
+                print(f"[ptxas] {source} {entry}: {'; '.join(facts)}",
+                      flush=True)
+            # the kernel's name and template argument out of the mangled one
+            k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", m.group(1))
+            entry = (m.group(1) if k is None else
+                     k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""))
+            facts = []
+        elif entry and ("Used" in ln or "spill" in ln):
+            facts.append(ln.split(":", 1)[-1].strip())
+
+
+def lattice_bound(torch, x, s, kind, levels):
+    """Least time for one round on these inputs: 5 float64 operations per
+    node and active level, the intrinsic once per distinct spot j (about
+    2 (P + levels) a row), against each lane read and written once."""
+    rows, P = x.shape
+    active = torch.clamp(torch.floor(s[:, 0]), 0, levels)
+    ops = float((P * active * LATTICE_STEP_OPS
+                 + torch.where(active > 0, 2 * (P + active) - 3, 0)
+                 * LATTICE_INTRINSIC_OPS[kind]).sum())
+    t_ops = ops / FP64_OPS_PER_S
+    t_bytes = (2 * x.numel() + s.numel()) * 8 / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def lattice_inputs(torch, dev, rows, P, lvl0, kind):
+    """Seeded node values in [0, 30) and round scalars for ``rows`` rows
+    of ``P`` lanes (puts and calls of the 4-parameter family alternating;
+    the 6 put/call scalars for ``kind`` other than "param"); ``lvl0`` is
+    one level or one per row."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    v = torch.rand(rows, P, generator=g, dtype=torch.float64, device=dev) * 30
+    u = torch.rand(rows, generator=g, dtype=torch.float64, device=dev)
+    fam = torch.tensor([[1.0, -1.0, 0.0, 0.0], [-1.0, 1.0, 0.0, 0.0]],
+                       dtype=torch.float64, device=dev)[torch.arange(rows) % 2]
+    k = 90.0 + 20.0 * u
+    l0 = torch.as_tensor(lvl0, dtype=torch.float64, device=dev).expand(rows)
+    sc = torch.stack([l0, 0.5 + 0.01 * u, torch.full_like(u, 0.99998),
+                      80.0 + 40.0 * u, torch.full_like(u, 0.0026),
+                      *fam.T, k, k], dim=1)
+    if kind != "param":
+        sc = sc[:, [0, 1, 2, 9, 3, 4]]
+    return v, sc.contiguous()
+
+
 def lattice_phase(torch, B, paper_notc):
     """lattice_round_param and lattice_round vs their plain version at the
     no-TC main path's shapes (P=40192 lanes, levels=50, block=256):
     lattice_round_param on the grid's 256 rows, lattice_round on the one
     row of the single-contract price; lattice_round also on 256 rows of
-    calls, a check off the main path."""
+    calls, a check off the main path.  Then edge cases at small rows.
+    Each is held to equality: the kernel repeats the plain version's
+    operations in the same order for every owned lane."""
     dev = torch.device("cuda")
     block, levels = 256, paper_notc.round_depth
     P = -(-(paper_notc.n_steps + 1) // block) * block
-    g = torch.Generator(device=dev).manual_seed(0)
-    v = torch.rand(256, P, generator=g, dtype=torch.float64, device=dev) * 30
-    u = torch.rand(256, generator=g, dtype=torch.float64, device=dev)
-    fam = torch.tensor([[1.0, -1.0, 0.0, 0.0], [-1.0, 1.0, 0.0, 0.0]],
-                       dtype=torch.float64, device=dev)[torch.arange(256) % 2]
-    k = 90.0 + 20.0 * u
-    sc = torch.stack([torch.full_like(u, float(paper_notc.n_steps)),
-                      0.5 + 0.01 * u, torch.full_like(u, 0.99998),
-                      80.0 + 40.0 * u, torch.full_like(u, 0.0026),
-                      *fam.T, k, k], dim=1).contiguous()
-    sc6 = sc[:, [0, 1, 2, 9, 3, 4]].contiguous()
+    n = float(paper_notc.n_steps)
+    entry = {"param": B.lattice_round_param, "put": B.lattice_round,
+             "call": B.lattice_round}
     out = {}
-    for label, fn, kind, s_all, rows in (
-            ("lattice_round_param", B.lattice_round_param, "param", sc, 256),
-            ("lattice_round", B.lattice_round, "put", sc6, 1),
-            ("lattice_round call x256", B.lattice_round, "call", sc6, 256)):
-        x, s = v[:rows].contiguous(), s_all[:rows].contiguous()
+
+    def hold(label, kind, x, s, lv, blk):
         kw = {} if kind == "param" else {"kind": kind}
-        got = fn(x, s, levels=levels, block=block, **kw)
-        want = B.lattice_round_plain(x, s, levels=levels, block=block,
-                                     kind=kind)
+        got = entry[kind](x, s, levels=lv, block=blk, **kw)
+        want = B.lattice_round_plain(x, s, levels=lv, block=blk, kind=kind)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(err <= TOL, f"{label}: kernel vs plain max abs err {err}")
-        ms = cuda_ms(torch, lambda: fn(x, s, levels=levels, block=block,
-                                       **kw), 20)
+        check(torch.equal(got, want),
+              f"{label}: kernel differs from plain (max abs err {err})")
+        return err
+
+    for label, kind, rows in (("lattice_round_param", "param", 256),
+                              ("lattice_round", "put", 1),
+                              ("lattice_round call x256", "call", 256)):
+        x, s = lattice_inputs(torch, dev, rows, P, n, kind)
+        err = hold(label, kind, x, s, levels, block)
+        kw = {} if kind == "param" else {"kind": kind}
+        ms = cuda_ms(torch, lambda: entry[kind](x, s, levels=levels,
+                                                block=block, **kw), 20)
         plain_ms = cuda_ms(torch, lambda: B.lattice_round_plain(
             x, s, levels=levels, block=block, kind=kind), 3)
-        nbytes = 2 * x.numel() * 8 + s.numel() * 8
-        t_ops = rows * P * levels * LATTICE_OPS[kind] / FP64_OPS_PER_S
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        bound = max(t_ops, t_bytes) * 1e3
+        bound, bound_by = lattice_bound(torch, x, s, kind, levels)
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound,
-                          bound_by="bytes" if t_bytes >= t_ops
-                          else "operations",
+                          bound_ms=bound, bound_by=bound_by,
                           shape=[rows, P], levels=levels, block=block)
         print(f"[kernel] {label}: rows={rows} P={P} levels={levels} "
               f"block={block} max_abs_err={err:.3e} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f}", flush=True)
+
+    # (label, kind, rows, P, levels, block, lvl0 of the rows)
+    edges = (("final short round", "param", 4, P, levels, block,
+              [30.0, 1.0, 0.0, 49.0]),
+             ("mixed lvl0", "param", 4, P, levels, block,
+              [n, 7.0, 50.0, 100.0]),
+             ("levels == block", "param", 64, 4096, 256, 256, n),
+             ("block 32", "call", 64, 4096, 32, 32, n),
+             ("block 1024", "param", 64, 4096, 1024, 1024, n),
+             ("single block", "put", 3, 256, levels, 256,
+              [255.0, 40.0, 256.0]))
+    for label, kind, rows, p, lv, blk, lvl0 in edges:
+        x, s = lattice_inputs(torch, dev, rows, p, lvl0, kind)
+        err = hold(f"edge {label}", kind, x, s, lv, blk)
+        print(f"[kernel] lattice edge {label}: kind={kind} rows={rows} P={p} "
+              f"levels={lv} block={blk} lvl0={s[:, 0].tolist()[:4]} "
+              f"max_abs_err={err:.3e}", flush=True)
+        out[f"edge {label}"] = dict(max_abs_err=err, kind=kind,
+                                    shape=[rows, p], levels=lv, block=blk)
     return out
 
 
@@ -576,9 +648,11 @@ def main() -> int:
     # 1. build
     t = time.perf_counter()
     names = ["binomial_step", "rz_step", "lru_scan", "flash_attention"]
-    build.build_all(names)
+    logs = build.build_all(names)
     print(f"[build] nvcc x{len(names)} in parallel: "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    for name in names:
+        print_ptxas(name, logs[name])
 
     put_cfg, notc_cfg = cfgs.PAPER_PUT, cfgs.PAPER_NOTC
     capacity = put_cfg.capacity
@@ -732,7 +806,9 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=None,
             bound_note=("estimate: 300 float64 operations per knot per "
                         "live lane-level" if name == "rz_round" else
-                        "counted from the source, the exp as one operation")))
+                        "5 float64 operations per node and active level, the "
+                        "intrinsic once per distinct spot (exp as one), "
+                        "over 34 TFLOP/s")))
     for name, replaces, note in (
             ("lru_scan", "src/repro/kernels/lru_scan.py:31",
              "12 bytes per element (a, b read, h written) over 3.35 TB/s"),
@@ -751,6 +827,8 @@ def main() -> int:
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
                    lattice_round_call_x256=lat["lattice_round call x256"],
+                   lattice_edges={k: v for k, v in lat.items()
+                                  if k.startswith("edge")},
                    rz_deep=rz["single-block-deep"],
                    rz_call_bull_deep=rz["call-bull-deep"], rz_halo=rz["halo"],
                    lm=lm, lm_kernels=lm_kern)

@@ -2,117 +2,249 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/binomial_step.py:
 // _round_kernel_param (payoff as 11 scalars, entry lattice_round_param) and
-// _round_kernel (put/call baked in, 6 scalars, entry lattice_round).
+// _round_kernel (put/call baked in, 6 scalars, entry lattice_round).  One
+// round advances every lane `levels` backward steps,
 //
-// What bounds it on the H100: float64 operations.  A round reads each node
-// value about twice (its block and, as halo, the block to its left) and
-// writes it once, and does ~levels * 14-22 float64 operations per node (one
-// exp per node and level among them).  At levels = 50 that is about
-// 50 * 22 / 16 B ~ 69 flop/B, above the H100's 34e12 / 3.35e12 ~ 10 flop/B
-// ridge for float64 outside the tensor cores, so the round is bound by
-// operations, not by memory; the exp costs tens of instructions where the
-// count above takes one, and each CTA also steps its halo block, so the
-// kernel runs well above that bound.
+//   v[i] = max(g(2 i - lvl), (p v[i+1] + (1-p) v[i]) / r),  lvl = lvl0-1, ...
 //
-// Design: grid (nblk, rows); one CTA stages its block plus the clamped right
-// halo (2*block lanes) in shared memory, runs `levels` steps with
-// __syncthreads() between them, double-buffering so that lane i reads the
-// old v[i+1], and writes its owned `block` lanes back.  Lane 2*block-1 reads
-// lane 0 (the TPU kernel's wrapping roll); that lane is stale halo and never
-// reaches an owned lane while levels <= block.  The simple design pays one
-// HBM round trip per round, as the TPU kernel does.
+// where g(j) = intrinsic(s0 exp(j sig)); steps whose level is below 0 are
+// no-ops.  The TPU kernel steps a 2*block buffer (its block and the clamped
+// right block as halo) with a wrapping roll; an owned lane after `levels`
+// steps depends only on the `levels` lanes to its right, so the round is
+// out[i] = F(V[i .. i+levels]) over the virtual row V[p] = v[p] for p < P
+// and V[p] = v[p - block] for P <= p < P + block (the last block's clamped
+// halo), with the intrinsic taken at p in both cases.
 //
-// Built with --fmad=false so that the arithmetic rounds as the plain
-// PyTorch version's separate multiplies and adds do.
+// What bounds it on the H100: float64 operations.  Per node and level the
+// function needs 5 (p*up, q*v, their sum, *inv_r, the max); the intrinsic
+// depends on j = 2i - lvl alone, so a round needs it at about 2 distinct j
+// per lane, not one per lane and level.  At the main path's 50 levels that
+// is ~250 operations per 16 bytes moved, far above the card's float64 ridge
+// (34e12 / 3.35e12 ~ 10 per byte).  Built with --fmad=false (the plain
+// version's rounding), each operation is its own instruction, so the
+// practical floor is twice the bound taken at 34e12 operations/s.
+//
+// Tiling: R = 10 lanes a thread and 4 warps a CTA (PERF.md, Findings).
+//
+// Design:
+// 1. No exp in the level loop.  A CTA owns `tile` lanes of one row and
+//    first tabulates g[k] = intrinsic(s0 * exp((double)j * sig)) in shared
+//    memory for k = j - jbase over the 2*(tile+levels) values of j its lanes
+//    and levels reach: 2 exps per lane and round.  2i - lvl is an exact
+//    integer in float64, so the entries are the plain version's values bit
+//    for bit.  Each thread keeps the entries its lanes need in registers, one
+//    window per parity of the step: lane r at step s+2 needs what lane r+1
+//    needed at step s, so a window rotates by one slot every two steps and
+//    refills one entry from the table (the rotation is unrolled, no moves).
+//    The table is stored skewed so that a warp's refills do not collide on a
+//    shared-memory bank.
+// 2. A halo `levels` lanes wide, stepped as a shrinking trapezoid.  The CTA
+//    loads lanes [t0, t0 + tile + levels) of V (the clamp included) and
+//    computes, in each chunk of steps, only the lanes the owned ones still
+//    depend on.  The wrapping lane of the TPU kernel never reaches an owned
+//    lane, so the owned lanes are the plain version's bit for bit.
+// 3. No block barrier per level.  A warp steps a window of W = 32*R
+//    consecutive lanes, R in each thread's registers; the right neighbour of
+//    a thread's last lane comes from the next thread by __shfl_down_sync.
+//    Lane x of the window is exact after n steps while x + n < W, so a warp
+//    keeps W - n lanes of each window; windows overlap by n lanes and need
+//    nothing from each other.  Levels go in chunks of at most W/2 with one
+//    __syncthreads() between chunks (the state in shared memory, double
+//    buffered); at levels <= W/2, as on the main path, a round is one chunk
+//    and the level loop has no barrier at all.
+//
+// lvl0 must be a level number, a whole number in float64, as every host
+// round loop passes it: the table and the count of active steps take it as
+// an integer.  Built with --fmad=false so that the arithmetic rounds as the
+// plain PyTorch version's separate multiplies and adds do; the max is a
+// compare and select (torch.maximum for inputs without NaN), three
+// instructions where fmax's NaN handling takes four.
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int R = 10;              // lanes a thread holds
+constexpr int W = 32 * R;          // lanes a warp window holds
+constexpr int WARPS = 4;           // warps a CTA
+
+struct Round {
+  double p_up, q, inv_r, s0, sig;
+  double alpha, zeta, w1, w2, k1, k2, strike;
+};
+
 template <int KIND>  // 0: 4-parameter payoff, 1: put, 2: call
-__global__ void lattice_round_kernel(const double* __restrict__ v,
-                                     const double* __restrict__ scalars,
-                                     double* __restrict__ out,
-                                     int P, int block, int levels,
-                                     int n_scalars) {
+__device__ __forceinline__ double intrinsic(const Round& c, double s) {
+  if (KIND == 1) return fmax(c.strike - s, 0.0);
+  if (KIND == 2) return fmax(s - c.strike, 0.0);
+  const double pay = c.alpha * c.k1 + c.w1 * fmax(s - c.k1, 0.0)
+                     + c.w2 * fmax(s - c.k2, 0.0) + c.zeta * s;
+  return fmax(pay, 0.0);
+}
+
+// Table entry k lives at k + (k >> SKEW): thread t's refill index steps by
+// 2R, and 2R >> SKEW is odd, so the 16 threads of a half warp refill from
+// 16 distinct bank pairs (a plain layout puts 4 of them on one).
+constexpr int SKEW = 2;
+static_assert((2 * R) % (1 << SKEW) == 0 && ((2 * R) >> SKEW) % 2 == 1,
+              "the skew must spread a half warp's refills over the banks");
+
+__device__ __forceinline__ int tab(int k) { return k + (k >> SKEW); }
+
+__host__ __device__ constexpr int table_size(int entries) {
+  return entries + ((entries - 1) >> SKEW) + 1;
+}
+
+// One backward step of a thread's R lanes; lane r's intrinsic sits in
+// slot (r + u) % R of the window w.
+__device__ __forceinline__ void step(double (&v)[R], const double (&w)[R],
+                                     int u, const Round& c) {
+  const double last = __shfl_down_sync(FULL, v[0], 1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const double up = r + 1 < R ? v[r + 1] : last;
+    const double cont = (c.p_up * up + c.q * v[r]) * c.inv_r;
+    const double pay = w[(r + u) % R];
+    v[r] = pay > cont ? pay : cont;
+  }
+}
+
+// One warp advances the window of W lanes of `src` at `start` by n steps
+// (steps done+1 .. done+n) and writes its first W - n lanes, those below
+// vout, to `dst`.  g[k] is the intrinsic of lane x at step s, k = 2x + s - 1.
+__device__ __forceinline__ void warp_steps(
+    const double* __restrict__ src, double* __restrict__ dst,
+    const double* __restrict__ g, int nsrc, int start, int done, int n,
+    int vout, const Round& c) {
+  const int base = start + (threadIdx.x & 31) * R;
+  const int kmax = 2 * nsrc - 1;
+  double v[R], e[R], o[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = src[min(base + r, nsrc - 1)];
+  int k = 2 * base + done;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    e[r] = g[tab(min(k + 2 * r, kmax))];
+    o[r] = g[tab(min(k + 2 * r + 1, kmax))];
+  }
+  k += 2 * R;   // the last lane's entry two steps on
+  for (int i = 0; i < n; i += 2 * R) {
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      if (i + 2 * u >= n) break;
+      step(v, e, u, c);
+      e[u] = g[tab(min(k, kmax))];
+      if (i + 2 * u + 1 >= n) break;
+      step(v, o, u, c);
+      o[u] = g[tab(min(k + 1, kmax))];
+      k += 2;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int x = base + r;
+    if (x - start < W - n && x < vout) dst[x] = v[r];
+  }
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(WARPS * 32)
+lattice_round_kernel(const double* __restrict__ v,
+                     const double* __restrict__ scalars,
+                     double* __restrict__ out, int P, int block, int levels,
+                     int n_scalars, int tile) {
   extern __shared__ double smem[];
-  double* buf0 = smem;
-  double* buf1 = smem + 2 * block;
-  const int blk = blockIdx.x;
+  const int nsrc = tile + levels;          // lanes the owned ones depend on
+  double* src = smem;
+  double* dst = smem + nsrc;
+  double* g = smem + 2 * nsrc;             // 2 * nsrc entries, skewed
   const int row = blockIdx.y;
-  const int nblk = P / block;
-  const int nxt = blk + 1 < nblk ? blk + 1 : nblk - 1;
+  const long long t0 = (long long)blockIdx.x * tile;
   const double* vr = v + (size_t)row * P;
   const double* sc = scalars + (size_t)row * n_scalars;
 
-  double lvl0, p_up, inv_r, s0, sig;
-  double alpha = 0, zeta = 0, w1 = 0, w2 = 0, k1 = 0, k2 = 0, strike = 0;
-  lvl0 = sc[0]; p_up = sc[1]; inv_r = sc[2];
+  Round c{};
+  const double lvl0 = sc[0];
+  c.p_up = sc[1];
+  c.inv_r = sc[2];
   if (KIND == 0) {
-    s0 = sc[3]; sig = sc[4];
-    alpha = sc[5]; zeta = sc[6]; w1 = sc[7]; w2 = sc[8]; k1 = sc[9]; k2 = sc[10];
+    c.s0 = sc[3]; c.sig = sc[4];
+    c.alpha = sc[5]; c.zeta = sc[6]; c.w1 = sc[7]; c.w2 = sc[8];
+    c.k1 = sc[9]; c.k2 = sc[10];
   } else {
-    strike = sc[3]; s0 = sc[4]; sig = sc[5];
+    c.strike = sc[3]; c.s0 = sc[4]; c.sig = sc[5];
   }
-  const double q = 1.0 - p_up;
-  const int W = 2 * block;
+  c.q = 1.0 - c.p_up;
+  // steps whose level lvl0 - s is >= 0; the rest of the round is no-ops
+  const int active = lvl0 >= levels ? levels : (lvl0 >= 1.0 ? (int)lvl0 : 0);
 
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    buf0[i] = i < block ? vr[(size_t)blk * block + i]
-                        : vr[(size_t)nxt * block + (i - block)];
+  for (int x = threadIdx.x; x < nsrc; x += blockDim.x) {
+    const long long p = t0 + x;
+    double val = 0.0;
+    if (p < P) val = vr[p];
+    else if (p < (long long)P + block) val = vr[p - block];
+    src[x] = val;
+    dst[x] = 0.0;
+  }
+  if (active > 0) {
+    // j = 2p - (lvl0 - s) for local lane x = p - t0 at step s is
+    // jbase + 2x + s - 1
+    const long long jbase = 2 * t0 - (long long)lvl0 + 1;
+    for (int k = threadIdx.x; k < 2 * nsrc; k += blockDim.x)
+      g[tab(k)] = intrinsic<KIND>(c, c.s0 * exp((double)(jbase + k) * c.sig));
   }
   __syncthreads();
 
-  double* cur = buf0;
-  double* nw = buf1;
-  for (int j = 0; j < levels; ++j) {
-    const double lvl = lvl0 - (double)(j + 1);
-    for (int i = threadIdx.x; i < W; i += blockDim.x) {
-      const double vi = cur[i];
-      double res = vi;
-      if (lvl >= 0.0) {
-        const double up = cur[i + 1 < W ? i + 1 : 0];
-        const double cont = (p_up * up + q * vi) * inv_r;
-        const double idx = (double)blk * (double)block + (double)i;
-        const double s = s0 * exp((2.0 * idx - lvl) * sig);
-        double pay;
-        if (KIND == 1) {
-          pay = fmax(strike - s, 0.0);
-        } else if (KIND == 2) {
-          pay = fmax(s - strike, 0.0);
-        } else {
-          pay = alpha * k1 + w1 * fmax(s - k1, 0.0) + w2 * fmax(s - k2, 0.0)
-                + zeta * s;
-          pay = fmax(pay, 0.0);
-        }
-        res = fmax(pay, cont);
-      }
-      nw[i] = res;
-    }
+  const int warp = threadIdx.x >> 5;
+  for (int done = 0; done < active;) {
+    const int n = min(active - done, W / 2);
+    const int vout = nsrc - done - n;      // lanes still exact after the chunk
+    const int keep = W - n;
+    for (int start = warp * keep; start < vout; start += WARPS * keep)
+      warp_steps(src, dst, g, nsrc, start, done, n, vout, c);
     __syncthreads();
-    double* t = cur; cur = nw; nw = t;
+    double* t = src; src = dst; dst = t;
+    done += n;
   }
-  double* outr = out + (size_t)row * P + (size_t)blk * block;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) outr[i] = cur[i];
+  double* outr = out + (size_t)row * P;
+  for (int x = threadIdx.x; x < tile; x += blockDim.x) {
+    const long long p = t0 + x;
+    if (p < P) outr[p] = src[x];
+  }
+}
+
+template <int KIND>
+int launch(const double* v, const double* sc, double* out, int rows, int P,
+           int block, int levels, int n_scalars, cudaStream_t st) {
+  const int tile = WARPS * (W - (levels < W / 2 ? levels : W / 2));
+  const int nsrc = tile + levels;
+  const size_t shmem =
+      (2 * (size_t)nsrc + table_size(2 * nsrc)) * sizeof(double);
+  auto kern = lattice_round_kernel<KIND>;
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((P + tile - 1) / tile, rows);
+  kern<<<grid, WARPS * 32, shmem, st>>>(v, sc, out, P, block, levels,
+                                        n_scalars, tile);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// kind 0: the 4-parameter payoff (11 scalars a row); 1: put, 2: call (6).
 extern "C" int lattice_round_launch(const void* v, const void* scalars,
                                     void* out, int rows, int P, int block,
                                     int levels, int kind, void* stream) {
-  const int nblk = P / block;
-  dim3 grid(nblk, rows);
-  const int threads = block < 256 ? ((block + 31) / 32) * 32 : 256;
-  const size_t shmem = 4 * (size_t)block * sizeof(double);
-  cudaStream_t st = (cudaStream_t)stream;
   const double* vp = (const double*)v;
   const double* sp = (const double*)scalars;
   double* op = (double*)out;
+  cudaStream_t st = (cudaStream_t)stream;
   if (kind == 0)
-    lattice_round_kernel<0><<<grid, threads, shmem, st>>>(vp, sp, op, P, block, levels, 11);
-  else if (kind == 1)
-    lattice_round_kernel<1><<<grid, threads, shmem, st>>>(vp, sp, op, P, block, levels, 6);
-  else
-    lattice_round_kernel<2><<<grid, threads, shmem, st>>>(vp, sp, op, P, block, levels, 6);
-  return (int)cudaGetLastError();
+    return launch<0>(vp, sp, op, rows, P, block, levels, 11, st);
+  if (kind == 1)
+    return launch<1>(vp, sp, op, rows, P, block, levels, 6, st);
+  return launch<2>(vp, sp, op, rows, P, block, levels, 6, st);
 }

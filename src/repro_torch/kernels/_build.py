@@ -10,6 +10,9 @@ the stream go in as ``c_void_p``, and every entry point returns
 with threshold tests at a relative 1e-9, and a contracted multiply-add
 rounds differently from the plain version's separate multiply and add.
 That can change a knot count and with it ``max_pieces``.
+
+``-Xptxas=-v``: each kernel's registers, stack and spills go into the
+build's output, which ``build_all`` returns.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all", "check"]
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -16,8 +16,11 @@ owned lanes.  Steps whose level is below 0 are no-ops.
 ``scalars (R, n)``, where JAX vmapped over contracts.
 
 On a CUDA tensor the wrapper launches ``csrc/binomial_step.cu``; on a
-CPU tensor it runs the plain version below, which repeats the kernel's
-block/halo structure step for step.
+CPU tensor it runs the plain version below, which repeats the TPU
+kernel's block/halo structure step for step.  The CUDA kernel tiles the
+row its own way (warp windows with a ``levels``-lane halo, the intrinsic
+tabulated once per round) and gives the plain version's owned lanes bit
+for bit, for ``lvl0`` a whole number (see the entry points).
 """
 from __future__ import annotations
 
@@ -137,7 +140,12 @@ def _round(v, scalars, levels, block, kind, name, n_scalars):
 
 def lattice_round_param(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK):
     """One round with the payoff as data: ``v (P,)`` or ``(R, P)``,
-    ``scalars (11,)`` or ``(R, 11)`` in ``PARAM_SCALARS`` order."""
+    ``scalars (11,)`` or ``(R, 11)`` in ``PARAM_SCALARS`` order.
+
+    ``lvl0`` (slot 0) must be a whole number, a level of the lattice, as
+    the host round loops pass it: the CUDA kernel takes it as an integer
+    and is not checked, so a fractional ``lvl0`` gives another round than
+    the plain version's there."""
     return _round(v, scalars, levels, block, "param", "lattice_round_param",
                   PARAM_SCALARS)
 
@@ -145,7 +153,8 @@ def lattice_round_param(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK):
 def lattice_round(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK,
                   kind: str = "put"):
     """One round with put/call baked in: ``scalars (6,)`` or ``(R, 6)``
-    = ``[lvl0, p_up, inv_r, strike, s0, sig_sqrt_dt]``."""
+    = ``[lvl0, p_up, inv_r, strike, s0, sig_sqrt_dt]``; ``lvl0`` must be a
+    whole number, as for ``lattice_round_param``."""
     if kind not in ("put", "call"):
         raise ValueError(f"kind must be 'put' or 'call', got {kind!r}")
     return _round(v, scalars, levels, block, kind, "lattice_round",

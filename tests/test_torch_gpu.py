@@ -8,8 +8,9 @@ machine without them it runs as
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerance: the pricing kernels repeat their plain versions' float64
-arithmetic operation for operation (no fused multiply-add), so values
-agree to 1e-9 and knot counts exactly.  ``lru_scan`` rounds as its plain
+arithmetic operation for operation (no fused multiply-add): the lattice
+kernel agrees bit for bit, ``rz_round`` to 1e-9 with knot counts
+exactly.  ``lru_scan`` rounds as its plain
 version does and agrees bit for bit; ``flash_attention`` sums in another
 order than its plain version's matrix products and is held to 2e-5,
 the bound JAX's own flash attention is held to.  TF32 is off for the
@@ -51,32 +52,50 @@ def no_tf32(cuda):
      torch.backends.cudnn.allow_tf32) = flags
 
 
-def _lattice_inputs(kind, rows, P, device):
+def _lattice_inputs(kind, rows, P, device, lvl0=None):
     rng = np.random.default_rng(4)
     v = torch.tensor(rng.uniform(0.0, 30.0, (rows, P)), device=device)
     u = rng.uniform(0.0, 1.0, rows)
+    lvl0 = [P - 100.0] * rows if lvl0 is None else lvl0
     if kind == "param":
         fam = [(1.0, -1.0, 0.0, 0.0), (-1.0, 1.0, 0.0, 0.0),
                (0.0, 0.0, 1.0, -1.0)]
-        sc = [[P - 100.0, 0.5, 0.99998, 90 + 20 * x, 0.0026, *fam[i % 3],
+        sc = [[lvl0[i], 0.5, 0.99998, 90 + 20 * x, 0.0026, *fam[i % 3],
                95.0 + x, 105.0 + x] for i, x in enumerate(u)]
     else:
-        sc = [[P - 100.0, 0.5, 0.99998, 95 + 10 * x, 90 + 20 * x, 0.0026]
-              for x in u]
+        sc = [[lvl0[i], 0.5, 0.99998, 95 + 10 * x, 90 + 20 * x, 0.0026]
+              for i, x in enumerate(u)]
     return v, torch.tensor(sc, dtype=torch.float64, device=device)
 
 
-@pytest.mark.parametrize("kind", ["param", "put", "call"])
-def test_lattice_kernel_matches_plain(cuda, kind):
-    v, sc = _lattice_inputs(kind, 4, 40192, cuda)
+# (kind, rows, P, levels, block, lvl0 of each row or None for P - 100)
+LATTICE_CASES = {
+    "main-param": ("param", 4, 40192, 50, 256, None),
+    "main-put": ("put", 4, 40192, 50, 256, None),
+    "main-call": ("call", 4, 40192, 50, 256, None),
+    "final-short-round": ("param", 4, 40192, 50, 256, [30.0, 1.0, 0.0, 49.0]),
+    "mixed-lvl0": ("param", 4, 40192, 50, 256, [40000.0, 7.0, 50.0, 100.0]),
+    "levels-eq-block": ("param", 8, 4096, 256, 256, None),
+    "block32": ("param", 8, 4096, 32, 32, None),
+    "block1024": ("param", 64, 4096, 1024, 1024, None),
+    "single-block": ("put", 3, 256, 50, 256, [255.0, 40.0, 256.0]),
+}
+
+
+@pytest.mark.parametrize("case", list(LATTICE_CASES))
+def test_lattice_kernel_matches_plain(cuda, case):
+    """The kernel repeats the plain version's operations for every owned
+    lane in the same order, so the two agree bit for bit."""
+    kind, rows, P, levels, block, lvl0 = LATTICE_CASES[case]
+    v, sc = _lattice_inputs(kind, rows, P, cuda, lvl0)
     fn = TB.lattice_round_param if kind == "param" else TB.lattice_round
     kw = {} if kind == "param" else {"kind": kind}
     n0 = sum(TB.LAUNCHES.values())
-    got = fn(v, sc, levels=50, block=256, **kw)
+    got = fn(v, sc, levels=levels, block=block, **kw)
     torch.cuda.synchronize()
     assert sum(TB.LAUNCHES.values()) == n0 + 1
-    want = TB.lattice_round_plain(v, sc, levels=50, block=256, kind=kind)
-    assert (got - want).abs().max().item() <= TOL
+    want = TB.lattice_round_plain(v, sc, levels=levels, block=block, kind=kind)
+    assert torch.equal(got, want)
 
 
 def _rz_state(n_steps, capacity, lanes, walk, device):

@@ -7,6 +7,8 @@ packages' ``exp`` differ in the last ulp, and node values reach 1e4 at
 the far lanes) plus 1e-12 absolute, prices at the repo's 1e-9.  The card tests hold each CUDA kernel against its plain
 version on the same card.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -148,3 +150,187 @@ def test_wrapper_contracts_and_no_launch_on_cpu():
         TB.lattice_round_param(v.float(), sc, levels=4, block=64)
     with pytest.raises(ValueError, match="kind"):
         TB.lattice_round(v, sc[:, :6], levels=4, block=64, kind="digital")
+
+
+# ---------------------------------------------------------------------------
+# The premises of the CUDA kernel's design (csrc/binomial_step.cu), checked
+# here against the plain version and the JAX kernel in interpret mode.
+
+PREMISE_CASES = [(8, 3), (16, 16), (64, 50)]
+
+
+def _premise_inputs(block, levels, short):
+    """Three rows of the 4-parameter family (put, bull spread, call) over
+    256 lanes, each row at its own lvl0: the final short round puts the
+    rows below ``levels`` (down to a round of no-ops)."""
+    P = max(3 * block, 256)
+    rng = np.random.default_rng(block + levels + short)
+    v = rng.uniform(0.0, 30.0, (3, P))
+    lvl0 = ([max(levels - 1, 1), 1.0, 0.0] if short
+            else [float(P - 5), float(P + 40), float(2 * levels)])
+    fams = [(1.0, -1.0, 0.0, 0.0), (0.0, 0.0, 1.0, -1.0), (-1.0, 1.0, 0.0, 0.0)]
+    sc = np.array([[l0, 0.51, 0.998, 90.0 + 10 * i, 0.02, *fam, 95.0, 105.0]
+                   for i, (l0, fam) in enumerate(zip(lvl0, fams))])
+    return v, sc
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_row0(block, levels, short, perturbed):
+    """The JAX kernel (interpret mode) on row 0 of the premise inputs,
+    lanes [levels, block) of block 1 perturbed or not."""
+    v, sc = _premise_inputs(block, levels, short)
+    if perturbed:
+        v = _perturb(v, 1, block, levels)
+    return np.asarray(JB.lattice_round_param(v[0], sc[0], levels=levels,
+                                             block=block))
+
+
+def _perturb(v, nb, block, levels):
+    out = v.copy()
+    out[:, nb * block + levels:(nb + 1) * block] += 7.25
+    return out
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["full", "short-round"])
+@pytest.mark.parametrize("block,levels", PREMISE_CASES)
+def test_owned_lanes_read_only_levels_lanes_of_the_halo(block, levels, short):
+    """Perturbing lanes [levels, block) of block b+1 leaves block b's output
+    unchanged: the halo the kernel loads is ``levels`` lanes wide."""
+    v, sc = _premise_inputs(block, levels, short)
+    nblk = v.shape[1] // block
+    base = TB.lattice_round_plain(torch.tensor(v), torch.tensor(sc),
+                                  levels=levels, block=block).numpy()
+    for b in range(nblk - 1):
+        got = TB.lattice_round_plain(torch.tensor(_perturb(v, b + 1, block,
+                                                           levels)),
+                                     torch.tensor(sc), levels=levels,
+                                     block=block).numpy()
+        own = slice(b * block, (b + 1) * block)
+        np.testing.assert_array_equal(got[:, own], base[:, own])
+    jax_base = _jax_row0(block, levels, short, False)
+    jax_pert = _jax_row0(block, levels, short, True)
+    np.testing.assert_array_equal(jax_pert[:block], jax_base[:block])
+    np.testing.assert_allclose(base[0], jax_base, rtol=ROUND_RTOL,
+                               atol=ROUND_TOL)
+
+
+def _mirror_intrinsic(s, sc, kind):
+    if kind == "put":
+        return np.maximum(sc[3] - s, 0.0)
+    if kind == "call":
+        return np.maximum(s - sc[3], 0.0)
+    alpha, zeta, w1, w2, k1, k2 = sc[5:11]
+    pay = (alpha * k1 + w1 * np.maximum(s - k1, 0.0)
+           + w2 * np.maximum(s - k2, 0.0) + zeta * s)
+    return np.maximum(pay, 0.0)
+
+
+def _mirror_round(v, sc, *, levels, block, kind="param", lanes=10, warps=4):
+    """Numpy mirror of csrc/binomial_step.cu's schedule, for tests only.
+
+    Each row is cut into tiles of ``warps * (W - min(levels, W/2))`` owned
+    lanes (W = 32 * lanes, one warp window); a tile loads ``tile + levels``
+    lanes of the virtual row (the last block's clamped halo beyond P),
+    tabulates the intrinsic at j = 2 t0 - lvl0 + 1 + k (k = 2x + s - 1 for
+    local lane x at step s), and runs its active steps in chunks of at most
+    W/2 over warp windows that keep W - n lanes each.  Inside a window,
+    thread t holds lanes [t*lanes, (t+1)*lanes) and two windows of table
+    entries (odd and even steps) that rotate by one slot every two steps,
+    refilled at the clamped table index as the kernel does.
+    """
+    rows, P = v.shape
+    R, W = lanes, 32 * lanes
+    keep = W - min(levels, W // 2)
+    tile = warps * keep
+    nsrc = tile + levels
+    kmax = 2 * nsrc - 1
+    out = np.empty_like(v)
+    for row in range(rows):
+        c = sc[row]
+        lvl0, p_up, inv_r = c[0], c[1], c[2]
+        q = 1.0 - p_up
+        s0, sig = (c[3], c[4]) if kind == "param" else (c[4], c[5])
+        active = levels if lvl0 >= levels else (int(lvl0) if lvl0 >= 1 else 0)
+
+        def step(vals, w, u):
+            last = np.append(vals[1:, 0], vals[31, 0])   # shfl_down
+            up = np.concatenate([vals[:, 1:], last[:, None]], axis=1)
+            cont = (p_up * up + q * vals) * inv_r
+            return np.maximum(w[:, (np.arange(R) + u) % R], cont)
+
+        for t0 in range(0, P, tile):
+            p = t0 + np.arange(nsrc)
+            src = np.where(p < P, v[row, np.minimum(p, P - 1)],
+                           np.where(p < P + block,
+                                    v[row, np.clip(p - block, 0, P - 1)], 0.0))
+            dst = np.zeros(nsrc)
+            j = 2 * t0 - int(lvl0) + 1 + np.arange(2 * nsrc)
+            s = s0 * torch.exp(torch.tensor(j, dtype=torch.float64)
+                               * sig).numpy()
+            g = _mirror_intrinsic(s, c, kind)
+            done = 0
+            while done < active:
+                n = min(active - done, W // 2)
+                vout = nsrc - done - n
+                # the kept ranges [start, start + W - n) tile [0, vout)
+                # without overlap, so the warps' order does not matter
+                for start in range(0, vout, W - n):
+                    base = start + np.arange(32) * R
+                    x = base[:, None] + np.arange(R)
+                    vals = src[np.minimum(x, nsrc - 1)]
+                    k = 2 * base + done
+                    e = g[np.minimum(k[:, None] + 2 * np.arange(R), kmax)]
+                    o = g[np.minimum(k[:, None] + 2 * np.arange(R) + 1, kmax)]
+                    k = k + 2 * R
+                    for i in range(0, n, 2 * R):
+                        for u in range(R):
+                            if i + 2 * u >= n:
+                                break
+                            vals = step(vals, e, u)
+                            e[:, u] = g[np.minimum(k, kmax)]
+                            if i + 2 * u + 1 >= n:
+                                break
+                            vals = step(vals, o, u)
+                            o[:, u] = g[np.minimum(k + 1, kmax)]
+                            k = k + 2
+                    kept = (x - start < W - n) & (x < vout)
+                    dst[x[kept]] = vals[kept]
+                src, dst = dst, src
+                done += n
+            owned = t0 + np.arange(tile)
+            out[row, owned[owned < P]] = src[:tile][owned < P]
+    return out
+
+
+@pytest.mark.parametrize("lanes,warps", [(1, 2), (3, 2), (10, 4)],
+                         ids=["W32", "W96", "kernel-default"])
+@pytest.mark.parametrize("short", [False, True], ids=["full", "short-round"])
+@pytest.mark.parametrize("block,levels", PREMISE_CASES)
+def test_kernel_schedule_mirror_is_bit_equal_to_plain(block, levels, short,
+                                                      lanes, warps):
+    """The kernel's trapezoid, chunking and intrinsic table (its jbase and
+    clamped indices) give the plain version's owned lanes bit for bit,
+    the clamped last block included; W32 and W96 cut rows into several
+    tiles and (64, 50) into several chunks."""
+    v, sc = _premise_inputs(block, levels, short)
+    want = TB.lattice_round_plain(torch.tensor(v), torch.tensor(sc),
+                                  levels=levels, block=block).numpy()
+    got = _mirror_round(v, sc, levels=levels, block=block, lanes=lanes,
+                        warps=warps)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got[0], _jax_row0(block, levels, short, False),
+                               rtol=ROUND_RTOL, atol=ROUND_TOL)
+
+
+@pytest.mark.parametrize("kind", ["put", "call"])
+def test_kernel_schedule_mirror_kinds(kind):
+    """The put/call entry (``lattice_round``) through the same schedule."""
+    block, levels = 16, 12
+    v, sc = _inputs(5, 2, 12 * block, kind)
+    sc[1, 0] = 7.0                                   # a short round beside
+    want = TB.lattice_round_plain(torch.tensor(v), torch.tensor(sc),
+                                  levels=levels, block=block,
+                                  kind=kind).numpy()
+    got = _mirror_round(v, sc, levels=levels, block=block, kind=kind,
+                        lanes=1, warps=2)
+    np.testing.assert_array_equal(got, want)

@@ -7,7 +7,9 @@ Builds the CUDA kernels of ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, started together), holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (float64: the lattice
 kernel bit for bit, also on edge cases at small rows; ``rz_round`` to
-1e-9 with identical knot counts), then drives the port's
+1e-9 with identical knot counts, also on edge cases of its tile
+schedule, with its widest round timed at capacities 16, 48 and 128),
+then drives the port's
 main path through ``repro_torch.api.price_grid`` with the default
 backend (the kernels):
 
@@ -64,12 +66,6 @@ TOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-# float64 operations one PWL lane-level step does per knot of its state:
-# two envelopes (merge with evaluations, crossings, compaction) and one
-# cone (suffix/prefix minima, crossings, an envelope).  An estimate from
-# the algorithm in csrc/rz_step.cu, not a count of its instructions, so
-# rz_round's bound is marked as an estimate in the kernels line.
-RZ_OPS_PER_KNOT = 300
 # float64 operations the lattice round needs: 5 per node and level (p*up,
 # q*v, their sum, *inv_r, the max), and the intrinsic once per distinct
 # spot j = 2i - lvl, counted from the expression of each kind (the exp as
@@ -286,13 +282,134 @@ def walk_rounds(torch, RS, plan, z, sc, until_lvl0):
     raise SmokeError("round not found")
 
 
+def rz_capacity(torch, R, RS, tc_grid, capacities=(16, 48, 128)):
+    """The widest put round (all 256 contracts at the leaf, N + 2 lanes,
+    64 levels) timed at each capacity K.  The put's knots fit in 16, so
+    every capacity gives the same knots: each result is held against the
+    first on its knot counts, raw counts and the valid knots."""
+    n = tc_grid.n_steps
+    lanes = n + 2
+    out, pool, first = {}, {}, None
+    for K in capacities:
+        z, sc = rz_state(torch, R, tc_grid, K, 256, lanes)
+        got, pieces = RS.rz_round(z, sc, levels=64, block=lanes)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (got, pieces)
+        k0 = first[0].xs.shape[-1]
+        keep = (torch.arange(k0, device=got.m.device)
+                < got.m[..., None])
+        d = max(float(torch.where(keep, a[..., :k0] - b, 0.0).abs().max())
+                for a, b in ((got.xs, first[0].xs), (got.ys, first[0].ys)))
+        same = bool(torch.equal(got.m, first[0].m)
+                    and torch.equal(pieces, first[1]))
+        check(same and d == 0.0, f"rz_round capacity {K}: knots differ from "
+              f"capacity {capacities[0]} (equal m and pieces {same}, max "
+              f"abs diff {d})")
+        out[K] = cuda_ms(torch, lambda: RS.rz_round(z, sc, levels=64,
+                                                    block=lanes), 3)
+        pool[K] = RS.wide_pool_bytes(K) / 1e6
+        del z, sc, got, pieces
+    print(f"[kernel] rz_round capacity: rows=256 N={n} lanes={lanes} "
+          f"levels=64 " + " ".join(f"K={K} ms={ms:.3f} pool_MB={pool[K]:.1f}"
+                                   for K, ms in out.items())
+          + f"; K={capacities[1]}/K={capacities[0]} "
+          f"{out[capacities[1]] / out[capacities[0]]:.3f}", flush=True)
+    return dict(ms=out, pool_mb=pool)
+
+
+def rz_step_ops(torch, mu, mc, mo):
+    """float64 operations of one lane step of csrc/rz_step.cu with inputs
+    of mu (lane i+1) and mc (lane i) knots and the step's w, v and z of
+    mo knots each, counted from its device functions: a division, an
+    exp, a min or max and a compare count one each, fabs is a free
+    operand modifier, and crossings that are emitted and survivors that
+    are dropped are not counted.  Tensors of counts in, operations out.
+
+    * eval1 on n knots: the search's compares, then the end ray (3) or
+      the interior piece (7: width, its test, rise, division, offset,
+      product, sum);
+    * envelope_core over p grid points: the slopes of each interior
+      interval (7), a crossing test in each of the p + 1 intervals (14:
+      parallel test 5, crossing 3, margin 2, inside 4), a max or min a
+      point, and the end slopes (14, and f and g at two probes);
+    * compress: 5 a candidate (validity, dedupe), 9 a survivor (segment
+      slope 4, kink test 5), the output's knots taken as the survivors.
+    """
+    def ev(n):
+        return torch.ceil(torch.log2(n + 1.0)) + torch.where(n <= 1, 3.0, 7.0)
+
+    def core(p, ev_f, ev_g):
+        return 7 * (p - 1) + 14 * (p + 1) + p + 14 + 2 * ev_f + 2 * ev_g
+
+    def compress(cands, kept):
+        return 5 * cands + 9 * kept
+
+    one = torch.ones_like(mo)
+    # w = envelope2(z[i+1], z[i], max): the merge evaluates each list at
+    # the other's knots, the core runs over mu + mc points
+    s1 = (mu * (1 + ev(mc)) + mc * (1 + ev(mu))
+          + core(mu + mc, ev(mu), ev(mc)) + compress(mu + mc, mo))
+    # v = cone(w / r): the scale, suffix and prefix minima (6 a knot), the
+    # parallel test (4), a crossing test between knots (10), the cone
+    # envelope at each grid point (8 and two searches) and w there; the
+    # core's g probes are the envelope's end rays (3 each)
+    s2 = (mo + 6 * mo + 4 + 10 * (mo - 1)
+          + mo * (8 + 2 * torch.ceil(torch.log2(mo + 1.0)) + ev(mo))
+          + core(mo, ev(mo), 3 * one) + compress(mo, mo))
+    # z = envelope2(expense, v): a one-knot function against v
+    s3 = (1 + ev(mo) + mo * (1 + ev(one)) + core(1 + mo, ev(one), ev(mo))
+          + compress(1 + mo, mo))
+    # the spot (with its exp), costs, expense and the scale of w's ends
+    return s1 + s2 + s3 + 22
+
+
+def rz_bound(torch, z, got, sc, levels, K):
+    """Least time for one rz_round on these inputs: rz_step_ops at each
+    live lane-level of the owned lanes, with each lane's input counts
+    (its own and its right neighbour's) and its output count, over the
+    float64 rate; against each input's valid knots read once (with its
+    sl, sr and m) and each output record written once, over the memory
+    rate.  Returns (ms, "operations" or "bytes", operations, bytes)."""
+    R, S, lanes = z.m.shape
+    mi = z.m.double()
+    mu = torch.cat([mi[..., 1:], mi[..., -1:]], dim=-1)
+    mo = got.m.double()
+    g = torch.arange(lanes, dtype=torch.float64, device=mi.device)
+    live = torch.clamp(torch.floor(sc[:, 0, None] - g), 0, levels)[:, None]
+    ops = float((live * rz_step_ops(torch, mu, mi, mo)).sum())
+    nbytes = float(16 * mi.sum() + 20 * mi.numel()
+                   + (16 * K + 20) * mo.numel() + 8 * sc.numel())
+    t_ops, t_bytes = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def rz_hold(torch, RS, label, z, sc, levels, block):
+    """rz_round against its plain version: max abs error <= 1e-9 and
+    equal knot counts and raw counts.  Returns the kernel's result, the
+    plain version's time and the error."""
+    got, pieces = RS.rz_round(z, sc, levels=levels, block=block)
+    (want, wpieces), plain_ms = timed_once(torch, lambda: RS.rz_round_plain(
+        z, sc, levels=levels, block=block))
+    err = max_pwl_err(got, want)
+    same_m = bool(torch.equal(got.m, want.m))
+    same_p = bool(torch.equal(pieces, wpieces))
+    check(err <= TOL and same_m and same_p,
+          f"rz_round {label}: max abs err {err}, equal m {same_m}, "
+          f"equal pieces {same_p}")
+    return got, pieces, plain_ms, err
+
+
 def rz_phase(torch, R, RS, P, tc_grid, cb_grid, capacity):
     """rz_round vs its plain version at the TC main path's shapes, all 256
     contracts of a grid per launch: the put grid's first (widest)
     single-block round at its leaf state, a later single-block round
     whose lanes carry the walk's knots, and a late round of the
     call/bull-spread grid, whose lanes carry tens of knots; and a
-    16-contract multi-block halo round, a check off the main path."""
+    16-contract multi-block halo round, a check off the main path.
+    Then the tile schedule's edges on a few contracts, and the widest
+    round's time at capacities 16, 48 and 128."""
     out = {}
     cases = (("single-block", tc_grid, 256, None, None),
              ("single-block-deep", tc_grid, 256, None, 800),
@@ -310,39 +427,70 @@ def rz_phase(torch, R, RS, P, tc_grid, cb_grid, capacity):
             lanes, levels = rnd.lanes, rnd.depth
         blk = lanes if block is None else block
         lvl0 = int(sc[0, 0])
-        got, pieces = RS.rz_round(z, sc, levels=levels, block=blk)
-        (want, wpieces), plain_ms = timed_once(torch, lambda: RS.rz_round_plain(
-            z, sc, levels=levels, block=blk))
-        err = max_pwl_err(got, want)
-        same_m = bool(torch.equal(got.m, want.m))
-        same_p = bool(torch.equal(pieces, wpieces))
-        check(err <= TOL and same_m and same_p,
-              f"rz_round {label}: max abs err {err}, equal m {same_m}, "
-              f"equal pieces {same_p}")
+        got, pieces, plain_ms, err = rz_hold(torch, RS, label, z, sc, levels,
+                                             blk)
         ms = cuda_ms(torch, lambda: RS.rz_round(z, sc, levels=levels,
                                                 block=blk), 3)
-        # work: live lane-levels of the round times the knots they carry,
-        # taken as the mean of the live lanes' counts before and after it
-        live = sum(max(0, min(lanes, lvl0 + 1 - j))
-                   for j in range(1, levels + 1))
-        knots = 0.5 * float(z.m[..., :min(lanes, lvl0 + 1)].double().mean()
-                            + got.m[..., :lvl0 - levels + 1].double().mean())
-        ops = rows * 2 * live * RZ_OPS_PER_KNOT * knots
-        rec = 2 * capacity * 8 + 8 + 8 + 4
-        nbytes = 2 * rows * 2 * lanes * rec + sc.numel() * 8
-        t_ops, t_bytes = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        bound, bound_by, ops, nbytes = rz_bound(torch, z, got, sc, levels,
+                                                capacity)
+        knots = float(z.m[..., :min(lanes, lvl0 + 1)].double().mean())
+        wide = float((z.m > RS.INLINE_KNOTS).double().mean())
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(t_ops, t_bytes) * 1e3,
-                          bound_by="operations" if t_ops >= t_bytes
-                          else "bytes", rows=rows, lanes=lanes, block=blk,
-                          levels=levels, mean_knots=knots,
-                          pieces=int(pieces.max()))
+                          bound_ms=bound, bound_by=bound_by, bound_ops=ops,
+                          bound_bytes=nbytes, rows=rows, lanes=lanes,
+                          block=blk, levels=levels, mean_knots_in=knots,
+                          wide_share_in=wide, pieces=int(pieces.max()))
         print(f"[kernel] rz_round {label}: rows={rows} N={n} lvl0={lvl0} "
               f"lanes={lanes} block={blk} levels={levels} K={capacity} "
-              f"max_abs_err={err:.3e} equal_m={same_m} "
-              f"pieces={int(pieces.max())} mean_knots={knots:.3f} "
-              f"ms={ms:.3f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={max(t_ops, t_bytes) * 1e3:.4f}", flush=True)
+              f"max_abs_err={err:.3e} equal_m=True "
+              f"pieces={int(pieces.max())} mean_knots_in={knots:.3f} "
+              f"share_above_{RS.INLINE_KNOTS}_knots={wide:.4f} ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound:.4f} "
+              f"({bound_by}: {ops:.4e} float64 operations, {nbytes:.4e} "
+              f"bytes)", flush=True)
+
+    # the tile schedule's edges: (label, grid, rows, capacity, block, lvl0
+    # to walk down to or None for the leaf, levels or None for the
+    # round's depth)
+    n = tc_grid.n_steps
+    edges = (("lanes not a multiple of the tile", tc_grid, 8, capacity,
+              None, None, 8),
+             ("levels 1", tc_grid, 8, capacity, None, None, 1),
+             ("lanes below the tile", tc_grid, 8, capacity, None, 100, None),
+             ("levels == lvl0", tc_grid, 8, capacity, None, 64, None),
+             ("two launches", tc_grid, 8, capacity, None, None,
+              RS.LEVELS_PER_LAUNCH + 8),
+             ("halo levels == block", tc_grid, 8, capacity, 128, None, 128),
+             ("capacity 16", tc_grid, 8, 16, None, 800, None),
+             ("capacity 128", cb_grid, 8, 128, None, 60, None))
+    for label, grid, rows, K, block, deep, levels in edges:
+        n = grid.n_steps
+        lanes = n + 2 if block is None else -(-(n + 2) // block) * block
+        z, sc = rz_state(torch, R, grid, K, rows, lanes)
+        if deep is not None:
+            rnd, z, sc = walk_rounds(torch, RS, P.kernel_round_plan(n), z, sc,
+                                     deep)
+            sc[:, 0] = float(rnd.lvl0)
+            lanes = rnd.lanes
+            levels = rnd.depth if levels is None else levels
+        blk = lanes if block is None else block
+        got, pieces, _, err = rz_hold(torch, RS, f"edge {label}", z, sc,
+                                      levels, blk)
+        tiles = len(RS.tile_plan(lanes, blk, min(levels,
+                                                 RS.LEVELS_PER_LAUNCH)))
+        wide = float((z.m > RS.INLINE_KNOTS).double().mean())
+        out[f"edge {label}"] = dict(max_abs_err=err, rows=rows, lanes=lanes,
+                                    block=blk, levels=levels, K=K,
+                                    lvl0=float(sc[0, 0]), tiles=tiles,
+                                    max_knots_in=int(z.m.max()),
+                                    wide_share_in=wide,
+                                    pieces=int(pieces.max()))
+        print(f"[kernel] rz_round edge {label}: rows={rows} N={n} "
+              f"lvl0={float(sc[0, 0]):.0f} lanes={lanes} block={blk} "
+              f"levels={levels} K={K} tiles={tiles} max_knots_in="
+              f"{int(z.m.max())} share_above_{RS.INLINE_KNOTS}_knots="
+              f"{wide:.4f} max_abs_err={err:.3e} equal_m=True "
+              f"pieces={int(pieces.max())}", flush=True)
+    out["capacity"] = rz_capacity(torch, R, RS, tc_grid)
     return out
 
 
@@ -616,6 +764,31 @@ def lm_phase(torch, np, mod, all_launches):
         check_prefill_s=pre_s, check_prefill_4097_s=full_s)
 
 
+def pricing_grids(api, cfgs, np):
+    """The main path's three grids: 256 of the paper's American puts at
+    its depth (the paper's bull spread needs more than 128 knots at
+    N=1500: see the [knots] line); calls and bull spreads at full width
+    and capacity, cut in depth; the friction-free grid at the appendix
+    depth."""
+    put_cfg, notc_cfg = cfgs.PAPER_PUT, cfgs.PAPER_NOTC
+    tc_grid = api.ScenarioGrid.cartesian(
+        s0=tuple(np.linspace(90.0, 110.0, 32)), sigma=put_cfg.sigma,
+        rate=put_cfg.rate, maturity=put_cfg.maturity,
+        cost_rate=(0.005, 0.01), payoff=put_cfg.payoff,
+        strike=(95.0, 100.0, 105.0, 110.0), n_steps=put_cfg.n_steps)
+    cb_grid = api.ScenarioGrid.cartesian(
+        s0=tuple(np.linspace(90.0, 110.0, 32)), sigma=put_cfg.sigma,
+        rate=put_cfg.rate, maturity=put_cfg.maturity,
+        cost_rate=(0.005, 0.01), payoff=("call", "bull_spread"),
+        strike=(95.0, 105.0), n_steps=CB_STEPS)
+    notc_grid = api.ScenarioGrid.cartesian(
+        s0=tuple(np.linspace(80.0, 120.0, 32)), sigma=notc_cfg.sigma,
+        rate=notc_cfg.rate, maturity=notc_cfg.maturity,
+        payoff=("put", "call"), strike=(90.0, 95.0, 100.0, 105.0),
+        n_steps=notc_cfg.n_steps)
+    return tc_grid, cb_grid, notc_grid
+
+
 def main() -> int:
     try:
         import torch
@@ -656,25 +829,7 @@ def main() -> int:
 
     put_cfg, notc_cfg = cfgs.PAPER_PUT, cfgs.PAPER_NOTC
     capacity = put_cfg.capacity
-    # the TC main grid: 256 of the paper's American puts at its depth
-    # (the paper's bull spread needs more than 128 knots at N=1500: see
-    # the [knots] line)
-    tc_grid = api.ScenarioGrid.cartesian(
-        s0=tuple(np.linspace(90.0, 110.0, 32)), sigma=put_cfg.sigma,
-        rate=put_cfg.rate, maturity=put_cfg.maturity,
-        cost_rate=(0.005, 0.01), payoff=put_cfg.payoff,
-        strike=(95.0, 100.0, 105.0, 110.0), n_steps=put_cfg.n_steps)
-    # calls and bull spreads at full width and capacity, cut in depth
-    cb_grid = api.ScenarioGrid.cartesian(
-        s0=tuple(np.linspace(90.0, 110.0, 32)), sigma=put_cfg.sigma,
-        rate=put_cfg.rate, maturity=put_cfg.maturity,
-        cost_rate=(0.005, 0.01), payoff=("call", "bull_spread"),
-        strike=(95.0, 105.0), n_steps=CB_STEPS)
-    notc_grid = api.ScenarioGrid.cartesian(
-        s0=tuple(np.linspace(80.0, 120.0, 32)), sigma=notc_cfg.sigma,
-        rate=notc_cfg.rate, maturity=notc_cfg.maturity,
-        payoff=("put", "call"), strike=(90.0, 95.0, 100.0, 105.0),
-        n_steps=notc_cfg.n_steps)
+    tc_grid, cb_grid, notc_grid = pricing_grids(api, cfgs, np)
     check(tc_grid.n_scenarios == put_cfg.contracts == 256, "TC grid size")
     check(cb_grid.n_scenarios == 256, "call/bull grid size")
     check(notc_grid.n_scenarios == notc_cfg.contracts == 256, "grid size")
@@ -804,8 +959,10 @@ def main() -> int:
             launches=launches[name], max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None,
-            bound_note=("estimate: 300 float64 operations per knot per "
-                        "live lane-level" if name == "rz_round" else
+            bound_note=("counted: the float64 operations of the kernel's "
+                        "device functions (rz_step_ops) at each live "
+                        "lane-level, with the lanes' input and output knot "
+                        "counts, over 34 TFLOP/s" if name == "rz_round" else
                         "5 float64 operations per node and active level, the "
                         "intrinsic once per distinct spot (exp as one), "
                         "over 34 TFLOP/s")))
@@ -831,7 +988,9 @@ def main() -> int:
                                   if k.startswith("edge")},
                    rz_deep=rz["single-block-deep"],
                    rz_call_bull_deep=rz["call-bull-deep"], rz_halo=rz["halo"],
-                   lm=lm, lm_kernels=lm_kern)
+                   rz_edges={k: v for k, v in rz.items()
+                             if k.startswith("edge")},
+                   rz_capacity=rz["capacity"], lm=lm, lm_kernels=lm_kern)
     print("[summary] " + json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

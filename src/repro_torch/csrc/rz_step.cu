@@ -1,36 +1,65 @@
 // Blocked Roux–Zastawniak PWL rounds (transaction costs) for Hopper.
 //
 // Replaces the TPU kernel _rz_round_kernel of src/repro/kernels/rz_step.py
-// (entry rz_round).  One launch advances every block of PWL lanes `levels`
-// levels toward the root; per level and lane the fused seller/buyer step of
+// (entry rz_round).  One launch advances a row of PWL lanes `levels` levels
+// toward the root; per level and live lane the fused seller/buyer step of
 // core/rz.py::rz_level_step_lanes:
 //
 //   w = envelope2(z[i+1], z[i], max);  w = w / r
 //   v = cone_infconv(w, (1+k) s, (1-k) s)               (no costs at level 0)
 //   z = envelope2(expense(+-xi, +-zeta), v, max for the seller, min for the buyer)
 //
-// What bounds it on the H100: float64 operations, and branches.  A lane step
-// does a few thousand f64 operations (binary searches, merges, crossings,
-// compaction) on knot lists whose length differs lane to lane, so warps
-// diverge; the bytes per lane step (two input records and one output
-// record of K knots) are small beside that work.
+// The TPU kernel steps a buffer of its block and the clamped right block
+// (one block and no halo when the round has one block) with a wrapping
+// roll.  An owned lane after `levels` steps depends only on the `levels`
+// lanes to its right, so a round is out[i] = F(V[i .. i+levels]) over a
+// virtual row V: for one block, V[p] = z[p mod lanes] at level index
+// p mod lanes (the roll); for several, V[p] = z[p] for p < lanes and
+// z[p - block] past them (the last block's clamped halo), at index p.  The
+// roll of a multi-block buffer never reaches an owned lane.
 //
-// Design (simple and correct first):
-// * one thread per (row, side, lane) item of a level; the grid is
-//   (nblk, rows) and a CTA's threads loop over its S * W items, with
-//   __syncthreads() between levels;
-// * PWL state stays in global memory, double-buffered per level in a
-//   per-CTA scratch area: a record of K = 48 knots is 768 bytes, so a
-//   1502-lane level does not fit in 227 KB of shared memory;
-// * a multi-block round stages its block and the clamped right neighbour
-//   (W = 2 * block lanes) and writes back only the owned `block` lanes, so
-//   stale halo lanes are never written out; lane W-1 reads lane 0, the TPU
-//   kernel's wrapping roll;
-// * each thread keeps its merge scratch (about 20 K doubles) in local
-//   memory, and every loop runs over the valid knots only (padding knots
-//   at +BIG never change a result);
-// * the per-block max raw knot count over owned live lanes goes to
-//   pieces[row, blk]; the wrapper reduces it.
+// What bounds it on the H100: float64 operations, and how fast each
+// thread's chain of them can issue.  A lane step is a few hundred float64
+// operations (merges, crossings, divisions, binary searches) per knot of
+// its state, most waiting on the one before, on knot lists whose length
+// differs lane to lane; the state is small (the paper's put holds about
+// one knot a lane at capacity 48), so the bytes a round must move are far
+// below its operations.  Hiding the chains' latency takes many resident
+// warps: 3 CTAs of 256 threads an SM (80 registers a thread, 53 KB of
+// shared memory a CTA).  The earlier design did work that followed the
+// capacity K instead of the knots: it padded every intermediate list to
+// K, copied K knots of every dead lane each level and kept about 20 K
+// doubles of merge scratch a thread in local memory, in 256 CTAs that
+// each walked a whole row with a barrier per level.
+//
+// Design:
+// 1. Tiles with a recomputed halo.  The grid is (tiles, rows).  A CTA owns
+//    `tile` lanes of one row, both sides, and loads the tile + `levels`
+//    lanes of V they depend on, clipped at the first lane that is dead
+//    from the round's first level (nothing past it reaches an owned lane).
+//    Each level steps only the live lanes the owned ones still depend on,
+//    so the stepped extent shrinks by one lane a level.  A lane that is not
+//    stepped keeps its last value where it is: the value of lane i after
+//    c steps lives in buffer min(c, nst[i]) & 1, nst[i] its count of steps,
+//    so dead lanes are never copied.  The barrier between levels covers
+//    one CTA's few hundred lanes.
+// 2. Compact records in shared memory.  A lane record holds KS = 2 knots
+//    inline (structure of arrays over the tile's lanes) and sl, sr, m: on
+//    the put grid nearly every lane holds at most 2 knots, and a small
+//    record leaves room for more CTAs (KS and the CTAs an SM were chosen
+//    on the card: PERF.md, Findings).  A record with more than KS knots
+//    keeps its knots at full capacity in a slot of device memory that the
+//    CTA claims for its lifetime from a pool sized by the card's resident
+//    CTAs (NSM x occupancy), so the pool does not grow with the grid.
+//    Every loop runs to m; the BIG / 0 padding of the output format is
+//    written once, at write-back.
+// 3. Streamed candidate lists.  Each envelope generates its merged grid and
+//    crossing candidates one at a time, with a one-element look-behind, and
+//    feeds them to compress as they come: its dedupe compares a candidate
+//    with the previous raw one, its slope test needs a survivor's two
+//    neighbours, sl is fixed by the first candidate and sr by the last
+//    valid one.  What stays in a thread's scratch are the records w and v
+//    and the cone's suffix and prefix minima, touched up to their knots.
 //
 // The arithmetic repeats the plain PyTorch version operation for
 // operation.  It is built with --fmad=false: knot retention in compress
@@ -45,368 +74,614 @@ constexpr double BIG = 1e30;
 constexpr double REL = 1e-9;
 constexpr double TINY = 1e-300;
 constexpr int THREADS = 256;
+constexpr int EMAX = 256;       // lanes a tile holds: owned lanes and halo
+constexpr int KS = 2;           // knots a shared-memory record holds inline
+constexpr int NREC = 4;         // record sets: 2 buffers x 2 sides
 
-struct View {          // a PWL whose first m knots are valid
+// dynamic shared memory: xs, ys [NREC][KS][EMAX]; sl, sr [NREC][EMAX];
+// m [NREC][EMAX]; nst [EMAX]
+constexpr size_t SMEM_BYTES = sizeof(double) * (2 * NREC * KS * EMAX
+                                                + 2 * NREC * EMAX)
+                              + sizeof(int) * (NREC * EMAX + EMAX);
+
+struct View {          // a PWL whose first m knots are valid; knot t at [t*st]
   const double* xs;
   const double* ys;
+  int st;
   double sl, sr;
   int m;
 };
 
-struct Out {           // a PWL record of capacity K to write
-  double* xs;
-  double* ys;
-  double sl, sr;
-  int m;
+struct Pt {            // a merged-grid point and both functions' values on it
+  double x, vf, vg;
 };
 
 // count of a[i] <= v (right) or a[i] < v (left) in ascending a[0..n)
-__device__ __forceinline__ int ss_right(const double* a, int n, double v) {
+__device__ __forceinline__ int ss_right(const double* a, int st, int n,
+                                        double v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+    if (a[mid * st] <= v) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
-__device__ __forceinline__ int ss_left(const double* a, int n, double v) {
+__device__ __forceinline__ int ss_left(const double* a, int st, int n,
+                                       double v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
+    if (a[mid * st] < v) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
 __device__ double eval1(const View& f, double c) {
-  const int cnt = ss_right(f.xs, f.m, c);
+  const int st = f.st;
+  const int cnt = ss_right(f.xs, st, f.m, c);
   if (cnt == 0) return f.ys[0] + f.sl * (c - f.xs[0]);
   if (cnt >= f.m) {
-    const int il = f.m - 1;
+    const int il = (f.m - 1) * st;
     return f.ys[il] + f.sr * (c - f.xs[il]);
   }
-  const int il = cnt - 1, ir = cnt;
+  const int il = (cnt - 1) * st, ir = cnt * st;
   const double w = f.xs[ir] - f.xs[il];
   const bool ok = w > TINY;
   const double slope = (ok ? f.ys[ir] - f.ys[il] : 0.0) / (ok ? w : 1.0);
   return f.ys[il] + slope * (c - f.xs[il]);
 }
 
-// Dedupe, drop collinear knots and truncate the candidate list
-// (cx, cy)[0..nc) -- entries at or beyond BIG/2 are invalid -- into `o`
-// (capacity cap).  Compacts survivors in place.  Returns the raw count.
-__device__ int compress(double* cx, double* cy, int nc, double sl, double sr,
-                        int cap, Out& o) {
-  int ns = 0;
+// Knots into a thread's array, values scaled (w = envelope / r) or not.
+struct ArrOut {
+  double* xs;
+  double* ys;
+  double scale;
+  __device__ void put(int t, double x, double y) {
+    xs[t] = x;
+    ys[t] = y * scale;
+  }
+};
+
+// Knots into a lane record: the first KS inline in shared memory (stride
+// EMAX), all of them in the record's device-memory slot once there are more.
+struct RecOut {
+  double* ix;
+  double* iy;
+  double* wx;
+  double* wy;
+  __device__ void put(int t, double x, double y) {
+    if (t < KS) {
+      ix[t * EMAX] = x;
+      iy[t * EMAX] = y;
+      return;
+    }
+    if (t == KS) {
+      for (int u = 0; u < KS; ++u) { wx[u] = ix[u * EMAX]; wy[u] = iy[u * EMAX]; }
+    }
+    wx[t] = x;
+    wy[t] = y;
+  }
+};
+
+// compress fed one raw candidate at a time: dedupe against the previous raw
+// candidate, keep the survivors whose left and right slopes differ (the
+// first survivor's left slope is sl, the last's right slope sr), truncate to
+// cap; the first survivor anchors a list with no kink.  Returns the raw
+// count.
+template <class O>
+struct Compress {
+  O& out;
+  int cap;
+  double sl = 0.0;           // set before the second survivor arrives
   double prev_x = -BIG;
   bool prev_valid = false;
-  for (int t = 0; t < nc; ++t) {
-    const double x = cx[t];
-    const bool valid = x < BIG / 2;
-    const double y = valid ? cy[t] : 0.0;
-    const bool dup = valid && prev_valid &&
-                     (x - prev_x <= REL * (1.0 + fabs(prev_x)));
-    if (valid && !dup) { cx[ns] = x; cy[ns] = y; ++ns; }
-    prev_x = x;
-    prev_valid = valid;
-  }
+  int ns = 0;                // survivors so far
+  double fx = 0.0, fy = 0.0; // first survivor
+  double px = 0.0, py = 0.0; // last survivor, not yet decided
+  double s_left = 0.0;       // its left slope when ns >= 2
   int m2 = 0;
-  for (int q = 0; q < ns; ++q) {
-    const double x = cx[q], y = cy[q];
-    const double s_right = q < ns - 1
-        ? (cy[q + 1] - y) / fmax(cx[q + 1] - x, TINY) : sr;
-    const double s_left = q > 0
-        ? (y - cy[q - 1]) / fmax(x - cx[q - 1], TINY) : sl;
-    const double tol = REL * (1.0 + fmax(fabs(s_left), fabs(s_right)));
-    if (fabs(s_right - s_left) > tol) {
-      if (m2 < cap) { o.xs[m2] = x; o.ys[m2] = y; }
+
+  __device__ Compress(O& o, int c) : out(o), cap(c) {}
+
+  __device__ void decide(double s_l, double s_r) {
+    const double tol = REL * (1.0 + fmax(fabs(s_l), fabs(s_r)));
+    if (fabs(s_r - s_l) > tol) {
+      if (m2 < cap) out.put(m2, px, py);
       ++m2;
     }
   }
-  if (m2 == 0 && ns > 0) { o.xs[0] = cx[0]; o.ys[0] = cy[0]; m2 = 1; }
-  for (int t = m2 < cap ? m2 : cap; t < cap; ++t) { o.xs[t] = BIG; o.ys[t] = 0.0; }
-  o.sl = sl;
-  o.sr = sr;
-  o.m = m2 < cap ? m2 : cap;
-  return m2;
-}
-
-// Envelope of f and g given the merged grid mx[0..mv) holding every valid
-// knot of both and their values mvf / mvg on it.
-__device__ int envelope_core(const View& f, const View& g, const double* mx,
-                             const double* mvf, const double* mvg, int mv,
-                             bool take_max, int cap, Out& o,
-                             double* cx, double* cy) {
-  int nc = 0;
-  for (int i = 0; i <= mv; ++i) {
-    const double lo = i == 0 ? -BIG : mx[i - 1];
-    const double hi = i >= mv ? BIG : mx[i];
-    double sf, sg;
-    if (i >= mv) {
-      sf = f.sr; sg = g.sr;
-    } else if (i == 0) {
-      sf = f.sl; sg = g.sl;
+  __device__ void push(double x, double y0) {
+    const bool valid = x < BIG / 2;
+    const double y = valid ? y0 : 0.0;
+    const bool dup = valid && prev_valid &&
+                     (x - prev_x <= REL * (1.0 + fabs(prev_x)));
+    prev_x = x;
+    prev_valid = valid;
+    if (!valid || dup) return;
+    if (ns == 0) {
+      fx = x;
+      fy = y;
     } else {
-      const double dx = mx[i] - mx[i - 1];
-      const bool ok_dx = dx > TINY;
-      const double inv_dx = 1.0 / (ok_dx ? dx : 1.0);
-      sf = (ok_dx ? mvf[i] - mvf[i - 1] : 0.0) * inv_dx;
-      sg = (ok_dx ? mvg[i] - mvg[i - 1] : 0.0) * inv_dx;
+      const double seg = (y - py) / fmax(x - px, TINY);
+      decide(ns == 1 ? sl : s_left, seg);
+      s_left = seg;
     }
+    px = x;
+    py = y;
+    ++ns;
+  }
+  __device__ int finish(double sr) {
+    if (ns > 0) decide(ns == 1 ? sl : s_left, sr);
+    if (m2 == 0 && ns > 0) { out.put(0, fx, fy); m2 = 1; }
+    return m2;
+  }
+};
+
+// Envelope (max or min) of f and g over the merged grid that `src` yields
+// in ascending order (every valid knot of both functions, with their
+// values); g's end slopes are gsl, gsr and src evaluates g at the probes.
+// The candidates stream into compress; returns the raw count and the
+// envelope's end slopes.
+template <class Src, class O>
+__device__ int envelope_stream(Src& src, const View& f, double gsl, double gsr,
+                               bool take_max, O& out, int cap, double& osl,
+                               double& osr) {
+  Compress<O> cp(out, cap);
+  bool first = true, any_valid = false;
+  double first_x = 0.0, last_valid = 0.0;
+  auto emit = [&](double x, double y) {
+    if (first) {     // the left end slope, from a probe left of everything
+      first = false;
+      first_x = x;
+      const double pl = x - 1.0;
+      const double fl = eval1(f, pl), gl = src.g_left(pl);
+      const bool tie = fabs(fl - gl) <= REL * (1.0 + fmax(fabs(fl), fabs(gl)));
+      cp.sl = take_max ? (tie ? fmin(f.sl, gsl) : (fl > gl ? f.sl : gsl))
+                       : (tie ? fmax(f.sl, gsl) : (fl < gl ? f.sl : gsl));
+    }
+    if (x < BIG / 2) { last_valid = x; any_valid = true; }
+    cp.push(x, y);
+  };
+  // a crossing of f and g inside (lo, hi), anchored at point a
+  auto cross = [&](double lo, double hi, double sf, double sg, const Pt& a) {
     const double denom = sf - sg;
     const bool parallel = fabs(denom) <= REL * (1.0 + fmax(fabs(sf), fabs(sg)));
-    const int ai = i > 0 ? i - 1 : 0;
-    const double ax = mx[ai], avf = mvf[ai], avg = mvg[ai];
-    const double x_cross = ax + (avg - avf) / (parallel ? 1.0 : denom);
+    const double x_cross = a.x + (a.vg - a.vf) / (parallel ? 1.0 : denom);
     const double margin = REL * (1.0 + fabs(x_cross));
-    if (!parallel && x_cross > lo + margin && x_cross < hi - margin) {
-      cx[nc] = x_cross;
-      cy[nc] = avf + sf * (x_cross - ax);
-      ++nc;
-    }
-    if (i < mv) {
-      cx[nc] = mx[i];
-      cy[nc] = take_max ? fmax(mvf[i], mvg[i]) : fmin(mvf[i], mvg[i]);
-      ++nc;
-    }
+    if (!parallel && x_cross > lo + margin && x_cross < hi - margin)
+      emit(x_cross, a.vf + sf * (x_cross - a.x));
+  };
+  auto pick = [&](const Pt& p) {
+    return take_max ? fmax(p.vf, p.vg) : fmin(p.vf, p.vg);
+  };
+  Pt cur = src.next();
+  cross(-BIG, cur.x, f.sl, gsl, cur);
+  emit(cur.x, pick(cur));
+  while (src.more()) {
+    const Pt nx = src.next();
+    const double dx = nx.x - cur.x;
+    const bool ok_dx = dx > TINY;
+    const double inv_dx = 1.0 / (ok_dx ? dx : 1.0);
+    const double sf = (ok_dx ? nx.vf - cur.vf : 0.0) * inv_dx;
+    const double sg = (ok_dx ? nx.vg - cur.vg : 0.0) * inv_dx;
+    cross(cur.x, nx.x, sf, sg, cur);
+    emit(nx.x, pick(nx));
+    cur = nx;
   }
-  int nvc = 0;
-  for (int t = 0; t < nc; ++t) nvc += cx[t] < BIG / 2;
-  const double pl = (nc > 0 ? cx[0] : BIG) - 1.0;
-  const int ip = nvc > 0 ? nvc - 1 : 0;
-  const double pr = (ip < nc ? cx[ip] : BIG) + 1.0;
-  const double fl = eval1(f, pl), fr = eval1(f, pr);
-  const double gl = eval1(g, pl), gr = eval1(g, pr);
-  const bool tie_l = fabs(fl - gl) <= REL * (1.0 + fmax(fabs(fl), fabs(gl)));
-  const bool tie_r = fabs(fr - gr) <= REL * (1.0 + fmax(fabs(fr), fabs(gr)));
-  double sl, sr;
-  if (take_max) {
-    sl = tie_l ? fmin(f.sl, g.sl) : (fl > gl ? f.sl : g.sl);
-    sr = tie_r ? fmax(f.sr, g.sr) : (fr > gr ? f.sr : g.sr);
-  } else {
-    sl = tie_l ? fmax(f.sl, g.sl) : (fl < gl ? f.sl : g.sl);
-    sr = tie_r ? fmin(f.sr, g.sr) : (fr < gr ? f.sr : g.sr);
-  }
-  return compress(cx, cy, nc, sl, sr, cap, o);
+  cross(cur.x, BIG, f.sr, gsr, cur);
+  // the right end slope, from a probe right of the last valid candidate
+  const double pr = (any_valid ? last_valid : first_x) + 1.0;
+  const double fr = eval1(f, pr), gr = src.g_right(pr);
+  const bool tie = fabs(fr - gr) <= REL * (1.0 + fmax(fabs(fr), fabs(gr)));
+  const double sr = take_max ? (tie ? fmax(f.sr, gsr) : (fr > gr ? f.sr : gsr))
+                             : (tie ? fmin(f.sr, gsr) : (fr < gr ? f.sr : gsr));
+  osl = cp.sl;
+  osr = sr;
+  return cp.finish(sr);
 }
 
-// Pointwise max/min of f and g: stable merge of the valid knots (f first
-// on ties) with each function's values riding along.
-__device__ int envelope2(const View& f, const View& g, bool take_max, int cap,
-                         Out& o, double* mx, double* mvf, double* mvg,
-                         double* cx, double* cy) {
-  int i = 0, j = 0, t = 0;
-  while (i < f.m || j < g.m) {
-    const bool take_f = j >= g.m || (i < f.m && !(g.xs[j] < f.xs[i]));
+// The stable merge of f's and g's knots (f first on ties), each function
+// evaluated at the other's knots.
+struct MergeSrc {
+  const View& f;
+  const View& g;
+  int i = 0, j = 0;
+  __device__ MergeSrc(const View& f_, const View& g_) : f(f_), g(g_) {}
+  __device__ bool more() const { return i < f.m || j < g.m; }
+  __device__ Pt next() {
+    const bool take_f = j >= g.m || (i < f.m && !(g.xs[j * g.st] < f.xs[i * f.st]));
+    Pt p;
     if (take_f) {
-      mx[t] = f.xs[i]; mvf[t] = f.ys[i]; mvg[t] = eval1(g, f.xs[i]); ++i;
+      p.x = f.xs[i * f.st]; p.vf = f.ys[i * f.st]; p.vg = eval1(g, p.x); ++i;
     } else {
-      mx[t] = g.xs[j]; mvf[t] = eval1(f, g.xs[j]); mvg[t] = g.ys[j]; ++j;
+      p.x = g.xs[j * g.st]; p.vf = eval1(f, p.x); p.vg = g.ys[j * g.st]; ++j;
     }
-    ++t;
+    return p;
   }
-  return envelope_core(f, g, mx, mvf, mvg, f.m + g.m, take_max, cap, o, cx, cy);
-}
+  __device__ double g_left(double p) const { return eval1(g, p); }
+  __device__ double g_right(double p) const { return eval1(g, p); }
+};
 
-// Slope restriction v = min(f, lower envelope of the cost cones).
-__device__ int cone(const View& f, double a, double b, int cap, Out& o,
-                    double* SA, double* PB, double* mx, double* mvf,
-                    double* mvg, double* cx, double* cy) {
-  const int m = f.m;
-  double run = BIG;
-  for (int j = m - 1; j >= 0; --j) {
-    run = fmin(run, f.ys[j] + a * f.xs[j]);
-    SA[j] = run;
-  }
-  run = BIG;
-  for (int j = 0; j < m; ++j) {
-    run = fmin(run, f.ys[j] + b * f.xs[j]);
-    PB[j] = run;
-  }
-  const double denom = a - b;
-  const bool par = fabs(denom) <= REL * (1.0 + fabs(a));
-  int ne = 0;
-  for (int j = 0; j < m; ++j) {
-    mx[ne++] = f.xs[j];
-    if (j + 1 < m) {
-      const double nxt_x = f.xs[j + 1], nxt_SA = SA[j + 1];
-      const double ystar = (nxt_SA - PB[j]) / (par ? 1.0 : denom);
-      const double margin = REL * (1.0 + fabs(ystar));
-      if (!par && nxt_SA < BIG / 2 && PB[j] < BIG / 2 &&
-          ystar > f.xs[j] + margin && ystar < nxt_x - margin)
-        mx[ne++] = ystar;
+// The cone's grid: f's knots and the crossings of its cost cones between
+// them, with f and the cones' lower envelope env on each.  env's knots are
+// this grid, so its values at the probes (left of the first point, right
+// of the last) are its end rays through the first and last points.
+struct ConeSrc {
+  const View& f;
+  double a, b, denom;
+  bool par;
+  const double* SA;
+  const double* PB;
+  int j = 0;
+  bool has_cross = false;
+  double cross_x = 0.0;
+  bool started = false;
+  Pt first{0.0, 0.0, 0.0}, last{0.0, 0.0, 0.0};
+  __device__ ConeSrc(const View& f_, double a_, double b_, const double* sa,
+                     const double* pb)
+      : f(f_), a(a_), b(b_), denom(a_ - b_),
+        par(fabs(a_ - b_) <= REL * (1.0 + fabs(a_))), SA(sa), PB(pb) {}
+  __device__ bool more() const { return has_cross || j < f.m; }
+  __device__ Pt next() {
+    const int st = f.st, m = f.m;
+    double c;
+    if (has_cross) {
+      c = cross_x;
+      has_cross = false;
+    } else {
+      c = f.xs[j * st];
+      if (j + 1 < m) {
+        const double nxt_x = f.xs[(j + 1) * st], nxt_SA = SA[j + 1];
+        const double ystar = (nxt_SA - PB[j]) / (par ? 1.0 : denom);
+        const double margin = REL * (1.0 + fabs(ystar));
+        if (!par && nxt_SA < BIG / 2 && PB[j] < BIG / 2 &&
+            ystar > f.xs[j * st] + margin && ystar < nxt_x - margin) {
+          has_cross = true;
+          cross_x = ystar;
+        }
+      }
+      ++j;
     }
-  }
-  for (int t = 0; t < ne; ++t) {
-    const double c = mx[t];
     double env = 0.0;
     if (c < BIG / 2) {
-      const int ge = ss_left(f.xs, m, c);
-      const int le = ss_right(f.xs, m, c);
+      const int ge = ss_left(f.xs, st, m, c);
+      const int le = ss_right(f.xs, st, m, c);
       const double SA_at = ge < m ? SA[ge] : BIG;
       const double PB_at = le > 0 ? PB[le - 1] : BIG;
       env = fmin(SA_at < BIG / 2 ? -a * c + SA_at : BIG,
                  PB_at < BIG / 2 ? -b * c + PB_at : BIG);
     }
-    mvg[t] = env;
-    mvf[t] = eval1(f, c);
+    const Pt p{c, eval1(f, c), env};
+    if (!started) { first = p; started = true; }
+    last = p;
+    return p;
   }
-  View env{mx, mvg, -a, -b, ne};
-  return envelope_core(f, env, mx, mvf, mvg, ne, false, cap, o, cx, cy);
-}
-
-struct Buf {           // one ping-pong buffer: S * W records
-  double* xs; double* ys; double* sl; double* sr; int* m;
+  __device__ double g_left(double p) const { return first.vg + (-a) * (p - first.x); }
+  __device__ double g_right(double p) const { return last.vg + (-b) * (p - last.x); }
 };
 
+// Slope restriction v = min(f, lower envelope of the cost cones).
+template <class O>
+__device__ int cone(const View& f, double a, double b, O& out, int cap,
+                    double* SA, double* PB, double& osl, double& osr) {
+  const int m = f.m, st = f.st;
+  double run = BIG;
+  for (int j = m - 1; j >= 0; --j) {
+    run = fmin(run, f.ys[j * st] + a * f.xs[j * st]);
+    SA[j] = run;
+  }
+  run = BIG;
+  for (int j = 0; j < m; ++j) {
+    run = fmin(run, f.ys[j * st] + b * f.xs[j * st]);
+    PB[j] = run;
+  }
+  ConeSrc src(f, a, b, SA, PB);
+  return envelope_stream(src, f, -a, -b, false, out, cap, osl, osr);
+}
+
+// The tile's records in shared memory and their device-memory slots.
+struct Recs {
+  double* xs;    // [NREC][KS][EMAX]
+  double* ys;
+  double* sl;    // [NREC][EMAX]
+  double* sr;
+  int* m;
+  double* wxs;   // this CTA's slot: [NREC][EMAX][K]
+  double* wys;
+  int K;
+  __device__ View view(int rec, int i) const {
+    const int at = rec * EMAX + i;
+    const int mm = m[at];
+    if (mm <= KS) {
+      const size_t o = (size_t)rec * KS * EMAX + i;
+      return View{xs + o, ys + o, EMAX, sl[at], sr[at], mm};
+    }
+    const size_t o = (size_t)at * K;
+    return View{wxs + o, wys + o, 1, sl[at], sr[at], mm};
+  }
+  __device__ RecOut out(int rec, int i) const {
+    const size_t o = (size_t)rec * KS * EMAX + i, w = (size_t)(rec * EMAX + i) * K;
+    return RecOut{xs + o, ys + o, wxs + w, wys + w};
+  }
+};
+
+// A slot of the device-memory pool for this CTA's wide records: one bit a
+// slot in `masks`; at most nslots CTAs are resident, so one is free or is
+// being released.
+__device__ int claim_slot(unsigned* masks, int nslots) {
+  const int nw = (nslots + 31) >> 5;
+  int w = (int)((blockIdx.x + (size_t)blockIdx.y * gridDim.x) % nw);
+  for (;;) {
+    for (int k = 0; k < nw; ++k, w = w + 1 == nw ? 0 : w + 1) {
+      const int nb = nslots - 32 * w < 32 ? nslots - 32 * w : 32;
+      const unsigned valid = nb == 32 ? 0xffffffffu : (1u << nb) - 1u;
+      unsigned avail = ~atomicOr(&masks[w], 0u) & valid;
+      while (avail) {
+        const unsigned bit = 1u << (__ffs(avail) - 1);
+        const unsigned old = atomicOr(&masks[w], bit);
+        if (!(old & bit)) {
+          __threadfence();
+          return 32 * w + __ffs(bit) - 1;
+        }
+        avail = ~old & valid;
+      }
+    }
+    __nanosleep(256);
+  }
+}
+
+// Virtual row: the input lane behind position g and its level index.
+__device__ __forceinline__ int src_lane(int g, int lanes_in, int halo_block) {
+  if (halo_block == 0) return g % lanes_in;
+  return g < lanes_in ? g : g - halo_block;
+}
+__device__ __forceinline__ double lane_index(int g, int lanes_in, int halo_block) {
+  return (double)(halo_block == 0 ? g % lanes_in : g);
+}
+
 template <int KM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_in,
                 const double* __restrict__ sl_in, const double* __restrict__ sr_in,
                 const int* __restrict__ m_in, const double* __restrict__ scalars,
                 double* xs_out, double* ys_out, double* sl_out, double* sr_out,
-                int* m_out, int* pieces_out,
-                double* sxs, double* sys, double* ssl, double* ssr, int* sm,
-                int S, int lanes, int K, int block, int levels,
+                int* m_out, int* pieces_out, double* wide, unsigned* masks,
+                int nslots, int S, int lanes_in, int lanes_out, int owned_lanes,
+                int K, int halo_block, int levels, int tile,
                 unsigned seller_mask) {
-  const int blk = blockIdx.x, row = blockIdx.y, nblk = gridDim.x;
-  const int W = nblk > 1 ? 2 * block : block;
-  const int nxt = blk + 1 < nblk ? blk + 1 : nblk - 1;
-  const int items = S * W;
-  __shared__ int blk_pieces;
-  if (threadIdx.x == 0) blk_pieces = 0;
+  extern __shared__ double smem[];
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int owned = min(tile, lanes_out - t0);
+  __shared__ int s_ext, s_pieces, s_slot;
+
+  Recs rec;
+  rec.xs = smem;
+  rec.ys = rec.xs + NREC * KS * EMAX;
+  rec.sl = rec.ys + NREC * KS * EMAX;
+  rec.sr = rec.sl + NREC * EMAX;
+  rec.m = (int*)(rec.sr + NREC * EMAX);
+  int* nst = rec.m + NREC * EMAX;
+  rec.K = K;
 
   const double* sc = scalars + (size_t)row * 11;
   const double lvl0 = sc[0], s0 = sc[1], sig = sc[2], r = sc[3], k = sc[4];
   const double alpha = sc[5], zeta = sc[6], w1 = sc[7], w2 = sc[8];
   const double k1 = sc[9], k2 = sc[10];
   const double inv_r = 1.0 / r;
-  const double offset = (double)blk * (double)block;
 
-  Buf buf[2];
-  for (int p = 0; p < 2; ++p) {
-    const size_t rec = (((size_t)row * nblk + blk) * 2 + p) * (size_t)items;
-    buf[p] = Buf{sxs + rec * K, sys + rec * K, ssl + rec, ssr + rec, sm + rec};
+  if (threadIdx.x == 0) {
+    s_ext = owned + levels;
+    s_pieces = 0;
+    s_slot = claim_slot(masks, nslots);
   }
+  __syncthreads();
+  rec.wxs = wide + (size_t)s_slot * 2 * NREC * EMAX * K;
+  rec.wys = rec.wxs + (size_t)NREC * EMAX * K;
 
-  // stage this block and its clamped right halo into buffer 0
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int s = it / W, i = it % W;
-    const int g = i < block ? blk * block + i : nxt * block + (i - block);
-    const size_t src = ((size_t)row * S + s) * lanes + g;
-    for (int t = 0; t < K; ++t) {
-      buf[0].xs[(size_t)it * K + t] = xs_in[src * K + t];
-      buf[0].ys[(size_t)it * K + t] = ys_in[src * K + t];
-    }
-    buf[0].sl[it] = sl_in[src];
-    buf[0].sr[it] = sr_in[src];
-    buf[0].m[it] = m_in[src];
+  // clip the extent at the first lane that no level of the round steps
+  for (int i = threadIdx.x; i < owned + levels; i += THREADS) {
+    const double idx = lane_index(t0 + i, lanes_in, halo_block);
+    if (!(idx <= lvl0 - 1.0)) atomicMin(&s_ext, i + 1);
+  }
+  __syncthreads();
+  const int ext = s_ext;
+
+  // steps of each lane: while it is live and an owned lane still needs it
+  for (int i = threadIdx.x; i < ext; i += THREADS) {
+    const double idx = lane_index(t0 + i, lanes_in, halo_block);
+    int n = 0;
+    while (n < levels && i < ext - (n + 1) && idx <= lvl0 - (double)(n + 1)) ++n;
+    nst[i] = n;
+  }
+  // load the extent into buffer 0
+  const size_t row_s = (size_t)row * S;
+  for (int it = threadIdx.x; it < S * ext; it += THREADS) {
+    const int s = it / ext, i = it - s * ext;
+    const size_t src = (row_s + s) * lanes_in
+                       + src_lane(t0 + i, lanes_in, halo_block);
+    const int mm = m_in[src], at = s * EMAX + i;
+    rec.m[at] = mm;
+    rec.sl[at] = sl_in[src];
+    rec.sr[at] = sr_in[src];
+    RecOut o = rec.out(s, i);
+    for (int t = 0; t < mm; ++t) o.put(t, xs_in[src * K + t], ys_in[src * K + t]);
   }
   __syncthreads();
 
   double wxs[KM], wys[KM], vxs[KM], vys[KM], SA[KM], PB[KM];
-  double mx[2 * KM], mvf[2 * KM], mvg[2 * KM];
-  double cx[4 * KM + 1], cy[4 * KM + 1];
-
-  int cur = 0;
-  for (int j = 0; j < levels; ++j) {
-    const double lvl = lvl0 - (double)(j + 1);
-    const Buf& in = buf[cur];
-    const Buf& ob = buf[cur ^ 1];
-    for (int it = threadIdx.x; it < items; it += blockDim.x) {
-      const int s = it / W, i = it % W;
-      const size_t me = (size_t)it;
-      const size_t up = (size_t)s * W + (i + 1 < W ? i + 1 : 0);
-      const double idx = offset + (double)i;
-      if (!(idx <= lvl)) {
-        for (int t = 0; t < K; ++t) {
-          ob.xs[me * K + t] = in.xs[me * K + t];
-          ob.ys[me * K + t] = in.ys[me * K + t];
-        }
-        ob.sl[me] = in.sl[me]; ob.sr[me] = in.sr[me]; ob.m[me] = in.m[me];
-        continue;
-      }
+  int my_pieces = 0;
+  for (int c = 1; c <= levels; ++c) {
+    const int nact = ext - c;
+    if (nact <= 0) break;
+    const double lvl = lvl0 - (double)c;
+    const int rin = (c - 1) & 1, rout = c & 1;
+    for (int it = threadIdx.x; it < S * nact; it += THREADS) {
+      const int s = it / nact, i = it - s * nact;
+      if (c > nst[i]) continue;
+      const double idx = lane_index(t0 + i, lanes_in, halo_block);
       const double sp = s0 * exp((2.0 * idx - lvl) * sig);
       const bool no_tc = lvl == 0.0;
       const double a = no_tc ? sp : (1.0 + k) * sp;
       const double b = no_tc ? sp : (1.0 - k) * sp;
 
-      View zu{in.xs + up * K, in.ys + up * K, in.sl[up], in.sr[up], in.m[up]};
-      View zc{in.xs + me * K, in.ys + me * K, in.sl[me], in.sr[me], in.m[me]};
-      Out w{wxs, wys, 0.0, 0.0, 0};
-      const int m1 = envelope2(zu, zc, true, K, w, mx, mvf, mvg, cx, cy);
-      for (int t = 0; t < w.m; ++t) wys[t] = wys[t] * inv_r;
-      View wv{wxs, wys, w.sl * inv_r, w.sr * inv_r, w.m};
-      Out v{vxs, vys, 0.0, 0.0, 0};
-      const int m2 = cone(wv, a, b, K, v, SA, PB, mx, mvf, mvg, cx, cy);
+      const int up_steps = min(c - 1, nst[i + 1]);
+      const View zu = rec.view(2 * (up_steps & 1) + s, i + 1);
+      const View zc = rec.view(2 * rin + s, i);
+      ArrOut wo{wxs, wys, inv_r};
+      MergeSrc m_src(zu, zc);
+      double wsl, wsr;
+      const int m1 = envelope_stream(m_src, zu, zc.sl, zc.sr, true, wo, K,
+                                     wsl, wsr);
+      const View wv{wxs, wys, 1, wsl * inv_r, wsr * inv_r, m1 < K ? m1 : K};
+      ArrOut vo{vxs, vys, 1.0};
+      double vsl, vsr;
+      const int m2 = cone(wv, a, b, vo, K, SA, PB, vsl, vsr);
+      const View vv{vxs, vys, 1, vsl, vsr, m2 < K ? m2 : K};
 
       const bool seller = (seller_mask >> s) & 1u;
       const double sign = seller ? 1.0 : -1.0;
       const double xi = sign * (alpha * k1 + w1 * fmax(sp - k1, 0.0)
                                 + w2 * fmax(sp - k2, 0.0));
       const double ze = sign * zeta;
-      View u{&ze, &xi, -a, -b, 1};
-      View vv{vxs, vys, v.sl, v.sr, v.m};
-      Out z{ob.xs + me * K, ob.ys + me * K, 0.0, 0.0, 0};
-      const int m3 = envelope2(u, vv, seller, K, z, mx, mvf, mvg, cx, cy);
-      ob.sl[me] = z.sl; ob.sr[me] = z.sr; ob.m[me] = z.m;
-      if (i < block) {
+      const View u{&ze, &xi, 1, -a, -b, 1};
+      const int ro = 2 * rout + s;
+      RecOut zo = rec.out(ro, i);
+      MergeSrc z_src(u, vv);
+      double zsl, zsr;
+      const int m3 = envelope_stream(z_src, u, vv.sl, vv.sr, seller, zo, K,
+                                     zsl, zsr);
+      const int at = ro * EMAX + i;
+      rec.sl[at] = zsl;
+      rec.sr[at] = zsr;
+      rec.m[at] = m3 < K ? m3 : K;
+      if (i < owned && t0 + i < owned_lanes) {
         int pc = m1 > m2 ? m1 : m2;
         pc = pc > m3 ? pc : m3;
-        atomicMax(&blk_pieces, pc);
+        my_pieces = my_pieces > pc ? my_pieces : pc;
       }
     }
     __syncthreads();
-    cur ^= 1;
   }
+  if (my_pieces > 0) atomicMax(&s_pieces, my_pieces);
 
-  // write back the owned lanes
-  const Buf& fin = buf[cur];
-  for (int it = threadIdx.x; it < S * block; it += blockDim.x) {
-    const int s = it / block, i = it % block;
-    const size_t me = (size_t)s * W + i;
-    const size_t dst = ((size_t)row * S + s) * lanes + (size_t)blk * block + i;
-    for (int t = 0; t < K; ++t) {
-      xs_out[dst * K + t] = fin.xs[me * K + t];
-      ys_out[dst * K + t] = fin.ys[me * K + t];
+  // write back the owned lanes: their last values, BIG / 0 padded; a lane
+  // no level stepped is copied from the input as it was
+  for (int it = threadIdx.x; it < S * owned; it += THREADS) {
+    const int s = it / owned, i = it - s * owned;
+    const size_t dst = (row_s + s) * lanes_out + t0 + i;
+    if (i < ext && nst[i] > 0) {
+      const int at = (2 * (nst[i] & 1) + s) * EMAX + i;
+      sl_out[dst] = rec.sl[at]; sr_out[dst] = rec.sr[at]; m_out[dst] = rec.m[at];
+    } else {
+      const size_t src = (row_s + s) * lanes_in
+                         + src_lane(t0 + i, lanes_in, halo_block);
+      sl_out[dst] = sl_in[src]; sr_out[dst] = sr_in[src]; m_out[dst] = m_in[src];
     }
-    sl_out[dst] = fin.sl[me]; sr_out[dst] = fin.sr[me]; m_out[dst] = fin.m[me];
   }
-  if (threadIdx.x == 0) pieces_out[(size_t)row * nblk + blk] = blk_pieces;
+  for (int q = threadIdx.x; q < S * owned * K; q += THREADS) {
+    const int lane = q / K, t = q - lane * K;
+    const int s = lane / owned, i = lane - s * owned;
+    const size_t dst = ((row_s + s) * lanes_out + t0 + i) * K + t;
+    if (i < ext && nst[i] > 0) {
+      const View v = rec.view(2 * (nst[i] & 1) + s, i);
+      const bool in = t < v.m;
+      xs_out[dst] = in ? v.xs[t * v.st] : BIG;
+      ys_out[dst] = in ? v.ys[t * v.st] : 0.0;
+    } else {
+      const size_t src = ((row_s + s) * lanes_in
+                          + src_lane(t0 + i, lanes_in, halo_block)) * K + t;
+      xs_out[dst] = xs_in[src];
+      ys_out[dst] = ys_in[src];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    pieces_out[(size_t)row * gridDim.x + blockIdx.x] = s_pieces;
+    atomicAnd(&masks[s_slot >> 5], ~(1u << (s_slot & 31)));
+  }
 }
 
 template <int KM>
-cudaError_t launch(void* const* p, int R, int S, int lanes, int K, int block,
-                   int nblk, int levels, unsigned mask, cudaStream_t st) {
-  dim3 grid(nblk, R);
-  rz_round_kernel<KM><<<grid, THREADS, 0, st>>>(
+cudaError_t prepare(int* slots) {
+  cudaError_t err = cudaFuncSetAttribute(
+      rz_round_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  int dev = 0, nsm = 0, occ = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))
+      != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &occ, rz_round_kernel<KM>, THREADS, SMEM_BYTES)) != cudaSuccess)
+    return err;
+  *slots = nsm * occ;
+  return *slots > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <int KM>
+cudaError_t launch(void* const* p, int nslots, int R, int S, int lanes_in,
+                   int lanes_out, int owned_lanes, int K, int halo_block,
+                   int levels, int tile, int tiles, unsigned mask,
+                   cudaStream_t st) {
+  int slots = 0;
+  cudaError_t err = prepare<KM>(&slots);
+  if (err != cudaSuccess) return err;
+  if (slots > nslots) return cudaErrorInvalidValue;
+  err = cudaMemsetAsync(p[13], 0, sizeof(unsigned) * ((nslots + 31) / 32), st);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tiles, R);
+  rz_round_kernel<KM><<<grid, THREADS, SMEM_BYTES, st>>>(
       (const double*)p[0], (const double*)p[1], (const double*)p[2],
       (const double*)p[3], (const int*)p[4], (const double*)p[5],
       (double*)p[6], (double*)p[7], (double*)p[8], (double*)p[9], (int*)p[10],
-      (int*)p[11], (double*)p[12], (double*)p[13], (double*)p[14],
-      (double*)p[15], (int*)p[16], S, lanes, K, block, levels, mask);
+      (int*)p[11], (double*)p[12], (unsigned*)p[13], nslots, S, lanes_in,
+      lanes_out, owned_lanes, K, halo_block, levels, tile, mask);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The number of wide-record slots (resident CTAs on this card) the launch
+// at capacity K needs; the wrapper sizes the slot pool with it.
+extern "C" int rz_round_slots(int K, int* slots) {
+  cudaError_t err;
+  if (K <= 16) err = prepare<16>(slots);
+  else if (K <= 32) err = prepare<32>(slots);
+  else if (K <= 48) err = prepare<48>(slots);
+  else if (K <= 64) err = prepare<64>(slots);
+  else if (K <= 128) err = prepare<128>(slots);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// One launch: lanes [0, lanes_out) of the virtual row over the input's
+// lanes_in lanes (halo_block 0: the row wraps; else the last halo_block
+// lanes repeat past the end), advanced `levels` levels, in tiles of `tile`
+// owned lanes; pieces over owned live lanes below owned_lanes, one int per
+// (row, tile).
 extern "C" int rz_round_launch(
     void* xs, void* ys, void* sl, void* sr, void* m, void* scalars,
     void* xs_o, void* ys_o, void* sl_o, void* sr_o, void* m_o, void* pieces,
-    void* sxs, void* sys, void* ssl, void* ssr, void* sm,
-    int R, int S, int lanes, int K, int block, int nblk, int levels,
-    int seller_mask, void* stream) {
-  void* p[17] = {xs, ys, sl, sr, m, scalars, xs_o, ys_o, sl_o, sr_o, m_o,
-                 pieces, sxs, sys, ssl, ssr, sm};
+    void* wide, void* masks, int nslots, int R, int S, int lanes_in,
+    int lanes_out, int owned_lanes, int K, int halo_block, int levels,
+    int tile, int tiles, int seller_mask, void* stream) {
+  void* p[14] = {xs, ys, sl, sr, m, scalars, xs_o, ys_o, sl_o, sr_o, m_o,
+                 pieces, wide, masks};
+  if (S < 1 || S > 2 || tile + levels > EMAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned mask = (unsigned)seller_mask;
   cudaError_t err;
-  if (K <= 16) err = launch<16>(p, R, S, lanes, K, block, nblk, levels, mask, st);
-  else if (K <= 32) err = launch<32>(p, R, S, lanes, K, block, nblk, levels, mask, st);
-  else if (K <= 48) err = launch<48>(p, R, S, lanes, K, block, nblk, levels, mask, st);
-  else if (K <= 64) err = launch<64>(p, R, S, lanes, K, block, nblk, levels, mask, st);
-  else if (K <= 128) err = launch<128>(p, R, S, lanes, K, block, nblk, levels, mask, st);
+#define RZ_LAUNCH(KM) launch<KM>(p, nslots, R, S, lanes_in, lanes_out, owned_lanes, \
+                                 K, halo_block, levels, tile, tiles, mask, st)
+  if (K <= 16) err = RZ_LAUNCH(16);
+  else if (K <= 32) err = RZ_LAUNCH(32);
+  else if (K <= 48) err = RZ_LAUNCH(48);
+  else if (K <= 64) err = RZ_LAUNCH(64);
+  else if (K <= 128) err = RZ_LAUNCH(128);
   else err = cudaErrorInvalidValue;
+#undef RZ_LAUNCH
   return (int)err;
 }

@@ -14,13 +14,20 @@ block) as halo, so it needs ``levels <= block``; a single-block round has
 no halo.  The second output is each row's max raw (pre-truncation) knot
 count over owned live lanes: the overflow signal.
 
-On a CUDA tensor the wrapper launches ``csrc/rz_step.cu`` (one launch per
-round, all levels inside); on a CPU tensor it runs the plain version
-below, which repeats the block/halo structure with the torch PWL algebra.
+On a CUDA tensor the wrapper launches ``csrc/rz_step.cu``; on a CPU
+tensor it runs the plain version below, which repeats the block/halo
+structure with the torch PWL algebra.  The kernel steps tiles of lanes
+with a recomputed halo (:func:`tile_plan`): an owned lane after
+``levels`` steps depends only on the ``levels`` lanes to its right in a
+virtual row (:func:`virtual_row`) that wraps for a single-block round
+and repeats the last block past the end (the clamped halo) otherwise.
+One launch runs up to ``LEVELS_PER_LAUNCH`` levels, so a round is one
+launch at the engines' depths (64 levels at most).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple
 
 import torch
 
@@ -29,19 +36,86 @@ from ..core.rz import rz_level_step_lanes
 from . import _build
 
 __all__ = ["rz_round", "rz_round_plain", "RZ_SCALARS", "LAUNCHES",
-           "MAX_CAPACITY"]
+           "MAX_CAPACITY", "Tile", "tile_plan", "virtual_row",
+           "TILE_LANES", "LEVELS_PER_LAUNCH", "INLINE_KNOTS",
+           "wide_pool_bytes"]
 
 # [lvl0, s0, sig_sqrt_dt, r, k, alpha, zeta, w1, w2, k1, k2]
 RZ_SCALARS = 11
 MAX_CAPACITY = 128
+# lanes a CTA of the kernel holds (owned lanes and halo: EMAX in
+# csrc/rz_step.cu) and the fewest lanes a tile owns, which bound the
+# levels of one launch
+TILE_LANES = 256
+MIN_OWNED = 64
+# knots a lane record keeps in shared memory (KS in csrc/rz_step.cu); a
+# lane with more keeps them in a device-memory slot
+INLINE_KNOTS = 2
+LEVELS_PER_LAUNCH = TILE_LANES - MIN_OWNED
+# lane records a CTA keeps (2 buffers x 2 sides x TILE_LANES), each with a
+# full-capacity slot for knots past the inline ones: the wide-record pool
+_RECORDS_PER_CTA = 4 * TILE_LANES
 
 # kernel launches (never bumped by the plain version)
 LAUNCHES = {"rz_round": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"rz_round_launch": [_P] * 6 + [_P] * 6 + [_P] * 5
-               + [_I] * 8 + [_P]}
+_SIGNATURES = {"rz_round_launch": [_P] * 14 + [_I] * 12 + [_P],
+               "rz_round_slots": [_I, ctypes.POINTER(_I)]}
+_SLOTS: dict = {}
+
+
+class Tile(NamedTuple):
+    """One CTA's share of a row: owned lanes ``[start, start + owned)``
+    and the ``extent`` positions of the virtual row from ``start`` that
+    they depend on."""
+    start: int
+    owned: int
+    extent: int
+
+
+def tile_plan(lanes: int, block: int, levels: int, *, lanes_out=None,
+              lvl0=None, tile_lanes: int = TILE_LANES) -> List[Tile]:
+    """The kernel's tiles for a round of ``levels`` levels over ``lanes``
+    lanes in blocks of ``block``: equal tiles of at most ``tile_lanes -
+    levels`` owned lanes over ``lanes_out`` (default ``lanes``) output
+    lanes, each reading its owned lanes and ``levels`` more of the virtual
+    row.  With ``lvl0`` the extent ends at the first lane that no level of
+    the round steps (its value never changes, so nothing to its right
+    reaches an owned lane), as the kernel clips it for each row.  The
+    kernel holds ``TILE_LANES``; a smaller ``tile_lanes`` gives the same
+    schedule over more tiles (the CPU tests' small rows)."""
+    if not 1 <= levels < tile_lanes or levels > LEVELS_PER_LAUNCH:
+        raise ValueError(f"one launch takes 1..{LEVELS_PER_LAUNCH} levels "
+                         f"and fewer than its {tile_lanes} lanes, got {levels}")
+    lanes_out = lanes if lanes_out is None else lanes_out
+    ntiles = -(-lanes_out // (tile_lanes - levels))
+    tile = -(-lanes_out // ntiles)
+    plan = []
+    for start in range(0, lanes_out, tile):
+        owned = min(tile, lanes_out - start)
+        extent = owned + levels
+        if lvl0 is not None:
+            _, idx = virtual_row(start, extent, lanes, block)
+            dead = (~(idx <= lvl0 - 1.0)).nonzero()
+            if len(dead):
+                extent = int(dead[0]) + 1
+        plan.append(Tile(start, owned, extent))
+    return plan
+
+
+def virtual_row(start: int, extent: int, lanes: int, block: int):
+    """Input lanes and level indices of virtual positions ``[start, start
+    + extent)``: a single-block round wraps (the TPU kernel's roll), lane
+    p mod lanes at index p mod lanes; a multi-block round repeats the last
+    block past the end (its clamped right halo), lane p - block at index
+    p.  Returns ``(src int64, idx float64)`` tensors."""
+    p = torch.arange(start, start + extent)
+    if lanes // block == 1:
+        src = p % lanes
+        return src, src.to(torch.float64)
+    return torch.where(p < lanes, p, p - block), p.to(torch.float64)
 
 
 def rz_round_plain(z: P.PWL, scalars, *, levels: int, block: int,
@@ -108,30 +182,78 @@ def _check(z: P.PWL, scalars, levels: int, block: int, sellers):
             raise ValueError(f"{name} is on {a.device}, xs on {z.xs.device}")
 
 
+def _slots(lib, K: int, device) -> int:
+    """Wide-record slots the kernel at capacity K needs on ``device``: one
+    per CTA the card holds at once."""
+    key = (device.index, K)
+    if key not in _SLOTS:
+        n = ctypes.c_int(0)
+        _build.check(lib.rz_round_slots(K, ctypes.byref(n)), "rz_round_slots")
+        _SLOTS[key] = n.value
+    return _SLOTS[key]
+
+
+def wide_pool_bytes(K: int, device="cuda") -> int:
+    """Bytes of the wide-record pool a launch at capacity K allocates on
+    ``device``: a full-capacity knot slot for each lane record of each
+    CTA the card holds at once."""
+    lib = _build.load("rz_step", _SIGNATURES)
+    return 8 * _pool_len(_slots(lib, K, torch.device(device)), K)
+
+
+def _pool_len(nslots: int, K: int) -> int:
+    """float64 values of the wide-record pool: xs and ys of K knots for
+    every record of every slot."""
+    return nslots * _RECORDS_PER_CTA * 2 * K
+
+
 def _launch(z: P.PWL, scalars, levels: int, block: int, sellers):
+    """Launch the round kernel, ``LEVELS_PER_LAUNCH`` levels at a time;
+    returns ``(z_new, pieces (R,), launches)``."""
     if not all(a.is_contiguous() for a in (*z, scalars)):
         raise ValueError("rz_round's kernel takes contiguous tensors")
     R, S, lanes, K = z.xs.shape
     if K > MAX_CAPACITY:
         raise ValueError(f"capacity {K} > {MAX_CAPACITY} is not built")
+    if S > 2:      # a CTA holds two sides; the sides never mix
+        parts = [_launch(z.map(lambda a: a[:, s:s + 2].contiguous()),
+                         scalars, levels, block, sellers[s:s + 2])
+                 for s in range(0, S, 2)]
+        return (P.PWL(*(torch.cat(c, dim=1)
+                        for c in zip(*(p[0] for p in parts)))),
+                torch.stack([p[1] for p in parts]).amax(dim=0),
+                sum(p[2] for p in parts))
+    dev = z.xs.device
     lib = _build.load("rz_step", _SIGNATURES)
-    nblk = lanes // block
-    W = 2 * block if nblk > 1 else block
-    out = P.PWL(*(torch.empty_like(a) for a in z))
-    pieces = torch.empty((R, nblk), dtype=torch.int32, device=z.xs.device)
-    # per-CTA ping-pong level buffers: (R, nblk, 2, S, W[, K])
-    sshape = (R, nblk, 2, S, W)
-    f64 = dict(dtype=torch.float64, device=z.xs.device)
-    scratch = (torch.empty(sshape + (K,), **f64), torch.empty(sshape + (K,), **f64),
-               torch.empty(sshape, **f64), torch.empty(sshape, **f64),
-               torch.empty(sshape, dtype=torch.int32, device=z.xs.device))
+    nslots = _slots(lib, K, dev)
+    wide = torch.empty(_pool_len(nslots, K), dtype=torch.float64, device=dev)
+    masks = torch.empty(-(-nslots // 32), dtype=torch.int32, device=dev)
+    # a multi-block round's later launches continue on the virtual row:
+    # the first writes lanes + (levels still to go) of it
+    halo = block if lanes // block > 1 else 0
     mask = sum(1 << s for s, flag in enumerate(sellers) if flag)
-    stream = torch.cuda.current_stream(z.xs.device).cuda_stream
-    ptrs = [a.data_ptr() for a in (*z, scalars, *out, pieces, *scratch)]
-    err = lib.rz_round_launch(*ptrs, R, S, lanes, K, block, nblk, levels,
-                              mask, stream)
-    _build.check(err, "rz_round_launch")
-    return out, pieces.amax(dim=1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sc = scalars.clone()
+    pieces, done, n = None, 0, 0
+    while done < levels:
+        lv = min(LEVELS_PER_LAUNCH, levels - done)
+        lanes_in = z.xs.shape[2]
+        lanes_out = lanes + (levels - done - lv if halo else 0)
+        plan = tile_plan(lanes_in, block if halo else lanes_in, lv,
+                         lanes_out=lanes_out)
+        out = P.PWL(*(torch.empty((R, S, lanes_out) + a.shape[3:],
+                                  dtype=a.dtype, device=dev) for a in z))
+        pc = torch.empty((R, len(plan)), dtype=torch.int32, device=dev)
+        ptrs = [a.data_ptr() for a in (*z, sc, *out, pc, wide, masks)]
+        err = lib.rz_round_launch(*ptrs, nslots, R, S, lanes_in, lanes_out,
+                                  lanes, K, halo, lv, plan[0].owned,
+                                  len(plan), mask, stream)
+        _build.check(err, "rz_round_launch")
+        pc = pc.amax(dim=1)
+        pieces = pc if pieces is None else torch.maximum(pieces, pc)
+        z, done, n = out, done + lv, n + 1
+        sc[:, 0] -= lv
+    return z, pieces, n
 
 
 def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
@@ -153,8 +275,8 @@ def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
     sellers = tuple(bool(s) for s in sellers)
     _check(z, scalars, levels, block, sellers)
     if z.xs.device.type == "cuda":
-        out, pieces = _launch(z, scalars, levels, block, sellers)
-        LAUNCHES["rz_round"] += 1
+        out, pieces, launches = _launch(z, scalars, levels, block, sellers)
+        LAUNCHES["rz_round"] += launches
     elif z.xs.device.type == "cpu":
         out, pieces = rz_round_plain(z, scalars, levels=levels, block=block,
                                      sellers=sellers)

@@ -98,9 +98,13 @@ def test_lattice_kernel_matches_plain(cuda, case):
     assert torch.equal(got, want)
 
 
-def _rz_state(n_steps, capacity, lanes, walk, device):
+PUT = (1.0, 0.0, -1.0, 0.0, 100.0, 100.0)
+CALL = (-1.0, 1.0, 0.0, 0.0, 100.0, 110.0)
+BULL = (0.0, 0.0, 1.0, -1.0, 95.0, 105.0)
+
+
+def _rz_state(n_steps, capacity, lanes, walk, device, pay=BULL):
     t = lambda *x: torch.tensor(x, dtype=torch.float64, device=device)
-    pay = (0.0, 0.0, 1.0, -1.0, 95.0, 105.0)
     params = rz_params(t(100.0, 96.0), t(0.2, 0.25), t(0.1, 0.1),
                        t(0.25, 0.25), t(0.01, 0.005), n_steps=n_steps)
     z = leaf_level(n_steps, params, capacity, lanes).map(
@@ -117,16 +121,55 @@ def _rz_state(n_steps, capacity, lanes, walk, device):
     return z, sc
 
 
-@pytest.mark.parametrize("lanes,block,levels,walk",
-                         [(302, 302, 64, 20), (384, 128, 64, 20)],
-                         ids=["single-block", "halo"])
-def test_rz_kernel_matches_plain(cuda, lanes, block, levels, walk):
-    z, sc = _rz_state(300, 48, lanes, walk, cuda)
+# (n_steps, capacity, lanes, block, levels, walk, payoff): the main
+# path's round shapes, the tile schedule's edges, capacities 16 and 128,
+# and calls whose lanes hold more knots than a record keeps inline
+RZ_CASES = {
+    "single-block": (300, 48, 302, 302, 64, 20, BULL),
+    "halo": (300, 48, 384, 128, 64, 20, BULL),
+    "lanes-not-a-multiple-of-tile": (300, 48, 301, 301, 8, 10, BULL),
+    "lanes-below-tile": (40, 48, 42, 42, 8, 0, PUT),
+    "levels-eq-lvl0": (40, 48, 42, 42, 41, 0, BULL),
+    "levels-eq-lvl0-two-launches": (300, 48, 302, 302, 301, 0, PUT),
+    "levels-1": (300, 48, 302, 302, 1, 20, BULL),
+    "single-block-wrap": (40, 48, 24, 24, 10, 0, BULL),
+    "halo-last-block": (40, 48, 48, 12, 8, 2, BULL),
+    "halo-two-launches": (600, 16, 768, 256, 200, 0, PUT),
+    "capacity-16": (300, 16, 302, 302, 64, 20, PUT),
+    "capacity-128": (300, 128, 302, 302, 64, 20, BULL),
+    "call-wide-lanes": (120, 48, 122, 122, 57, 64, CALL),
+}
+
+
+@pytest.mark.parametrize("case", list(RZ_CASES))
+def test_rz_kernel_matches_plain(cuda, case):
+    n, K, lanes, block, levels, walk, pay = RZ_CASES[case]
+    z, sc = _rz_state(n, K, lanes, walk, cuda, pay)
     n0 = TR.LAUNCHES["rz_round"]
     got, pieces = TR.rz_round(z, sc, levels=levels, block=block)
     torch.cuda.synchronize()
-    assert TR.LAUNCHES["rz_round"] == n0 + 1
+    assert TR.LAUNCHES["rz_round"] == n0 + -(-levels // TR.LEVELS_PER_LAUNCH)
     want, wp = TR.rz_round_plain(z, sc, levels=levels, block=block)
+    assert torch.equal(got.m, want.m)
+    assert torch.equal(pieces, wp)
+    for a, b in zip(got[:4], want[:4]):
+        assert (a - b).abs().max().item() <= TOL
+    if case == "call-wide-lanes":
+        assert int(z.m.max()) > TR.INLINE_KNOTS
+
+
+@pytest.mark.parametrize("sides", [(True,), (False, True, True)])
+def test_rz_kernel_takes_any_number_of_sides(cuda, sides):
+    """A CTA holds two sides; one side, or three in two launches, give
+    the plain version's result."""
+    z, sc = _rz_state(40, 16, 42, 0, cuda)
+    z = z.map(lambda a: torch.cat([a, a[:, :1]], dim=1)[:, :len(sides)]
+              .contiguous())
+    n0 = TR.LAUNCHES["rz_round"]
+    got, pieces = TR.rz_round(z, sc, levels=8, block=42, sellers=sides)
+    torch.cuda.synchronize()
+    assert TR.LAUNCHES["rz_round"] == n0 + -(-len(sides) // 2)
+    want, wp = TR.rz_round_plain(z, sc, levels=8, block=42, sellers=sides)
     assert torch.equal(got.m, want.m)
     assert torch.equal(pieces, wp)
     for a, b in zip(got[:4], want[:4]):

@@ -30,14 +30,19 @@ Then it serves recurrentgemma-2b at its published width (26 layers,
 d_model 2560, random weights from a seeded generator on the card,
 float32) through ``repro_torch.serve.engine.LMEngine``: batch 4, a
 4096-token prompt, 32 greedy tokens.  It holds ``flash_attention``
-against its plain version on the inputs that the first local-attention
-layer receives in that prefill (float32, max abs difference <= 2e-5),
-and ``lru_scan`` against its plain version, bit for bit, on the inputs
-of the first RG-LRU layer and on seeded inputs of the same shape whose
-decay is slow (a in (0.9, 1), h0 nonzero): the model's random init
-decays so fast that its own inputs leave the carry a_t * h_{t-1} below
-one ulp of h.  It times ``scaled_dot_product_attention`` with the same
-window mask as a yardstick, checks the launch counts of the serve (8
+(split-TF32 products on the tensor cores) against its plain version on
+the inputs that the first local-attention layer receives in that
+prefill (float32, max abs difference <= 2e-5), and on seeded inputs at
+head_dim 128 and without the causal mask, and ``lru_scan`` against its
+plain version, bit for bit, on the inputs of the first RG-LRU layer, on
+seeded inputs of the same shape whose decay is slow (a in (0.9, 1), h0
+nonzero; the model's random init decays so fast that its own inputs
+leave the carry a_t * h_{t-1} below one ulp of h) and on edge shapes
+(B = 1, T shorter than the kernel's ring chunk, W not a multiple of its
+32 channels).  It prints the attention kernel's bound on the tensor
+cores beside the FFMA bound of the same work, times
+``scaled_dot_product_attention`` with the same window mask as a
+yardstick, checks the launch counts of the serve (8
 ``flash_attention`` and 18 ``lru_scan`` a prefill, none in decode), and
 that a prefill of 4096 tokens and a decode of token 4096 give a prefill
 of 4097's last logits (the kernels' ragged last tile).  Last it
@@ -66,6 +71,9 @@ TOL = 1e-9
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
+# the flash kernel's split TF32: three TF32 MMAs a float32 product
+SPLIT_TF32_MMAS = 3
 # float64 operations the lattice round needs: 5 per node and level (p*up,
 # q*v, their sum, *inv_r, the max), and the intrinsic once per distinct
 # spot j = 2i - lvl, counted from the expression of each kind (the exp as
@@ -83,6 +91,14 @@ FLASH_TOL = 2e-5
 # through 26 layers, sums of up to 7680 terms in other orders (flash
 # kernel against naive decode attention, cuBLAS at other shapes)
 CONSIST_TOL = 1e-3
+# lru_scan's edge shapes (B, T, W): a ragged last ring chunk, T shorter
+# than a chunk, W not a multiple of a warp's 32 channels nor 16-byte
+# aligned, one batch row
+LRU_EDGES = ((1, 300, 2560), (2, 20, 77), (1, 1, 33))
+# flash_attention beyond the prefill's instance (hd 256, causal, window):
+# (label, B, T = S, H, KVH, hd, causal, window)
+FLASH_EXTRA = (("hd128", 2, 1000, 8, 2, 128, True, None),
+               ("bidirectional", 1, 1000, 10, 1, 256, False, None))
 
 
 class SmokeError(RuntimeError):
@@ -142,10 +158,14 @@ def print_ptxas(source, log):
             if entry and facts:
                 print(f"[ptxas] {source} {entry}: {'; '.join(facts)}",
                       flush=True)
-            # the kernel's name and template argument out of the mangled one
-            k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", m.group(1))
+            # the kernel's name and template arguments out of the mangled one
+            k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?",
+                          m.group(1))
+            args = [] if k is None else [x for x in k.groups()[1:] if x]
+            if len(args) == 2:
+                args[1] = "true" if args[1] == "1" else "false"
             entry = (m.group(1) if k is None else
-                     k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""))
+                     k.group(1) + (f"<{', '.join(args)}>" if args else ""))
             facts = []
         elif entry and ("Used" in ln or "spill" in ln):
             facts.append(ln.split(":", 1)[-1].strip())
@@ -553,6 +573,18 @@ def lm_kernel_phase(torch, np, FL, LS, seen):
         check(same, f"lru_scan {label}: kernel differs from plain "
               f"(max abs err {errs[label]})")
     del slow, got, want
+    for Bx, Tx, Wx in LRU_EDGES:
+        xs = (torch.rand(Bx, Tx, Wx, generator=g, device=a.device),
+              torch.randn(Bx, Tx, Wx, generator=g, device=a.device),
+              torch.randn(Bx, Wx, generator=g, device=a.device))
+        got, want = LS.lru_scan(*xs), LS.lru_scan_plain(*xs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        label = f"edge B={Bx} T={Tx} W={Wx}"
+        errs[label] = max(float((x - y).abs().max())
+                          for x, y in zip(got, want))
+        print(f"[kernel] lru_scan {label}: equal to plain {same}", flush=True)
+        check(same, f"lru_scan {label}: kernel differs from plain")
     err = max(errs.values())
     ms = cuda_ms(torch, lambda: LS.lru_scan(a, b, h0), 20)
     plain_ms = cuda_ms(torch, lambda: LS.lru_scan_plain(a, b, h0), 2)
@@ -596,19 +628,47 @@ def lm_kernel_phase(torch, np, FL, LS, seen):
     lib_ms = cuda_ms(torch, sdpa, 5)
     del ks, vs
     pairs = live_pairs(np, T, S, kw["causal"], kw["window"]) * B * H
-    t_ops = 4 * hd * pairs / FP32_OPS_PER_S
+    # the kernel's products: 3 TF32 MMAs (split TF32) of 4*hd operations a
+    # live pair; the FFMA bound of the same pairs beside it
+    t_ops = SPLIT_TF32_MMAS * 4 * hd * pairs / TF32_OPS_PER_S
+    t_ffma = 4 * hd * pairs / FP32_OPS_PER_S
     t_bytes = 2 * (q.numel() + k.numel()) * 4 / HBM_BYTES_PER_S
     out["flash_attention"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_ms=max(t_ops, t_bytes) * 1e3, ffma_bound_ms=t_ffma * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_max_abs_diff=lib_err, live_pairs=pairs,
         q_shape=list(q.shape), kv_shape=list(k.shape), window=kw["window"])
     print(f"[kernel] flash_attention: q {tuple(q.shape)} k,v {tuple(k.shape)} "
           f"window={kw['window']} live_pairs={pairs} max_abs_err={err:.3e} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={out['flash_attention']['bound_ms']:.4f} "
+          f"bound_ms={out['flash_attention']['bound_ms']:.4f} (split TF32 "
+          f"on the tensor cores) ffma_bound_ms={t_ffma * 1e3:.4f} "
           f"sdpa_ms={lib_ms:.4f} (sdpa vs kernel {lib_err:.3e})", flush=True)
+    del q, k, v, got, want
+    extra = out["flash_attention"]["extra"] = {}
+    g = torch.Generator(device=a.device).manual_seed(11)
+    for label, Bx, Tx, Hx, KVHx, hdx, causal, window in FLASH_EXTRA:
+        qx = torch.randn(Bx, Tx, Hx, hdx, generator=g, device=a.device)
+        kx = torch.randn(Bx, Tx, KVHx, hdx, generator=g, device=a.device)
+        vx = torch.randn(Bx, Tx, KVHx, hdx, generator=g, device=a.device)
+        kwx = dict(causal=causal, window=window)
+        got = FL.flash_attention(qx, kx, vx, **kwx)
+        want = FL.flash_attention_plain(qx, kx, vx, **kwx)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= FLASH_TOL, f"flash_attention {label}: kernel vs plain "
+              f"max abs err {err}")
+        ms = cuda_ms(torch, lambda: FL.flash_attention(qx, kx, vx, **kwx), 5)
+        pairs = live_pairs(np, Tx, Tx, causal, window) * Bx * Hx
+        bound = SPLIT_TF32_MMAS * 4 * hdx * pairs / TF32_OPS_PER_S * 1e3
+        extra[label] = dict(max_abs_err=err, ms=ms, bound_ms=bound,
+                            q_shape=list(qx.shape), kv_shape=list(kx.shape),
+                            causal=causal, window=window)
+        print(f"[kernel] flash_attention {label}: q {tuple(qx.shape)} k,v "
+              f"{tuple(kx.shape)} causal={causal} window={window} "
+              f"max_abs_err={err:.3e} ms={ms:.4f} bound_ms={bound:.4f}",
+              flush=True)
     return out
 
 
@@ -970,8 +1030,9 @@ def main() -> int:
             ("lru_scan", "src/repro/kernels/lru_scan.py:31",
              "12 bytes per element (a, b read, h written) over 3.35 TB/s"),
             ("flash_attention", "src/repro/kernels/flash_attention.py:29",
-             "4*hd float32 operations per live (query, key) pair over "
-             "67 TFLOP/s")):
+             "split TF32: 3 TF32 MMAs of 4*hd operations per live (query, "
+             "key) pair over 495 TFLOP/s (ffma_bound_ms: the same pairs' "
+             "4*hd float32 operations over 67 TFLOP/s)")):
         rec = lm_kern[name]
         kernels.append(dict(
             name=name, route="cuda", source=src + name + ".cu",
@@ -979,7 +1040,8 @@ def main() -> int:
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            bound_note=note))
+            bound_note=note, **({"ffma_bound_ms": rec["ffma_bound_ms"]}
+                                if "ffma_bound_ms" in rec else {})))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,

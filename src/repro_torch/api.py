@@ -14,6 +14,7 @@ the kernels.  ``backend="torch"`` selects the plain PyTorch level walk.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -22,9 +23,10 @@ import torch
 from .configs.pricing import ExecutionConfig
 from .core.device import DEFAULT_DTYPE, resolve_device
 from .core.lattice import LatticeModel
-from .core.notc import notc_rows
+from .core.notc import notc_payoff_rows
 from .core.payoff import (PAYOFF_FAMILIES, PayoffProcess, american_call,
-                          american_put, bull_spread, param_payoff)
+                          american_put, bull_spread, cash_settled,
+                          kernel_params, param_payoff)
 from .core.rz import price_rz
 from .scenarios import (_NOT_PORTED, GridResult, ScenarioGrid,
                         _notc_rows_kernel, price_grid_notc, price_grid_rz,
@@ -33,7 +35,94 @@ from .scenarios import (_NOT_PORTED, GridResult, ScenarioGrid,
 __all__ = ["price_american", "price_grid", "price_flat", "PriceQuote",
            "GridResult", "ExecutionConfig", "ScenarioGrid", "LatticeModel",
            "PayoffProcess", "PAYOFF_FAMILIES", "american_put",
-           "american_call", "bull_spread", "param_payoff", "route_engine"]
+           "american_call", "bull_spread", "cash_settled", "param_payoff",
+           "route_engine"]
+
+# the JAX package's individual execution kwargs warn once per process
+_legacy_exec_warned = False
+_LEGACY_BACKENDS = {"jnp": "torch", "pallas": "kernel"}
+_LEGACY_PLATFORMS = {"gpu": "cuda", "cpu": "cpu"}
+_LSMC_KNOBS = ("n_paths", "seed", "basis", "degree", "antithetic")
+
+
+def _reset_legacy_exec_warning() -> None:
+    """Re-arm the once-per-process deprecation warning (test hook)."""
+    global _legacy_exec_warned
+    _legacy_exec_warned = False
+
+
+def _merge_execution(fn: str, execution: Optional[ExecutionConfig], *,
+                     engine=None, backend=None, platform=None,
+                     interpret=None, devices=None, n_paths=None, seed=None,
+                     basis=None, degree=None,
+                     antithetic=None) -> ExecutionConfig:
+    """Collapse ``execution=`` and the JAX package's individual execution
+    kwargs into one resolved :class:`ExecutionConfig`.
+
+    Passing both is a ``TypeError``; the individual kwargs alone warn
+    once per process (``DeprecationWarning``) and map onto the port:
+
+    * ``backend``: ``"jnp"`` -> ``"torch"``, ``"pallas"`` -> ``"kernel"``
+      (the port's own names pass through);
+    * ``platform``: ``"gpu"`` -> ``device="cuda"``, ``"cpu"`` ->
+      ``"cpu"``; ``"tpu"`` raises ``ValueError``;
+    * ``interpret=True`` (the kernels' semantics off the card) ->
+      ``device="cpu"`` and, unless ``backend`` says otherwise,
+      ``backend="kernel"``: the kernels' plain versions.  It raises
+      ``ValueError`` with ``platform="gpu"``, as ``interpret=False`` (the
+      compiled kernels) does with ``platform="cpu"``;
+    * ``engine`` and ``devices`` keep their meaning (``devices > 1`` is
+      not ported and raises where the grid is priced);
+    * ``n_paths``/``seed``/``basis``/``degree``/``antithetic`` tune the
+      LSMC engine, which is not ported: ``NotImplementedError``.
+    """
+    legacy = {name: v for name, v in (
+        ("engine", engine), ("backend", backend), ("platform", platform),
+        ("interpret", interpret), ("devices", devices),
+        ("n_paths", n_paths), ("seed", seed), ("basis", basis),
+        ("degree", degree), ("antithetic", antithetic)) if v is not None}
+    if execution is not None:
+        if legacy:
+            raise TypeError(
+                f"{fn}() got both execution= and the individual kwargs "
+                f"{sorted(legacy)}; set them on the ExecutionConfig instead")
+        return execution.resolved()
+    if legacy:
+        global _legacy_exec_warned
+        if not _legacy_exec_warned:
+            _legacy_exec_warned = True
+            warnings.warn(
+                f"{fn}({', '.join(sorted(legacy))}=...): passing execution "
+                "knobs as individual kwargs is deprecated; pass "
+                "execution=ExecutionConfig(...) "
+                "(repro_torch.api.ExecutionConfig)",
+                DeprecationWarning, stacklevel=3)
+    lsmc = [k for k in _LSMC_KNOBS if k in legacy]
+    if lsmc:
+        raise NotImplementedError(f"{fn}({', '.join(lsmc)}=...): "
+                                  + _NOT_PORTED["lsmc"])
+    device = None
+    if platform is not None:
+        if platform not in _LEGACY_PLATFORMS:
+            raise ValueError(f"platform {platform!r} is not a platform of "
+                             f"the port; use one of "
+                             f"{tuple(_LEGACY_PLATFORMS)}")
+        device = _LEGACY_PLATFORMS[platform]
+    if backend is not None:
+        backend = _LEGACY_BACKENDS.get(backend, backend)
+    if interpret is not None:
+        if interpret and device == "cuda":
+            raise ValueError("interpret=True runs the kernels' plain "
+                             "versions on the CPU; it contradicts "
+                             "platform='gpu'")
+        if not interpret and device == "cpu":
+            raise ValueError("interpret=False runs the compiled kernels on "
+                             "the card; it contradicts platform='cpu'")
+        if interpret:
+            device = "cpu"
+            backend = backend or "kernel"
+    return ExecutionConfig(engine=engine, backend=backend, device=device,
+                           devices=devices).resolved()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +162,11 @@ def price_american(*, s0: float, sigma: float, rate: float, maturity: float,
                    cost_rate: float = 0.0, capacity: int = 48,
                    execution: Optional[ExecutionConfig] = None) -> PriceQuote:
     """Price one American option: the friction-free lattice at
-    ``cost_rate == 0``, else the Roux–Zastawniak ask/bid interval."""
+    ``cost_rate == 0``, else the Roux–Zastawniak ask/bid interval.
+
+    A closure-only payoff (:func:`cash_settled` with ``params=None``)
+    prices on ``backend="torch"``; ``"kernel"`` raises ``ValueError``.
+    """
     cfg = (execution or ExecutionConfig()).resolved()
     model = LatticeModel(s0=s0, sigma=sigma, rate=rate, maturity=maturity,
                          n_steps=n_steps, cost_rate=cost_rate)
@@ -83,22 +176,29 @@ def price_american(*, s0: float, sigma: float, rate: float, maturity: float,
                        device=cfg.device)
         return PriceQuote(ask=res.ask, bid=res.bid, max_pieces=res.max_pieces)
     dev = resolve_device(cfg.device)
-    cols = [torch.tensor([float(x)], dtype=DEFAULT_DTYPE, device=dev)
-            for x in (s0, sigma, rate, maturity, *pay.params)]
+    col = lambda x: torch.tensor([float(x)], dtype=DEFAULT_DTYPE, device=dev)
+    market = [col(x) for x in (s0, sigma, rate, maturity)]
     if cfg.backend == "kernel":
-        v = _notc_rows_kernel(*cols, n_steps=n_steps, levels=64, block=256)
+        v = _notc_rows_kernel(*market, *map(col, kernel_params(pay)),
+                              n_steps=n_steps, levels=64, block=256)
     else:
-        v = notc_rows(*cols, n_steps=n_steps)
+        v = notc_payoff_rows(*market, pay, n_steps=n_steps)
     p = float(v[0])
     return PriceQuote(ask=p, bid=p, max_pieces=0)
 
 
 def price_grid(grid: Optional[ScenarioGrid] = None, *,
                execution: Optional[ExecutionConfig] = None,
-               capacity: int = 48, greeks: bool = False,
+               engine: Optional[str] = None, capacity: int = 48,
+               greeks: bool = False, backend: Optional[str] = None,
                n_steps: Union[int, Sequence[int], None] = None,
                levels: Optional[int] = None, block: Optional[int] = None,
-               mesh=None, shard_plan=None,
+               interpret: Optional[bool] = None,
+               platform: Optional[str] = None,
+               n_paths: Optional[int] = None, seed: Optional[int] = None,
+               basis: Optional[str] = None, degree: Optional[int] = None,
+               antithetic: Optional[bool] = None,
+               mesh=None, devices: Optional[int] = None, shard_plan=None,
                **axes) -> Union[GridResult, list]:
     """Price a whole grid of scenarios in one batch.
 
@@ -107,8 +207,18 @@ def price_grid(grid: Optional[ScenarioGrid] = None, *,
     one grid per depth.  ``engine="auto"`` routes through
     :func:`route_engine`: ``rz`` when any scenario has ``cost_rate > 0``,
     else ``notc``.  ``levels``/``block`` tune the kernels' round plan.
+
+    The JAX package's individual execution kwargs (``engine``,
+    ``backend``, ``platform``, ``interpret``, ``devices`` and the LSMC
+    knobs) are accepted beside ``execution=`` as in the JAX package: a
+    once-per-process ``DeprecationWarning``, a ``TypeError`` when both
+    are given, and the names mapped as :func:`_merge_execution` says.
     """
-    cfg = (execution or ExecutionConfig()).resolved()
+    cfg = _merge_execution("price_grid", execution, engine=engine,
+                           backend=backend, platform=platform,
+                           interpret=interpret, devices=devices,
+                           n_paths=n_paths, seed=seed, basis=basis,
+                           degree=degree, antithetic=antithetic)
     if grid is None:
         if isinstance(n_steps, (list, tuple)):
             return [price_grid(execution=cfg, capacity=capacity,
@@ -143,18 +253,30 @@ def price_flat(*, s0, sigma, rate, maturity, cost_rate=0.0, payoff="put",
                strike=100.0, strike2=None, n_steps: int = 100,
                n_assets: int = 1, exercise_steps=None,
                execution: Optional[ExecutionConfig] = None,
-               capacity: int = 48, greeks: bool = False,
+               engine: Optional[str] = None, capacity: int = 48,
+               greeks: bool = False, backend: Optional[str] = None,
                levels: Optional[int] = None, block: Optional[int] = None,
+               interpret: Optional[bool] = None,
+               platform: Optional[str] = None,
+               n_paths: Optional[int] = None, seed: Optional[int] = None,
+               basis: Optional[str] = None, degree: Optional[int] = None,
+               antithetic: Optional[bool] = None,
                pad_to: Optional[int] = None, mesh=None,
-               shard_plan=None) -> GridResult:
+               devices: Optional[int] = None, shard_plan=None) -> GridResult:
     """Price a flat batch of heterogeneous contracts (row ``i`` is request
-    ``i``); ``pad_to`` pads by repeating the last row."""
+    ``i``); ``pad_to`` pads by repeating the last row.  The execution
+    kwargs behave as in :func:`price_grid`."""
+    cfg = _merge_execution("price_flat", execution, engine=engine,
+                           backend=backend, platform=platform,
+                           interpret=interpret, devices=devices,
+                           n_paths=n_paths, seed=seed, basis=basis,
+                           degree=degree, antithetic=antithetic)
     grid = ScenarioGrid.explicit(
         s0=s0, sigma=sigma, rate=rate, maturity=maturity,
         cost_rate=cost_rate, payoff=payoff, strike=strike, strike2=strike2,
         n_steps=n_steps, n_assets=n_assets, exercise_steps=exercise_steps)
     if pad_to is not None:
         grid = grid.pad_to(pad_to)
-    return price_grid(grid, execution=execution, capacity=capacity,
+    return price_grid(grid, execution=cfg, capacity=capacity,
                       greeks=greeks, levels=levels, block=block, mesh=mesh,
                       shard_plan=shard_plan)

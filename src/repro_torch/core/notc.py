@@ -7,7 +7,9 @@
 * :func:`notc_rows` — the fixed-buffer backward induction over a batch of
   contracts ``(R, N+1)``, payoff as data (``_notc_kernel`` /
   ``_notc_one_jnp`` of the JAX package, with the row dimension written
-  out where JAX used ``vmap``).
+  out where JAX used ``vmap``);
+* :func:`notc_payoff_rows` — the same walk for one payoff given by its
+  callables (a closure-only payoff has no data form).
 """
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ import numpy as np
 import torch
 
 from .lattice import LatticeModel
-from .payoff import PayoffProcess
+from .payoff import PayoffProcess, family_xi_zeta
 
-__all__ = ["price_notc_np", "intrinsic_grid", "notc_rows"]
+__all__ = ["price_notc_np", "intrinsic_grid", "notc_rows",
+           "notc_payoff_rows"]
 
 
 def intrinsic_grid(model: LatticeModel, payoff: PayoffProcess,
@@ -35,28 +38,48 @@ def price_notc_np(model: LatticeModel, payoff: PayoffProcess) -> float:
     return float(v[0])
 
 
-def notc_rows(s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2, *,
-              n_steps: int) -> torch.Tensor:
-    """Plain level walk over rows: every argument a ``(R,)`` float64
-    tensor on one device; returns the ``(R,)`` prices."""
-    col = lambda a: a[:, None]
-    s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2 = map(
-        col, (s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2))
+def _notc_walk(s0, sigma, rate, maturity, intrinsic, *,
+               n_steps: int) -> torch.Tensor:
+    """The fixed-buffer backward induction over ``(R, 1)`` columns;
+    ``intrinsic(s)`` gives xi + zeta * s at a ``(R, N+1)`` tensor of
+    spots.  Returns the ``(R,)`` prices."""
     dt = maturity / n_steps
     u = torch.exp(sigma * torch.sqrt(dt))
     r = torch.exp(rate * dt)
     p = (r - 1.0 / u) / (u - 1.0 / u)
     idx = torch.arange(n_steps + 1, dtype=s0.dtype, device=s0.device)
 
-    def intrinsic(lvl: float):
+    def exercise(lvl: float):
         s = s0 * torch.exp((2.0 * idx - lvl) * sigma * torch.sqrt(dt))
-        pay = (alpha * k1 + w1 * torch.clamp_min(s - k1, 0.0)
-               + w2 * torch.clamp_min(s - k2, 0.0) + zeta * s)
-        return torch.where(idx <= lvl, torch.clamp_min(pay, 0.0), 0.0)
+        return torch.where(idx <= lvl, torch.clamp_min(intrinsic(s), 0.0),
+                           0.0)
 
-    v = intrinsic(float(n_steps))
+    v = exercise(float(n_steps))
     for lvl in range(n_steps - 1, -1, -1):
         cont = (p * torch.roll(v, -1, dims=1) + (1.0 - p) * v) / r
-        v = torch.maximum(intrinsic(float(lvl)), cont)
+        v = torch.maximum(exercise(float(lvl)), cont)
     return v[:, 0]
 
+
+def notc_rows(s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2, *,
+              n_steps: int) -> torch.Tensor:
+    """Plain level walk over rows: every argument a ``(R,)`` float64
+    tensor on one device; returns the ``(R,)`` prices."""
+    col = lambda a: a[:, None]
+    params = tuple(map(col, (alpha, zeta, w1, w2, k1, k2)))
+
+    def intrinsic(s):
+        xi, z = family_xi_zeta(params, s)
+        return xi + z * s
+
+    return _notc_walk(col(s0), col(sigma), col(rate), col(maturity),
+                      intrinsic, n_steps=n_steps)
+
+
+def notc_payoff_rows(s0, sigma, rate, maturity, payoff: PayoffProcess, *,
+                     n_steps: int) -> torch.Tensor:
+    """:func:`notc_rows` for one payoff of any form, closure-only too:
+    its ``intrinsic`` is called on the spots of every level."""
+    col = lambda a: a[:, None]
+    return _notc_walk(col(s0), col(sigma), col(rate), col(maturity),
+                      payoff.intrinsic, n_steps=n_steps)

@@ -30,7 +30,7 @@ from . import pwl as P
 from .device import DEFAULT_DTYPE, resolve_device
 from .lattice import LatticeModel
 from .partition import kernel_round_plan
-from .payoff import PayoffProcess
+from .payoff import PayoffProcess, family_xi_zeta, kernel_params
 
 __all__ = ["RZResult", "RZ_BACKENDS", "rz_params", "rz_level_step_lanes",
            "leaf_level", "rz_backward", "rz_backward_kernel", "price_rz"]
@@ -69,10 +69,13 @@ def _shift_up(z: P.PWL) -> P.PWL:
                  torch.roll(z.m, -1, axis))
 
 
-def _xi(pay, s):
-    alpha, _, w1, w2, k1, k2 = pay
-    return (alpha * k1 + w1 * torch.clamp_min(s - k1, 0.0)
-            + w2 * torch.clamp_min(s - k2, 0.0))
+def _xi_zeta(pay, s):
+    """(xi, zeta) at spots ``s``: ``pay`` is the six family parameters
+    (broadcasting against ``s``) or a closure-only :class:`PayoffProcess`,
+    whose callables take the spots."""
+    if isinstance(pay, PayoffProcess):
+        return pay.xi_zeta(s)
+    return family_xi_zeta(pay, s)
 
 
 def rz_level_step_lanes(z: P.PWL, lvl, params: dict, pay, *, capacity: int,
@@ -82,7 +85,8 @@ def rz_level_step_lanes(z: P.PWL, lvl, params: dict, pay, *, capacity: int,
     ``z``'s last batch axis is the node axis (P lanes); ``lvl``,
     ``params`` values, the payoff parameters ``pay = (alpha, zeta, w1,
     w2, k1, k2)`` and ``idx_offset`` (global column of lane 0) broadcast
-    against the batch dims.  ``seller`` is a bool or a bool tensor (e.g.
+    against the batch dims.  ``pay`` may instead be a closure-only
+    :class:`PayoffProcess`: its ``xi``/``zeta`` are called on the spots.  ``seller`` is a bool or a bool tensor (e.g.
     ``[[True], [False]]`` for a fused ``(2, P)`` state).  Pieces are 0 on
     lanes beyond the level.
     """
@@ -105,8 +109,9 @@ def rz_level_step_lanes(z: P.PWL, lvl, params: dict, pay, *, capacity: int,
         one = torch.ones((), dtype=dtype, device=dev)
         sign = torch.where(seller, one, -one)
     shape = z.sl.shape
-    xi = (sign * _xi(pay, s)).expand(shape)
-    zeta = (sign * pay[1] * torch.ones_like(s)).expand(shape)
+    xi, zeta = _xi_zeta(pay, s)
+    xi = (sign * xi).expand(shape)
+    zeta = (sign * zeta).expand(shape)
     u = P.expense(xi, zeta, a.expand(shape), b.expand(shape), capacity)
     z_new, m3 = P.envelope2(u, v, capacity, take_max=seller)
     live = live.expand(shape)
@@ -149,11 +154,13 @@ def rz_backward(s0, sigma, rate, maturity, k, pay, *, n_steps: int,
     """Plain level walk over rows -> (ask (R,), bid (R,), pieces (R,)).
 
     Every market argument is an ``(R,)`` float64 tensor; ``pay`` the six
-    payoff parameters as ``(R,)`` tensors.
+    payoff parameters as ``(R,)`` tensors, or one closure-only
+    :class:`PayoffProcess` for every row.
     """
     params = rz_params(s0, sigma, rate, maturity, k, n_steps=n_steps)
     col = {n: v[:, None, None] for n, v in params.items()}
-    payc = tuple(p[:, None, None] for p in pay)
+    payc = (pay if isinstance(pay, PayoffProcess)
+            else tuple(p[:, None, None] for p in pay))
     plan = kernel_round_plan(n_steps)
     z = _fused_leaf(n_steps, params, capacity, plan[0].lanes)
     sides = _sides(s0.device)
@@ -198,17 +205,24 @@ def rz_backward_kernel(s0, sigma, rate, maturity, k, pay, *, n_steps: int,
 def price_rz(model: LatticeModel, payoff: PayoffProcess, capacity: int = 48,
              *, backend: str = "kernel", levels: int | None = None,
              block: int | None = None, device="cuda") -> RZResult:
-    """Ask/bid of one contract under transaction costs."""
+    """Ask/bid of one contract under transaction costs.
+
+    A closure-only payoff (``payoff.params is None``) runs on
+    ``backend="torch"`` only; the kernel takes the payoff as scalars and
+    raises ``ValueError`` for it.
+    """
     dev = resolve_device(device)
     t = lambda x: torch.tensor([float(x)], dtype=DEFAULT_DTYPE, device=dev)
     args = tuple(t(x) for x in (model.s0, model.sigma, model.rate,
                                 model.maturity, model.cost_rate))
-    pay = tuple(t(x) for x in payoff.params)
     if backend == "kernel":
+        pay = tuple(t(x) for x in kernel_params(payoff))
         ask, bid, pc = rz_backward_kernel(*args, pay, n_steps=model.n_steps,
                                           capacity=capacity, levels=levels,
                                           block=block)
     elif backend == "torch":
+        pay = (payoff if payoff.params is None
+               else tuple(t(x) for x in payoff.params))
         ask, bid, pc = rz_backward(*args, pay, n_steps=model.n_steps,
                                    capacity=capacity)
     else:

@@ -1,105 +1,203 @@
-// Causal (optionally sliding-window) GQA flash attention in float32, for
-// Hopper.
+// GQA flash attention in float32 (causal or not, optionally sliding-window)
+// on Hopper's tensor cores.  Instances for head_dim 64, 128 and 256, causal
+// and not.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
 // _fa_kernel (entry flash_attention): one q block per grid step, an online
 // softmax over KV chunks with float32 m, l and acc, query head h reading KV
 // head h / (H / KVH).
 //
-// What bounds it on the H100: float32 operations.  A live (query, key) pair
-// costs 2*hd operations for its score and 2*hd for its share of P.V, and the
-// kernel reads q, k, v once and writes out once; at head_dim 256 that is
-// ~1000 operations per pair against a few bytes, far above the ridge of
-// 67e12 / 3.35e12 = 20 operations per byte.  At recurrentgemma-2b's prefill
-// shape (B=4, T=S=4096, H=10, KVH=1, window 2048) the 2.517e8 live pairs
-// cost 2.58e11 operations, about 3.85 ms at the 67 TFLOP/s of float32 outside
-// the tensor cores.  The float32 contract (2e-6 against the reference)
-// rules out TF32 and the tensor cores, so every product is a plain FFMA.
+// What bounds it on the H100: operations.  A live (query, key) pair costs
+// 2*hd operations for its score and 2*hd for its share of P.V, against a few
+// bytes of q, k, v and out.  At recurrentgemma-2b's prefill shape (B=4,
+// T=S=4096, H=10, KVH=1, hd=256, window 2048) the 2.517e8 live pairs cost
+// 2.577e11 operations: 3.85 ms in FFMA at the 67 TFLOP/s of float32 outside
+// the tensor cores.  Single-pass TF32 keeps 11 bits of each operand and
+// misses the float32 contract (2e-5 against the plain version) by two orders
+// of magnitude, so the products run in split TF32 ("3xTF32"): each operand
+// is x = big + small, big = x rounded to TF32 (to nearest, ties away) and
+// small = x - big exactly, of which the MMA reads the top 11 bits (it
+// ignores the low 13 bits of a TF32 operand); a*b ~ small_a*big_b +
+// big_a*small_b + big_a*big_b, three TF32 MMAs into a float32 accumulator,
+// with the small*small term dropped (below 2^-21 of the product).  Three
+// MMAs a product put the bound at 495/3 = 165 TFLOP/s, 1.56 ms at the shape
+// above.  The split itself is three instructions a value (an integer add
+// and mask, a float subtract), and every warp splits each Q, K, V and P
+// value that it reads: the splits take more issue slots than the MMAs.
 //
-// Design: one 256-thread block per (b*H + h, 64-row q tile).  The block keeps
-// its Q tile and one 64-key K and V tile in shared memory (rows padded to
-// hd + 4 floats; 212 KB at hd 256, so the dynamic size is raised with
-// cudaFuncSetAttribute) and walks the KV tiles that the causal triangle and
-// the window leave live; tiles wholly outside them are skipped, which at the
-// shape above drops 62% of the (query, key) pairs.  Registers, not shared
-// memory, bound the accumulator: hd = 256 floats per query row cannot sit in
-// one thread, so a row is split across the 16 threads of a half warp.
-// Thread (ty, tx) owns rows 4*ty..4*ty+3: for S = Q K^T it computes a 4x4
-// block (columns tx + 16*j), reading four float4 of Q (a broadcast) and four
-// of K per step, 8 loads per 64 FFMA; the row max and row sum of the online
-// softmax are shuffles within the half warp; P goes through shared memory
-// (transposed) so that for O += P V the thread owns the same 4 rows and
-// hd / 16 columns (float4 groups tx*4 + 64*jj), 64 accumulators at hd 256.
-// Masked scores are -1e30 and m starts at -1e30, as in the TPU kernel: a row
-// whose first tiles are all masked adds exp(0) terms that the first live
-// score scales by exp(-1e30 - m) = 0 exactly.  The kernel masks the ragged
-// last q and KV tile itself (rows past T are not stored, keys past S are
-// masked and read as zeros).  Loads are not overlapped with the arithmetic
-// (one block per SM, no cp.async or TMA ring): that is a later change.
-//
-// The products are explicit fmaf() calls, which --fmad=false (the build's
-// flag for the float64 kernels) leaves alone.
+// Design.  mma.sync.m16n8k8 (tf32 in, f32 out): wgmma takes B only from
+// shared memory, and the split needs both halves of K and V there, which
+// hd 256 cannot afford beside the Q tile and the K/V ring.  One 256-thread
+// block (8 warps) per (b*H + h, 64-row q tile).  Warps w and w + 4 share
+// the rows 16w..16w+15 (w < 4) and split hd between them: each sums half
+// of the dims of every score, the two partial sums meet in shared memory
+// (a named barrier for the pair; a + b == b + a, so both warps then hold
+// the same scores and run the same softmax), and each owns half of O's
+// columns in MMA accumulators (hd/4 registers a thread).  An accumulator of
+// all hd columns would take 128 registers at hd 256 and left 4 warps an SM
+// at 255 registers with spills, twice as slow.  The block keeps its Q tile
+// in shared memory and streams the live K and V tiles through a two-stage
+// cp.async ring, so tile j+1 is in flight while tile j is computed:
+//   hd 256: BKV 32, 217 KB, one block (8 warps) an SM;
+//   hd 128: BKV 32, 121 KB, one block an SM;
+//   hd 64:  BKV 32, 73 KB, two blocks an SM.
+// Both products take their operands from shared memory as 16-byte loads,
+// and the reduction axes are permuted so that they can:
+// * S = Q K^T: within each 16-wide block of hd, lane (g, t) holds dims
+//   4t..4t+3 of its Q rows and K keys; k-step 0 uses dims (4t, 4t+1) as the
+//   MMA's k = (t, t+4), k-step 1 dims (4t+2, 4t+3).  Q and K rows are padded
+//   to hd + 16 floats, which keeps the quarter-warp loads conflict-free.
+// * O += P V: the S accumulator holds keys (2t, 2t+1) of each 8-key group
+//   in lane (g, t); they are used in place as the A operand's k = (t, t+4),
+//   so V rows are read in the same order (keys 2t and 2t+1).  The output
+//   columns of O's n-tile 4m + jj are 32m + 4n + jj (n the MMA column), so
+//   a lane reads V columns 32m + 4g..+3 for four n-tiles with one load and
+//   stores out columns 32m + 8t..+7 as two float4.  V rows are padded to
+//   hd + 4 floats.
+// Every KV tile that the causal triangle, the window or the end of S leaves
+// without a live key for the block's rows is skipped (62% of the pairs at the
+// shape above), and only the tiles that the diagonal, the window's edge or
+// the end of S cut are masked; causal blocks are launched longest first.
+// The softmax runs in base 2 on scores scaled by scale * log2(e).  Masked
+// scores are -1e30 and m starts at -1e30, as in the TPU kernel: a row whose
+// first tiles are all masked adds exp2(0) terms that the first live score
+// scales by exp2(-1e30 - m) = 0 exactly.  The kernel masks the ragged last
+// q and KV tile itself (rows past T are not stored, keys past S are masked
+// and read as zeros).  The row sum l is kept per lane and summed over the
+// quad once, at the end.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 256;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 64;                     // four row groups of 16
 constexpr float NEG = -1e30f;
+
+// keys a KV tile and blocks an SM, per head_dim
+template <int HD> struct Tile;
+template <> struct Tile<64> { static constexpr int BKV = 32, MIN_BLOCKS = 2; };
+template <> struct Tile<128> { static constexpr int BKV = 32, MIN_BLOCKS = 1; };
+template <> struct Tile<256> { static constexpr int BKV = 32, MIN_BLOCKS = 1; };
 
 template <int HD>
 struct Layout {
-  static constexpr int LD = HD + 4;       // padded row of Q, K, V tiles
-  static constexpr int LDP = BQ + 4;      // padded row of P^T
-  static constexpr int SMEM_FLOATS = BQ * LD + 2 * BKV * LD + BKV * LDP;
-  static constexpr int NJ = HD / 64;      // float4 column groups per thread
+  static constexpr int BKV = Tile<HD>::BKV;
+  static constexpr int STAGES = 2;
+  static constexpr int LDQK = HD + 16;     // padded row of the Q and K tiles
+  static constexpr int LDV = HD + 4;       // padded row of the V tile
+  static constexpr int Q_FLOATS = BQ * LDQK;
+  static constexpr int K_FLOATS = BKV * LDQK;
+  static constexpr int V_FLOATS = BKV * LDV;
+  static constexpr int X_FLOATS = WARPS * (BKV / 2) * 32;  // partial scores
+  static constexpr int SMEM_BYTES =
+      4 * (Q_FLOATS + STAGES * (K_FLOATS + V_FLOATS) + X_FLOATS);
 };
 
-// rows [row0, row0 + nrows) of a (rows, HD) slab with row stride `stride`
-// into a padded shared tile; rows at or past `nvalid` read as zeros
-template <int HD, int NROWS>
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;            // 0 source bytes: zero fill
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the two warps of row group rg (rg and rg + 4)
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+}
+
+// rows [row0, row0 + NROWS) of a (rows, HD) slab with row stride `stride`
+// into a padded shared tile, asynchronously; rows at or past `nvalid` read
+// as zeros
+template <int HD, int NROWS, int LD>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           size_t stride, int row0,
                                           int nvalid) {
-  constexpr int LD = Layout<HD>::LD;
-  constexpr int N4 = NROWS * HD / 4;
+  constexpr int CH = HD / 4;
+  static_assert(NROWS * CH % THREADS == 0, "tile not a multiple of a pass");
 #pragma unroll
-  for (int it = 0; it < N4 / THREADS; ++it) {
+  for (int it = 0; it < NROWS * CH / THREADS; ++it) {
     const int idx = threadIdx.x + it * THREADS;
-    const int r = idx / (HD / 4);
-    const int d = (idx % (HD / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nvalid) {
-      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * stride + d);
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + d) = v;
+    const int r = idx / CH;
+    const int c = (idx % CH) * 4;
+    const bool ok = row0 + r < nvalid;
+    cp_async16(dst + r * LD + c,
+               src + (size_t)(ok ? row0 + r : 0) * stride + c, ok);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+// x = big + small: big = x rounded to TF32 (to nearest, ties away: what
+// cvt.rna.tf32.f32 gives for every finite x and for infinities, as an
+// integer add and mask, where the compiler wraps the cvt in a compare and
+// a select), small the exact remainder, whose low 13 bits the MMA ignores
+// (truncation)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a*b in split TF32: the small terms first, then big*big
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bb1, uint32_t bs0,
+                                     uint32_t bs1) {
+  mma(d, as, bb0, bb1);
+  mma(d, ab, bs0, bs1);
+  mma(d, ab, bb0, bb1);
+}
+
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, Tile<HD>::MIN_BLOCKS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
                        float* __restrict__ out, int T, int S, int H, int KVH,
                        int window, float scale) {
   using L = Layout<HD>;
-  constexpr int LD = L::LD;
-  constexpr int LDP = L::LDP;
-  constexpr int NJ = L::NJ;
+  constexpr int BKV = L::BKV;
+  constexpr int STAGES = L::STAGES;
+  constexpr int LDQK = L::LDQK;
+  constexpr int LDV = L::LDV;
+  constexpr int HH = HD / 2;               // the dims of a half
+  constexpr int NT = BKV / 8;              // n-tiles of S (8 keys each)
+  constexpr int NM = HH / 32;              // groups of four O n-tiles
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * LD;
-  float* vs = ks + BKV * LD;
-  float* pT = vs + BKV * LD;
+  float* ks = qs + L::Q_FLOATS;
+  float* vs = ks + STAGES * L::K_FLOATS;
+  float* xs = vs + STAGES * L::V_FLOATS;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int q0 = blockIdx.x * BQ;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rg = warp & 3;                 // row group
+  const int half = warp >> 2;              // half of hd
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int nq = (T + BQ - 1) / BQ;
+  const int q0 = (CAUSAL ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
@@ -112,156 +210,236 @@ flash_attention_kernel(const float* __restrict__ q,
   float* ob = out + ((size_t)b * T * H + h) * HD;
 
   // the KV tiles that hold a live key for some row of this q tile
+  // (kernels/flash_attention.py::kv_tile_range)
   const int q_last = min(q0 + BQ, T) - 1;
-  const int nkv = (S + BKV - 1) / BKV;
   int j_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) j_lo = (q0 - window + 1) / BKV;
-  const int j_hi = min(nkv - 1, q_last / BKV);
+  int j_hi = (S + BKV - 1) / BKV - 1;
+  if (CAUSAL) j_hi = min(j_hi, q_last / BKV);
 
-  load_tile<HD, BQ>(qs, qb, q_stride, q0, T);
-
-  float m[4], l[4], acc[4][4 * NJ];
+  load_tile<HD, BQ, LDQK>(qs, qb, q_stride, q0, T);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NJ; ++c) acc[i][c] = 0.f;
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (j_lo + st <= j_hi) {
+      load_tile<HD, BKV, LDQK>(ks + st * L::K_FLOATS, kb, kv_stride,
+                               (j_lo + st) * BKV, S);
+      load_tile<HD, BKV, LDV>(vs + st * L::V_FLOATS, vb, kv_stride,
+                              (j_lo + st) * BKV, S);
+    }
+    cp_async_commit();
   }
 
-  for (int jt = j_lo; jt <= j_hi; ++jt) {
-    const int k0 = jt * BKV;
-    load_tile<HD, BKV>(ks, kb, kv_stride, k0, S);
-    load_tile<HD, BKV>(vs, vb, kv_stride, k0, S);
-    __syncthreads();
+  const int row0 = q0 + rg * 16 + g;       // this lane's rows: row0, row0 + 8
+  const float scale_log2 = scale * 1.4426950408889634f;
+  float* x_own = xs + warp * (NT * 4 * 32) + lane;
+  const float* x_other = xs + (warp ^ 4) * (NT * 4 * 32) + lane;
+  const float* qw = qs + (rg * 16 + g) * LDQK + half * HH + 4 * t;
+  float o[4 * NM][4];
+#pragma unroll
+  for (int c = 0; c < 4 * NM; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  float m[2] = {NEG, NEG};
+  float l[2] = {0.f, 0.f};
 
-    // S = Q K^T for rows 4*ty + i, keys tx + 16*j
-    float s[4][4];
+  for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
+    const int jn = j + STAGES - 1;
+    if (jn <= j_hi) {
+      const int st = (it + STAGES - 1) % STAGES;
+      load_tile<HD, BKV, LDQK>(ks + st * L::K_FLOATS, kb, kv_stride, jn * BKV,
+                               S);
+      load_tile<HD, BKV, LDV>(vs + st * L::V_FLOATS, vb, kv_stride, jn * BKV,
+                              S);
+    }
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const float* kt = ks + (it % STAGES) * L::K_FLOATS;
+    const float* vt = vs + (it % STAGES) * L::V_FLOATS;
+
+    // this warp's half of S = Q K^T (dims half*HH..), rows (row0, row0 + 8),
+    // keys j*BKV + 8n + 2t + (0, 1)
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    const float* kw = kt + g * LDQK + half * HH + 4 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * LD + d);
+    for (int d0 = 0; d0 < HH; d0 += 16) {
+      const float4 qa = *reinterpret_cast<const float4*>(qw + d0);
+      const float4 qc = *reinterpret_cast<const float4*>(qw + 8 * LDQK + d0);
+      uint32_t ab0[4], as0[4], ab1[4], as1[4];
+      split(qa.x, ab0[0], as0[0]);
+      split(qc.x, ab0[1], as0[1]);
+      split(qa.y, ab0[2], as0[2]);
+      split(qc.y, ab0[3], as0[3]);
+      split(qa.z, ab1[0], as1[0]);
+      split(qc.z, ab1[1], as1[1]);
+      split(qa.w, ab1[2], as1[2]);
+      split(qc.w, ab1[3], as1[3]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
+      for (int n = 0; n < NT; ++n) {
+        const float4 kk =
+            *reinterpret_cast<const float4*>(kw + 8 * n * LDQK + d0);
+        uint32_t bb[4], bs[4];
+        split(kk.x, bb[0], bs[0]);
+        split(kk.y, bb[1], bs[1]);
+        split(kk.z, bb[2], bs[2]);
+        split(kk.w, bb[3], bs[3]);
+        mma3(s[n], ab0, as0, bb[0], bb[1], bs[0], bs[1]);
+        mma3(s[n], ab1, as1, bb[2], bb[3], bs[2], bs[3]);
+      }
+    }
+    // the full scores: add the other half's partial sums (a + b == b + a,
+    // so both warps of the pair hold the same S and the same softmax)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+      for (int e = 0; e < 4; ++e) x_own[(4 * n + e) * 32] = s[n][e];
+    pair_sync(rg);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += x_other[(4 * n + e) * 32];
+
+    // online softmax in base 2 (scores scaled by scale * log2(e)); a row's
+    // scores live in the 4 lanes of a quad.  Only the tiles that the causal
+    // diagonal, the window's edge or the end of S cut need the mask.
+    const int k0 = j * BKV;
+    float mt[2] = {NEG, NEG};
+    if (k0 + BKV <= S && (!CAUSAL || k0 + BKV - 1 <= q0) &&
+        (window <= 0 || q0 + BQ - 1 - k0 < window)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= scale_log2;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int pq = row0 + 8 * (e >> 1);
+          const int pk = k0 + 8 * n + 2 * t + (e & 1);
+          const bool live = pk < S && (!CAUSAL || pq >= pk) &&
+                            (window <= 0 || pq - pk < window);
+          s[n][e] = live ? s[n][e] * scale_log2 : NEG;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
         }
     }
-
-    // online softmax; a row's 64 scores live in the 16 threads of a half warp
+    float corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pq = q0 + ty * 4 + i;
-      float mt = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pk = k0 + tx + 16 * j;
-        const bool live = pk < S && pq >= pk &&
-                          (window <= 0 || pq - pk < window);
-        s[i][j] = live ? s[i][j] * scale : NEG;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float m_new = fmaxf(m[i], mt[i]);
+      corr[i] = exp2f(m[i] - m_new);
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * NJ; ++c) acc[i][c] *= corr;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pT + (tx + 16 * j) * LDP + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int c = 0; c < 4 * NM; ++c) {
+      o[c][0] *= corr[0];
+      o[c][1] *= corr[0];
+      o[c][2] *= corr[1];
+      o[c][3] *= corr[1];
     }
-    __syncthreads();
 
-    // O += P V for rows 4*ty + i, columns tx*4 + 64*jj + (0..3)
-#pragma unroll 2
-    for (int c = 0; c < BKV; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(pT + c * LDP + ty * 4);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
+    // this warp's columns of O += P V, one 8-key k-step per S n-tile
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + c * LD + tx * 4 + 64 * jj);
+    for (int n = 0; n < NT; ++n) {
+      uint32_t pb[4], ps[4];
+      split(s[n][0], pb[0], ps[0]);
+      split(s[n][2], pb[1], ps[1]);
+      split(s[n][1], pb[2], ps[2]);
+      split(s[n][3], pb[3], ps[3]);
+      const float* v0 = vt + (8 * n + 2 * t) * LDV + half * HH + 4 * g;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][jj * 4 + 0] = fmaf(pr[i], vv.x, acc[i][jj * 4 + 0]);
-          acc[i][jj * 4 + 1] = fmaf(pr[i], vv.y, acc[i][jj * 4 + 1]);
-          acc[i][jj * 4 + 2] = fmaf(pr[i], vv.z, acc[i][jj * 4 + 2]);
-          acc[i][jj * 4 + 3] = fmaf(pr[i], vv.w, acc[i][jj * 4 + 3]);
+      for (int mg = 0; mg < NM; ++mg) {
+        const float4 x = *reinterpret_cast<const float4*>(v0 + 32 * mg);
+        const float4 y = *reinterpret_cast<const float4*>(v0 + LDV + 32 * mg);
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+        const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t bb0, bs0, bb1, bs1;
+          split(xv[jj], bb0, bs0);
+          split(yv[jj], bb1, bs1);
+          mma3(o[4 * mg + jj], pb, ps, bb0, bb1, bs0, bs1);
         }
       }
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = row0 + 8 * i;
     if (row >= T) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* orow = ob + (size_t)row * q_stride + half * HH + 8 * t;
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      float4 o;
-      o.x = acc[i][jj * 4 + 0] * inv;
-      o.y = acc[i][jj * 4 + 1] * inv;
-      o.z = acc[i][jj * 4 + 2] * inv;
-      o.w = acc[i][jj * 4 + 3] * inv;
-      *reinterpret_cast<float4*>(ob + (size_t)row * q_stride + tx * 4 + 64 * jj) = o;
+    for (int mg = 0; mg < NM; ++mg) {
+      const float4 lo = make_float4(
+          o[4 * mg][2 * i] * inv, o[4 * mg + 1][2 * i] * inv,
+          o[4 * mg + 2][2 * i] * inv, o[4 * mg + 3][2 * i] * inv);
+      const float4 hi = make_float4(
+          o[4 * mg][2 * i + 1] * inv, o[4 * mg + 1][2 * i + 1] * inv,
+          o[4 * mg + 2][2 * i + 1] * inv, o[4 * mg + 3][2 * i + 1] * inv);
+      *reinterpret_cast<float4*>(orow + 32 * mg) = lo;
+      *reinterpret_cast<float4*>(orow + 32 * mg + 4) = hi;
     }
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 int launch(const float* q, const float* k, const float* v, float* out, int B,
            int T, int S, int H, int KVH, int window, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Layout<HD>::SMEM_FLOATS;
+  constexpr int smem = Layout<HD>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_attention_kernel<HD, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  flash_attention_kernel<HD, CAUSAL><<<grid, THREADS, smem, stream>>>(
       q, k, v, out, T, S, H, KVH, window, scale);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int launch_hd(int causal, const float* q, const float* k, const float* v,
+              float* out, int B, int T, int S, int H, int KVH, int window,
+              float scale, cudaStream_t stream) {
+  return causal ? launch<HD, true>(q, k, v, out, B, T, S, H, KVH, window,
+                                   scale, stream)
+                : launch<HD, false>(q, k, v, out, B, T, S, H, KVH, window,
+                                    scale, stream);
+}
+
 }  // namespace
 
-// Always causal; window <= 0 means no window.  head_dim must be 64 (the
-// reduced models of the tests) or 256 (recurrentgemma-2b).
-// Returns cudaErrorInvalidValue for another head_dim.
+// causal != 0 masks keys after the query; window <= 0 means no window.
+// head_dim must be 64, 128 or 256; returns cudaErrorInvalidValue for
+// another.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int T,
                                       int S, int H, int KVH, int hd,
-                                      int window, float scale,
+                                      int causal, int window, float scale,
                                       void* stream) {
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
@@ -269,8 +447,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   float* of = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
-    case 64: return launch<64>(qf, kf, vf, of, B, T, S, H, KVH, window, scale, st);
-    case 256: return launch<256>(qf, kf, vf, of, B, T, S, H, KVH, window, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 64:
+      return launch_hd<64>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
+                           scale, st);
+    case 128:
+      return launch_hd<128>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
+                            scale, st);
+    case 256:
+      return launch_hd<256>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
+                            scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,57 +8,105 @@
 // h (12 bytes) and does one multiply and one add, 1/6 operation per byte,
 // far below the ridge of 67e12 / 3.35e12 = 20 float32 operations per byte.
 // At recurrentgemma-2b's prefill shape (B=4, T=4096, W=2560) that is 503 MB,
-// about 0.150 ms at 3.35 TB/s.
+// about 0.150 ms at 3.35 TB/s.  The dependent chain of one channel, 4096
+// steps of a multiply and an add, takes about 20 us, far under that, so the
+// time is set by how many bytes are in flight: Little's law at 3.35 TB/s
+// and about 1 us of latency asks for some 3 MB on the card, 25 KB an SM.
 //
 // Design: Hopper runs blocks in no order, so nothing can carry h from one
-// block to the next.  The time loop sits inside the thread instead: one
-// thread per (b, w) channel holds h in a register and walks all T steps.
-// Neighbouring threads own neighbouring w, so every load and store of a
-// warp is one contiguous 128-byte line.  The loop reads UNROLL steps of a
-// and b into registers before it computes them, so that the loads of a
-// thread are in flight together and not one dependent step at a time.
-// There are only B * W threads (10,240 at the shape above, 160 blocks of 64
-// on 132 SMs), too few to hide the memory's latency: the kernel is bound by
-// latency, not bandwidth.  A chunked two-pass scan (chunk-local scans in
-// parallel, then a carry pass) would fill the card.
+// block to the next, and splitting T into chunks scanned in parallel and
+// then fixed up (a two-pass scan) would reorder the products and lose the
+// bit-for-bit agreement with the plain version.  So each channel's chain
+// stays in one thread, in order, and the kernel fills the memory pipe with
+// more, smaller blocks and a deep ring instead:
+// * one warp a block, one channel a lane: 32 neighbouring channels of one
+//   batch row (one 128-byte line of a, b and h per step), ceil(W / 32) * B
+//   blocks (320 at the shape above, all resident at once);
+// * each lane streams its channel's a and b through a shared-memory ring of
+//   STAGES chunks of CHUNK steps with cp.async, STAGES - 1 chunks ahead of
+//   the step it computes: 24 KB of loads in flight a warp, 58 KB an SM at
+//   the shape above, without a register held for them;
+// * each step's h is stored at once, a coalesced 128-byte line a warp.
+// A lane reads back only what it copied itself, so the ring needs no
+// barrier: cp.async.wait_group orders a lane's own copies.  Lanes past W
+// return at once; the ragged last chunk of T is cut.
 //
-// Built with --fmad=false: h = a*h + b rounds the product and the sum
-// separately, as the plain PyTorch version's multiply and add do, so the
-// two agree bit for bit.
+// The multiply and the add round separately (__fmul_rn, __fadd_rn, and the
+// build's --fmad=false), as the plain PyTorch version's multiply and add do,
+// so the two agree bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int UNROLL = 16;
+constexpr int LANES = 32;
+constexpr int CHUNK = 32;     // time steps a ring stage holds
+constexpr int STAGES = 4;
 
-__global__ void lru_scan_kernel(const float* __restrict__ a,
-                                const float* __restrict__ b,
-                                const float* __restrict__ h0,
-                                float* __restrict__ h_seq,
-                                float* __restrict__ h_last,
-                                int T, int W) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+}
+
+__global__ void __launch_bounds__(LANES)
+lru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                const float* __restrict__ h0, float* __restrict__ h_seq,
+                float* __restrict__ h_last, int T, int W) {
+  __shared__ float ra[STAGES][CHUNK][LANES];
+  __shared__ float rb[STAGES][CHUNK][LANES];
+  const int lane = threadIdx.x;
+  const int w = blockIdx.x * LANES + lane;
   const int bi = blockIdx.y;
   if (w >= W) return;
   const size_t base = (size_t)bi * T * W + w;
+  const int nchunks = (T + CHUNK - 1) / CHUNK;
+
+  // chunk c into stage c % STAGES: this lane's a and b at steps c*CHUNK..
+  auto issue = [&](int c) {
+    if (c < nchunks) {
+      const int st = c % STAGES;
+      const int t0 = c * CHUNK;
+      const int n = min(CHUNK, T - t0);
+      for (int u = 0; u < n; ++u) {
+        const size_t at = base + (size_t)(t0 + u) * W;
+        cp_async4(&ra[st][u][lane], a + at);
+        cp_async4(&rb[st][u][lane], b + at);
+      }
+    }
+    cp_async_commit();     // an empty group past the end keeps the count
+  };
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) issue(c);
   float h = h0[(size_t)bi * W + w];
-  int t = 0;
-  for (; t + UNROLL <= T; t += UNROLL) {
-    float av[UNROLL], bv[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      av[u] = a[base + (size_t)(t + u) * W];
-      bv[u] = b[base + (size_t)(t + u) * W];
+  for (int c = 0; c < nchunks; ++c) {
+    issue(c + STAGES - 1);
+    cp_async_wait_ring();  // chunk c has landed
+    const int st = c % STAGES;
+    const int t0 = c * CHUNK;
+    const int n = min(CHUNK, T - t0);
+    float* out = h_seq + base + (size_t)t0 * W;
+    if (n == CHUNK) {
+#pragma unroll 8
+      for (int u = 0; u < CHUNK; ++u) {
+        h = __fadd_rn(__fmul_rn(ra[st][u][lane], h), rb[st][u][lane]);
+        out[(size_t)u * W] = h;
+      }
+    } else {
+      for (int u = 0; u < n; ++u) {
+        h = __fadd_rn(__fmul_rn(ra[st][u][lane], h), rb[st][u][lane]);
+        out[(size_t)u * W] = h;
+      }
     }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      h = av[u] * h + bv[u];
-      h_seq[base + (size_t)(t + u) * W] = h;
-    }
-  }
-  for (; t < T; ++t) {
-    h = a[base + (size_t)t * W] * h + b[base + (size_t)t * W];
-    h_seq[base + (size_t)t * W] = h;
   }
   h_last[(size_t)bi * W + w] = h;
 }
@@ -68,9 +116,8 @@ __global__ void lru_scan_kernel(const float* __restrict__ a,
 extern "C" int lru_scan_launch(const void* a, const void* b, const void* h0,
                                void* h_seq, void* h_last, int B, int T, int W,
                                void* stream) {
-  const int threads = 64;
-  dim3 grid((W + threads - 1) / threads, B);
-  lru_scan_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  dim3 grid((W + LANES - 1) / LANES, B);
+  lru_scan_kernel<<<grid, LANES, 0, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (const float*)h0, (float*)h_seq,
       (float*)h_last, T, W);
   return (int)cudaGetLastError();

@@ -1,4 +1,4 @@
-"""Causal / sliding-window GQA flash attention on the card.
+"""GQA flash attention (causal or not, optionally sliding-window) on the card.
 
 Port of the JAX package's ``kernels/flash_attention.py`` (Pallas kernel
 ``_fa_kernel``): ``q (B, T, H, hd)``, ``k, v (B, S, KVH, hd)``, float32,
@@ -7,12 +7,15 @@ Positions start at 0 for queries and keys alike (a prefill); a key is
 live for a query if ``pos_q >= pos_k`` (``causal``) and
 ``pos_q - pos_k < window`` (``window`` not None).
 
-On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``, which
-is causal only and takes head_dim 64 or 256 (what the ported models use);
-it raises for anything else.  On a CPU tensor it runs the plain version
-below, which also takes ``causal=False``: the online-softmax loop of
-the JAX package's ``models/layers.py::_attn_flash`` written out in
-PyTorch (float32 ``m``, ``l``, ``acc``, masks built per chunk).
+On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``: split
+TF32 products on the tensor cores, K and V streamed through a cp.async
+ring, head_dim 64, 128 or 256, causal or not; it raises for anything
+else.  The kernel's tiles (``KERNEL_TILES``) and the KV tiles it walks
+for a q tile (:func:`kv_tile_range`) are written out here as well, so
+that the CPU tests can hold its schedule.  On a CPU tensor the wrapper
+runs the plain version below: the online-softmax loop of the JAX
+package's ``models/layers.py::_attn_flash`` written out in PyTorch
+(float32 ``m``, ``l``, ``acc``, masks built per chunk).
 """
 from __future__ import annotations
 
@@ -24,17 +27,34 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "mask_bias",
-           "LAUNCHES", "KERNEL_HEAD_DIMS"]
+           "kv_tile_range", "LAUNCHES", "KERNEL_HEAD_DIMS", "KERNEL_TILES"]
 
 # kernel launches (never bumped by the plain version)
 LAUNCHES = {"flash_attention": 0}
-KERNEL_HEAD_DIMS = (64, 256)  # the reduced models' and recurrentgemma-2b's
+# (q rows, keys) of a tile of the kernel, per head_dim
+KERNEL_TILES = {64: (64, 64), 128: (64, 32), 256: (64, 32)}
+KERNEL_HEAD_DIMS = tuple(KERNEL_TILES)
 _MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _I, _I, ctypes.c_float, _P]}
+                                          _I, _I, _I, ctypes.c_float, _P]}
+
+
+def kv_tile_range(q0: int, T: int, S: int, hd: int, *, causal: bool,
+                  window) -> range:
+    """The KV tiles that the kernel walks at head_dim ``hd`` for the q
+    tile of rows ``q0..`` (cut at ``T``): all but those that the causal
+    triangle, the window or the end of ``S`` leave without a live key
+    for any of its rows."""
+    bq, bkv = KERNEL_TILES[hd]
+    q_last = min(q0 + bq, T) - 1
+    lo = (q0 - window + 1) // bkv if window and q0 - window + 1 > 0 else 0
+    hi = -(-S // bkv) - 1
+    if causal:
+        hi = min(hi, q_last // bkv)
+    return range(lo, hi + 1)
 
 
 def mask_bias(pos_q, pos_k, *, causal: bool, window, neg: float = _MASK_NEG):
@@ -103,12 +123,12 @@ def _check(q, k, v, window):
 def _launch(q, k, v, causal: bool, window):
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    if not causal:
-        raise ValueError("the flash_attention kernel is causal only "
-                         "(causal=False runs on the CPU's plain version)")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the flash_attention kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if S == 0 or (window is not None and T - window >= S):
+        raise ValueError(f"the flash_attention kernel needs a live key for "
+                         f"every query row (T={T}, S={S}, window={window})")
     for x in (q, k, v):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("the flash_attention kernel takes contiguous, "
@@ -118,7 +138,7 @@ def _launch(q, k, v, causal: bool, window):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H,
-        KVH, hd, 0 if window is None else int(window),
+        KVH, hd, int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(hd), stream)
     _build.check(err, "flash_attention_launch")
     return out

@@ -5,8 +5,9 @@ Port of the JAX package's ``kernels/lru_scan.py`` (Pallas kernel
 run once per RG-LRU layer in prefill.  ``a, b (B, T, W)`` and
 ``h0 (B, W)``, all float32, give ``(h_seq (B, T, W), h_last (B, W))``.
 
-On a CUDA tensor the wrapper launches ``csrc/lru_scan.cu`` (one thread
-per channel walks the sequence); on a CPU tensor it runs the plain
+On a CUDA tensor the wrapper launches ``csrc/lru_scan.cu`` (one lane
+per channel walks the sequence in order, its a and b streamed through a
+shared-memory ring of cp.async copies); on a CPU tensor it runs the plain
 version below, the sequential recurrence, which is also the
 brute-force definition.  The kernel rounds as the plain version does
 (no fused multiply-add), so the two agree bit for bit.  The JAX

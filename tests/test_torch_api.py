@@ -3,20 +3,26 @@
 The friction-free grid (``price_grid_notc`` on both port backends against
 the JAX package's ``jnp`` and ``pallas`` backends), the fused FD Greeks,
 ``OverflowError`` parity, the halo round plan, the single-contract entry
-points, the grid layout and routing, the paths not yet ported, the
+points, the JAX package's individual execution kwargs, closure-only
+payoffs, the grid layout and routing, the paths not yet ported, the
 device contract and the import boundary.  The transaction-cost grid
 against JAX is in ``tests/test_torch_grid.py``.
 """
 import ast
 import pathlib
 import re
+import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import repro.core  # noqa: F401  (x64)
+from repro import api as japi
 from repro.core import LatticeModel as JLatticeModel
+from repro.core import cash_settled as j_cash_settled
+from repro.core.rz import price_rz as j_price_rz
 from repro.core import american_call as j_call
 from repro.core import american_put as j_put
 from repro.core import bull_spread as j_bull
@@ -26,6 +32,8 @@ from repro import scenarios as JS
 from repro_torch import api
 from repro_torch.convert import grid_from_columns
 from repro_torch.core import device as D
+from repro_torch.core.lattice import LatticeModel
+from repro_torch.core.rz import price_rz
 from repro_torch.scenarios import ScenarioGrid, route_engine
 
 TOL = 1e-9
@@ -170,6 +178,158 @@ def test_price_american_and_flat_match_oracles():
                          maturity=0.25, n_steps=8, pad_to=4,
                          execution=_cfg("kernel"))
     assert res.ask.shape == (4,) and res.ask[1] == res.ask[3]
+
+
+@pytest.fixture
+def fresh_legacy_warning():
+    api._reset_legacy_exec_warning()
+    japi._reset_legacy_exec_warning()
+    yield
+    api._reset_legacy_exec_warning()
+    japi._reset_legacy_exec_warning()
+
+
+_LEGACY_GRID = dict(s0=(95.0, 105.0), cost_rate=(0.0, 0.01),
+                    payoff=("put", "bull_spread"), strike=100.0, n_steps=8)
+
+# the JAX package's individual kwargs -> the port's ExecutionConfig
+_LEGACY_CASES = [
+    (dict(backend="jnp", platform="cpu"),
+     dict(backend="torch", device="cpu")),
+    (dict(backend="pallas", platform="cpu"),
+     dict(backend="kernel", device="cpu")),
+    (dict(interpret=True), dict(backend="kernel", device="cpu")),
+    (dict(engine="rz", backend="jnp", platform="cpu"),
+     dict(engine="rz", backend="torch", device="cpu")),
+    (dict(engine="notc", interpret=True, devices=1),
+     dict(engine="notc", backend="kernel", device="cpu", devices=1)),
+]
+
+
+@pytest.mark.parametrize("legacy,mapped", _LEGACY_CASES,
+                         ids=lambda c: ",".join(sorted(c)))
+def test_legacy_execution_kwargs_match_execution(legacy, mapped,
+                                                 fresh_legacy_warning):
+    """JAX's individual kwargs price as ``execution=`` does, warn once
+    per process, and agree with the JAX package called the same way."""
+    want = api.price_grid(capacity=16, execution=api.ExecutionConfig(
+        **mapped), **_LEGACY_GRID)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = api.price_grid(capacity=16, **legacy, **_LEGACY_GRID)
+        flat = api.price_flat(s0=(95.0, 105.0), sigma=0.2, rate=0.1,
+                              maturity=0.25, cost_rate=(0.01, 0.0),
+                              payoff=("put", "bull_spread"), n_steps=8,
+                              capacity=16, **legacy)
+    dep = [x for x in w if issubclass(x.category, DeprecationWarning)]
+    assert len(dep) == 1 and "ExecutionConfig" in str(dep[0].message)
+    np.testing.assert_array_equal(got.ask, want.ask)
+    np.testing.assert_array_equal(got.bid, want.bid)
+    assert got.max_pieces == want.max_pieces
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ref = japi.price_grid(capacity=16, **legacy, **_LEGACY_GRID)
+        jflat = japi.price_flat(s0=(95.0, 105.0), sigma=0.2, rate=0.1,
+                                maturity=0.25, cost_rate=(0.01, 0.0),
+                                payoff=("put", "bull_spread"), n_steps=8,
+                                capacity=16, **legacy)
+    for g, r in ((got, ref), (flat, jflat)):
+        np.testing.assert_allclose(g.ask, np.asarray(r.ask), rtol=0, atol=TOL)
+        np.testing.assert_allclose(g.bid, np.asarray(r.bid), rtol=0, atol=TOL)
+
+
+def test_legacy_kwargs_beside_execution_are_a_type_error(fresh_legacy_warning):
+    cfg = _cfg("torch")
+    with pytest.raises(TypeError, match="both execution="):
+        api.price_grid(execution=cfg, backend="jnp", **_LEGACY_GRID)
+    with pytest.raises(TypeError, match="both execution="):
+        api.price_flat(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25,
+                       execution=cfg, platform="cpu")
+    with pytest.raises(TypeError, match="both execution="):
+        japi.price_grid(execution=japi.ExecutionConfig(), backend="jnp",
+                        **_LEGACY_GRID)
+
+
+@pytest.mark.parametrize("legacy,err,match", [
+    (dict(devices=2, platform="cpu"), NotImplementedError, "Queue A #7"),
+    (dict(n_paths=256, platform="cpu"), NotImplementedError, "Queue A #6"),
+    (dict(seed=3, basis="poly"), NotImplementedError, "Queue A #6"),
+    (dict(platform="tpu"), ValueError, "platform"),
+    (dict(interpret=True, platform="gpu"), ValueError, "interpret"),
+    (dict(interpret=False, platform="cpu"), ValueError, "interpret"),
+], ids=["devices", "n_paths", "seed", "tpu", "interpret-gpu", "compiled-cpu"])
+def test_legacy_kwargs_the_port_cannot_honour_raise(legacy, err, match,
+                                                   fresh_legacy_warning):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with pytest.raises(err, match=match):
+            api.price_grid(**legacy, **_LEGACY_GRID)
+        with pytest.raises(err, match=match):
+            api.price_flat(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25,
+                           n_steps=4, **legacy)
+
+
+def _weird():
+    """A cash-settled payoff outside the 4-parameter family, in both
+    frameworks: (90 - S/2)^+ in cash."""
+    return (api.cash_settled(
+        "weird", lambda s: torch.clamp_min(90.0 - 0.5 * s, 0.0)),
+        j_cash_settled("weird", lambda s: jnp.maximum(90.0 - 0.5 * s, 0.0)))
+
+
+def test_closure_only_payoff_intrinsic_matches_jax():
+    pay, jpay = _weird()
+    assert pay.params is None and jpay.params is None
+    s = np.linspace(60.0, 220.0, 33)
+    want = np.asarray(jpay.intrinsic(s))
+    np.testing.assert_array_equal(pay.intrinsic(s), want)
+    np.testing.assert_array_equal(pay.intrinsic(torch.from_numpy(s)).numpy(),
+                                  want)
+    # the family's own form and its closure form agree
+    bull = api.bull_spread(95.0, 105.0)
+    g = api.cash_settled("b", lambda x: torch.clamp_min(x - 95.0, 0.0)
+                         - torch.clamp_min(x - 105.0, 0.0))
+    np.testing.assert_allclose(g.intrinsic(s), bull.intrinsic(s), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("cost_rate", [0.0, 0.01])
+def test_closure_only_payoff_prices_match_jax(cost_rate):
+    """``cash_settled`` with a closure prices on ``backend="torch"`` as the
+    JAX package's jnp engine (and its numpy oracle at cost 0) does."""
+    pay, jpay = _weird()
+    kw = dict(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25, n_steps=12)
+    ref = japi.price_american(payoff=jpay, cost_rate=cost_rate, capacity=16,
+                              **kw)
+    got = api.price_american(payoff=pay, cost_rate=cost_rate, capacity=16,
+                             execution=_cfg("torch"), **kw)
+    assert got.ask == pytest.approx(ref.ask, abs=TOL)
+    assert got.bid == pytest.approx(ref.bid, abs=TOL)
+    assert got.ask > 0.0
+    if cost_rate > 0.0:
+        m = dict(kw, cost_rate=cost_rate)
+        jr = j_price_rz(JLatticeModel(**m), jpay, capacity=16, backend="jnp")
+        r = price_rz(LatticeModel(**m), pay, capacity=16, backend="torch",
+                     device="cpu")
+        assert r.ask == pytest.approx(jr.ask, abs=TOL)
+        assert r.bid == pytest.approx(jr.bid, abs=TOL)
+        assert r.max_pieces == int(jr.max_pieces)
+        assert r.ask > r.bid
+
+
+def test_kernel_backend_refuses_closure_only_payoff_as_jax_does():
+    pay, jpay = _weird()
+    kw = dict(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25, n_steps=8)
+    with pytest.raises(ValueError, match="pallas"):
+        j_price_rz(JLatticeModel(cost_rate=0.01, **kw), jpay, capacity=16,
+                   backend="pallas")
+    with pytest.raises(ValueError, match="closure-only.*backend='torch'"):
+        price_rz(LatticeModel(cost_rate=0.01, **kw), pay, capacity=16,
+                 backend="kernel", device="cpu")
+    for cost_rate in (0.0, 0.01):
+        with pytest.raises(ValueError, match="closure-only"):
+            api.price_american(payoff=pay, cost_rate=cost_rate, capacity=16,
+                               execution=_cfg("kernel"), **kw)
 
 
 def test_scenario_grid_matches_jax_layout():

@@ -11,9 +11,10 @@ Tolerance: the pricing kernels repeat their plain versions' float64
 arithmetic operation for operation (no fused multiply-add): the lattice
 kernel agrees bit for bit, ``rz_round`` to 1e-9 with knot counts
 exactly.  ``lru_scan`` rounds as its plain
-version does and agrees bit for bit; ``flash_attention`` sums in another
-order than its plain version's matrix products and is held to 2e-5,
-the bound JAX's own flash attention is held to.  TF32 is off for the
+version does and agrees bit for bit; ``flash_attention`` multiplies in
+split TF32 on the tensor cores and sums in another order than its plain
+version's matrix products, and is held to 2e-5, the bound JAX's own
+flash attention is held to.  TF32 is off for the
 comparisons (and restored after them).
 """
 import numpy as np
@@ -199,10 +200,14 @@ def test_grids_on_card_match_the_plain_walks(cuda):
     np.testing.assert_allclose(nt.ask, nt_ref.ask, rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("B,T,W", [(2, 77, 2560), (3, 256, 100)])
+@pytest.mark.parametrize("B,T,W", [(2, 77, 2560), (3, 256, 100),
+                                   (1, 300, 2560), (2, 20, 77),
+                                   (1, 1, 33)])
 def test_lru_scan_kernel_matches_plain(cuda, B, T, W):
-    """T = 77 leaves a tail after the kernel's 16-step unroll; W = 100 a
-    ragged last block of channels."""
+    """T = 77 and 300 leave a ragged last chunk of the kernel's 32-step
+    ring; T = 20 and 1 are shorter than one chunk; W = 100, 77 and 33
+    leave a ragged last warp of channels (77 and 33 rows that are not
+    16-byte aligned); B = 1 is a single batch row."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a = torch.rand(B, T, W, generator=g, device=cuda)
     b = torch.randn(B, T, W, generator=g, device=cuda)
@@ -215,20 +220,24 @@ def test_lru_scan_kernel_matches_plain(cuda, B, T, W):
     assert torch.equal(got_seq, want_seq) and torch.equal(got_last, want_last)
 
 
-@pytest.mark.parametrize("hd,G", [(64, 1), (64, 4), (256, 10)])
-@pytest.mark.parametrize("window", [None, 100], ids=["causal", "window"])
-def test_flash_kernel_matches_plain(no_tf32, hd, G, window):
-    """T = 200 and S = 200 leave the kernel's last 64-row tiles ragged."""
+@pytest.mark.parametrize("hd,G", [(64, 1), (64, 4), (128, 2), (256, 10)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None), (False, 100)],
+                         ids=["causal", "window", "bidirectional",
+                              "bidirectional-window"])
+def test_flash_kernel_matches_plain(no_tf32, hd, G, causal, window):
+    """T = 200 and S = 200 leave the kernel's last 64-row and last KV
+    tiles ragged; the split-TF32 products hold the float32 contract."""
     g = torch.Generator(device=no_tf32).manual_seed(hd + G)
     B, T, KVH = 2, 200, 2
     q = torch.randn(B, T, KVH * G, hd, generator=g, device=no_tf32)
     k = torch.randn(B, T, KVH, hd, generator=g, device=no_tf32)
     v = torch.randn(B, T, KVH, hd, generator=g, device=no_tf32)
     n0 = TF.LAUNCHES["flash_attention"]
-    got = TF.flash_attention(q, k, v, window=window)
+    got = TF.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert TF.LAUNCHES["flash_attention"] == n0 + 1
-    want = TF.flash_attention_plain(q, k, v, causal=True, window=window,
+    want = TF.flash_attention_plain(q, k, v, causal=causal, window=window,
                                     q_chunk=64, kv_chunk=48)
     assert (got - want).abs().max().item() <= 2e-5
 
@@ -237,12 +246,9 @@ def test_flash_kernel_refuses_what_it_cannot_run(cuda):
     q = torch.zeros(1, 8, 2, 16, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
-    q = torch.zeros(1, 8, 2, 128, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros(1, 8, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="causal only"):
-        TF.flash_attention(q, q[:, :, :1], q[:, :, :1], causal=False)
+    with pytest.raises(ValueError, match="live key"):
+        TF.flash_attention(q, q[:, :4, :1], q[:, :4, :1], window=2)
     with pytest.raises(ValueError, match="contiguous"):
         TF.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            q[:, :, :1], q[:, :, :1])

@@ -26,6 +26,22 @@ against the capacity, a subset of each grid re-priced by the plain
 level walk (``backend="torch"``) and small inputs against the numpy
 oracle, and prints how a call's knot count grows with N.
 
+Then the LSMC engine (``engine="lsmc"``, plain PyTorch: no TPU kernel
+stands behind it): the two grids of Longstaff & Schwartz (2001) Table 1
+(American puts, 100,000 antithetic paths, Laguerre degree 3, T=1 at N=50
+and T=2 at N=100) and 64 Bermudan basket puts of 5 assets, each timed
+after a warm-up with its peak device memory, and each held against the
+same rows priced on the host (``[check] LSMC ... card vs host``: the
+host's generator draws other normals, so within 4 combined standard
+errors); the estimator within 3
+standard errors of the lattice kernel's price (``[check] LSMC vs
+lattice``); the TC put, no-TC and LSMC grids (and the LSMC grid padded)
+under ``devices=1``, ``devices=4`` (simulated on one card) and
+``mesh=(cuda:0,) * 4`` (the real per-shard dispatch), held bit for bit
+(``[check] layout``, with each layout's kernel launches counted from 0);
+and ``python -m repro_torch.launch.price --grid --engine lsmc --devices
+4`` as a subprocess (``[main] launcher``).
+
 Then it serves recurrentgemma-2b at its published width (26 layers,
 d_model 2560, random weights from a seeded generator on the card,
 float32) through ``repro_torch.serve.engine.LMEngine``: batch 4, a
@@ -56,6 +72,7 @@ bound; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
+import dataclasses
 import importlib
 import json
 import re
@@ -99,6 +116,29 @@ LRU_EDGES = ((1, 300, 2560), (2, 20, 77), (1, 1, 33))
 # (label, B, T = S, H, KVH, hd, causal, window)
 FLASH_EXTRA = (("hd128", 2, 1000, 8, 2, 128, True, None),
                ("bidirectional", 1, 1000, 10, 1, 256, False, None))
+# the LSMC engine: Longstaff & Schwartz (2001), Table 1 (American puts,
+# K=40, r=0.06, 100,000 antithetic paths, 50 exercise dates a year),
+# and a 64-contract Bermudan basket of 5 assets
+LS_SPOTS, LS_SIGMAS, LS_PATHS = (36.0, 38.0, 40.0, 42.0, 44.0), (0.2, 0.4), \
+    100_000
+# the paper's finite-difference American values, (s0, sigma, T) -> price
+LS_TABLE1 = {
+    (36.0, 0.2, 1.0): 4.478, (36.0, 0.2, 2.0): 4.840,
+    (36.0, 0.4, 1.0): 7.101, (36.0, 0.4, 2.0): 8.508,
+    (38.0, 0.2, 1.0): 3.250, (38.0, 0.2, 2.0): 3.745,
+    (38.0, 0.4, 1.0): 6.148, (38.0, 0.4, 2.0): 7.670,
+    (40.0, 0.2, 1.0): 2.314, (40.0, 0.2, 2.0): 2.885,
+    (40.0, 0.4, 1.0): 5.312, (40.0, 0.4, 2.0): 6.920,
+    (42.0, 0.2, 1.0): 1.617, (42.0, 0.2, 2.0): 2.212,
+    (42.0, 0.4, 1.0): 4.582, (42.0, 0.4, 2.0): 6.248,
+    (44.0, 0.2, 1.0): 1.110, (44.0, 0.2, 2.0): 1.690,
+    (44.0, 0.4, 1.0): 3.948, (44.0, 0.4, 2.0): 5.647,
+}
+BASKET_STEPS, BASKET_ASSETS, BASKET_PATHS = 50, 5, 32_768
+# each LSMC price on the card against the same row on the host, in units
+# of sqrt(se_card^2 + se_host^2): 84 rows at 4 give a 0.5% chance of a
+# false alarm for independent normal gaps (3 would give 20%)
+LSMC_HOST_SE = 4.0
 
 
 class SmokeError(RuntimeError):
@@ -787,9 +827,7 @@ def lm_phase(torch, np, mod, all_launches):
     prompt_np = prompt[:, :LM_PROMPT].cpu().numpy()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counts in all_launches:
-        for key in counts:
-            counts[key] = 0
+    zero_counts(all_launches)
     out, gen_s = wall(torch, lambda: eng.generate(prompt_np, LM_NEW))
     launches = {"flash_attention": FL.LAUNCHES["flash_attention"],
                 "lru_scan": LS.LAUNCHES["lru_scan"]}
@@ -849,6 +887,219 @@ def pricing_grids(api, cfgs, np):
     return tc_grid, cb_grid, notc_grid
 
 
+def lsmc_ls_grid(api, maturity, n_steps):
+    """Longstaff & Schwartz (2001), Table 1: American puts, K=40, r=0.06,
+    s0 in {36, ..., 44} x sigma in {0.2, 0.4}, 50 exercise dates a year
+    (every step of the tree's clock)."""
+    return api.ScenarioGrid.cartesian(
+        s0=LS_SPOTS, sigma=LS_SIGMAS, rate=0.06, maturity=maturity,
+        payoff="put", strike=40.0, n_steps=n_steps)
+
+
+def zero_counts(all_launches):
+    for counts in all_launches:
+        for key in counts:
+            counts[key] = 0
+
+
+def launch_counts(all_launches):
+    return {k: v for counts in all_launches for k, v in counts.items()}
+
+
+def lsmc_phase(torch, np, api, all_launches):
+    """The LSMC engine's main lines, each after a warm-up: the two
+    Longstaff-Schwartz grids and 64 Bermudan basket puts; then the
+    estimator against the lattice kernel's price (3 standard errors)."""
+    ls_cfg = api.ExecutionConfig(engine="lsmc", n_paths=LS_PATHS,
+                                 basis="laguerre", degree=3)
+    out = {}
+    jobs = [(f"Longstaff-Schwartz puts T={T:g}", lsmc_ls_grid(api, T, N),
+             ls_cfg) for T, N in ((1.0, 50), (2.0, 100))]
+    basket = api.ScenarioGrid.cartesian(
+        s0=tuple(np.linspace(90.0, 110.0, 8)), sigma=(0.2, 0.3), rate=0.05,
+        maturity=1.0, payoff="put", strike=(95.0, 100.0, 105.0, 110.0),
+        n_steps=BASKET_STEPS, n_assets=BASKET_ASSETS,
+        exercise_steps=tuple(range(5, BASKET_STEPS + 1, 5)))
+    jobs.append(("basket", basket, api.ExecutionConfig(
+        engine="lsmc", n_paths=BASKET_PATHS)))
+    for label, grid, cfg in jobs:
+        api.price_grid(grid, execution=cfg)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(all_launches)
+        res, s = wall(torch, lambda: api.price_grid(grid, execution=cfg))
+        launches = launch_counts(all_launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = grid.n_scenarios
+        dates = sum(1 for t in (grid.exercise_steps
+                                or range(grid.n_steps + 1)) if t > 0)
+        se = float(res.stderr.max())
+        rec = dict(contracts=n, n_steps=grid.n_steps, n_assets=grid.n_assets,
+                   paths=cfg.n_paths, dates=dates, wall_s=s,
+                   contracts_per_s=n / s,
+                   path_dates_per_s=n * cfg.n_paths * dates / s,
+                   max_stderr=se, peak_device_gb=peak, launches=launches,
+                   prices=res.ask.ravel().tolist())
+        out[label] = rec
+        line = (f"[main] LSMC {label}: {n} contracts, N={grid.n_steps}, "
+                f"d={grid.n_assets}, {cfg.n_paths} paths x {dates} dates"
+                f"{', antithetic, laguerre 3' if 'Longstaff' in label else ''}"
+                f": {s:.3f} s after a warm-up, {n / s:.2f} contracts/s, "
+                f"{n * cfg.n_paths * dates / s:.4e} paths*dates/s, max "
+                f"stderr {se:.5f}, peak device memory {peak:.3f} GB, kernel "
+                f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        # where the time goes: device busy over the profiled window
+        wall_p, n_k, kernels = profile_window(
+            torch, lambda: api.price_grid(grid, execution=cfg))
+        busy = sum(t for _, t in kernels)
+        rec["profile"] = dict(wall_s=wall_p, device_busy_s=busy,
+                              idle_share=1.0 - busy / wall_p, kernels=n_k,
+                              top_kernels_s=[(k[:60], t)
+                                             for k, t in kernels[:5]])
+        print(f"[profile] LSMC {label}: {n_k} kernels, device busy "
+              f"{busy * 1e3:.3f} ms of {wall_p * 1e3:.3f} ms under the "
+              f"profiler (idle share {1.0 - busy / wall_p:.3f}); top "
+              "kernels: " + ", ".join(f"{k[:60]} {t * 1e3:.3f} ms"
+                                      for k, t in kernels[:5]), flush=True)
+        if "Longstaff" in label:
+            table = np.array([LS_TABLE1[(s0, sig, grid.maturity[0])]
+                              for s0, sig in zip(grid.s0, grid.sigma)])
+            dev = res.ask.ravel() - table
+            rec["vs_ls_table1_fd"] = dev.tolist()
+            line += (f"; vs LS (2001) Table 1 finite-difference values: max "
+                     f"|d| {np.abs(dev).max():.4f}, prices "
+                     f"{[round(x, 4) for x in res.ask.ravel().tolist()]}")
+        print(line, flush=True)
+        check(np.isfinite(res.ask).all() and (res.ask >= 0).all()
+              and np.array_equal(res.ask, res.bid), f"LSMC {label} prices")
+        check(np.isfinite(res.stderr).all() and (res.stderr >= 0).all()
+              and se > 0, f"LSMC {label} stderr")
+        check(res.ask.shape == grid.shape and res.engine == "lsmc",
+              f"LSMC {label} shape and engine")
+        # the card's sampler and chunks at full size against the same rows
+        # priced on the host (independent draws, so the gap has mean 0 and
+        # the two SEs' quadrature sum as its spread)
+        host = api.price_grid(grid, execution=dataclasses.replace(
+            cfg, device="cpu"))
+        spread = np.sqrt(res.stderr ** 2 + host.stderr ** 2)
+        gap = np.abs(res.ask - host.ask) / spread
+        rec["vs_host_gap_se"] = gap.ravel().tolist()
+        print(f"[check] LSMC {label} card vs host: {n} contracts, "
+              f"{cfg.n_paths} paths each, max |card - host| = "
+              f"{gap.max():.2f} combined SE (limit {LSMC_HOST_SE:g})",
+              flush=True)
+        check(np.isfinite(host.ask).all() and (gap <= LSMC_HOST_SE).all(),
+              f"LSMC {label} card within {LSMC_HOST_SE:g} combined SE of "
+              "the host")
+    # the estimator against the lattice at the bar of tests/test_lsmc.py
+    one = dict(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25, payoff="put",
+               strike=100.0, n_steps=200)
+    mc = api.price_grid(execution=api.ExecutionConfig(
+        engine="lsmc", n_paths=8192, mc_seed=0), **one)
+    lat = api.price_grid(execution=api.ExecutionConfig(engine="notc"), **one)
+    p, o, se = float(mc.ask.ravel()[0]), float(lat.ask.ravel()[0]), \
+        float(mc.stderr.ravel()[0])
+    print(f"[check] LSMC vs lattice: put s0=100 sigma=0.2 r=0.1 T=0.25 "
+          f"N=200, 8192 paths, seed 0: lsmc {p:.6f} se {se:.6f}, no-TC "
+          f"kernel {o:.6f}: |d| = {abs(p - o) / se:.2f} SE (limit 3)",
+          flush=True)
+    check(se > 0 and abs(p - o) <= 3.0 * se, "LSMC within 3 SE of lattice")
+    out["vs_lattice"] = dict(lsmc=p, stderr=se, lattice=o,
+                             gap_se=abs(p - o) / se)
+    return out
+
+
+def layout_phase(torch, np, api, tc_grid, notc_grid, notc_cfg, capacity,
+                 all_launches):
+    """Each grid under devices=1, devices=4 (simulated on one card) and
+    mesh=(cuda:0,)*4 (the real per-shard dispatch), held bit for bit:
+    ask, bid, row_pieces and stderr.  The launches of each layout's run
+    are counted from 0."""
+    cuda0 = torch.device("cuda", 0)
+    ls = lsmc_ls_grid(api, 1.0, 50)
+    ls_cfg = dict(engine="lsmc", n_paths=LS_PATHS, basis="laguerre",
+                  degree=3)
+    # (label, grid, price_grid kwargs, execution fields, the kernel its
+    # layouts must launch, the label whose devices=1 result it is held to)
+    cases = (("TC put grid", tc_grid, dict(capacity=capacity), {},
+              "rz_round", None),
+             ("no-TC grid", notc_grid, dict(levels=notc_cfg.round_depth,
+                                            block=256), {},
+              "lattice_round_param", None),
+             ("LS T=1 grid", ls, {}, ls_cfg, None, None),
+             ("LS T=1 grid pad_to(16)", ls.pad_to(16), {}, ls_cfg, None,
+              "LS T=1 grid"))
+    out, bases = {}, {}
+    for label, grid, kw, ex, kernel, held_to in cases:
+        base = bases.get(held_to)
+        rows = {}
+        for layout, lk in (("devices=1", dict(devices=1)),
+                           ("devices=4", dict(devices=4)),
+                           ("mesh=(cuda:0,)*4", dict(mesh=(cuda0,) * 4))):
+            mesh = lk.pop("mesh", None)
+            cfg = api.ExecutionConfig(**ex, **lk)
+            zero_counts(all_launches)
+            res, s = wall(torch, lambda: api.price_grid(
+                grid, execution=cfg, mesh=mesh, **kw))
+            launches = launch_counts(all_launches)
+            if base is None:
+                base = bases[label] = res
+            n = base.grid.n_scenarios
+            eq = {f: (getattr(base, f) is None and getattr(res, f) is None)
+                  or bool(np.array_equal(getattr(base, f).ravel(),
+                                         getattr(res, f).ravel()[:n]))
+                  for f in ("ask", "bid", "row_pieces", "stderr")}
+            si = res.shard_info
+            info = None if si is None else dict(
+                rows=list(si.per_shard_rows),
+                pieces=list(si.per_shard_pieces),
+                measured_work=list(si.measured_work),
+                work_spread=si.plan.work_spread, simulated=si.simulated)
+            rows[layout] = dict(wall_s=s, equal=eq, shard_info=info,
+                                launches=launches)
+            print(f"[check] layout {label} {layout}: {s:.3f} s, array_equal "
+                  f"{json.dumps(eq)}, shard_info "
+                  f"{json.dumps(info)}, launches "
+                  f"{json.dumps({k: v for k, v in launches.items() if v})}",
+                  flush=True)
+            check(all(eq.values()), f"layout {label} {layout}: {eq}")
+            if kernel is not None:
+                check(launches[kernel] > 0,
+                      f"layout {label} {layout}: {kernel} not launched")
+            check(layout == "devices=1" or (
+                info is not None and info["simulated"] == (
+                    layout == "devices=4")), f"layout {label} {layout}: "
+                  "shard_info")
+        out[label] = rows
+    return out
+
+
+def launcher_phase():
+    """The launcher a user runs, as a subprocess on the card: grid mode,
+    the LSMC engine, four shards (simulated on one card)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.price", "--grid",
+           "--engine", "lsmc", "--devices", "4", "--n-steps", "50",
+           "--paths", "16384", "--exercise-dates", "10,20,30,40,50",
+           "--n-assets", "3", "--s0", "90,100,110", "--lambdas", "0,0.01"]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       env=env, cwd=ROOT)
+    s = time.perf_counter() - t
+    lines = r.stdout.strip().splitlines()
+    mesh = [ln for ln in lines if ln.startswith("[simulated mesh")
+            or ln.startswith("[device mesh")]
+    print(f"[main] launcher: {' '.join(cmd[1:])}: exit {r.returncode} in "
+          f"{s:.1f} s (process start, import and run); "
+          f"{mesh[0] if mesh else 'no mesh line'}; "
+          f"{lines[-1] if lines else ''}", flush=True)
+    check(r.returncode == 0, f"launcher exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    check(len(mesh) == 1 and sum("se=" in ln for ln in lines) == 6,
+          "launcher output: one mesh line and 6 rows with se=")
+    return dict(returncode=r.returncode, wall_s=s, mesh_line=mesh[0])
+
+
 def main() -> int:
     try:
         import torch
@@ -900,9 +1151,7 @@ def main() -> int:
                   capacity)
 
     # 3. the main path, through the public API with the default backend
-    for counts in (B.LAUNCHES, RS.LAUNCHES):
-        for key in counts:
-            counts[key] = 0
+    zero_counts((B.LAUNCHES, RS.LAUNCHES))
     torch.cuda.reset_peak_memory_stats()
     tc, tc_s = wall(torch, lambda: api.price_grid(tc_grid, capacity=capacity))
     cb, cb_s = wall(torch, lambda: api.price_grid(cb_grid, capacity=capacity))
@@ -999,6 +1248,13 @@ def main() -> int:
     print(f"[knots] max_pieces at capacity 128: {json.dumps(grown)}",
           flush=True)
 
+    # the LSMC engine's main lines, the sharded layouts and the launcher
+    pricing_launches = (B.LAUNCHES, RS.LAUNCHES)
+    lsmc = lsmc_phase(torch, np, api, pricing_launches)
+    layout = layout_phase(torch, np, api, tc_grid, notc_grid, notc_cfg,
+                          capacity, pricing_launches)
+    launcher = launcher_phase()
+
     # 4. the language model's serve path at full width
     FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
     lm_kern, lm_launches, lm = lm_phase(
@@ -1052,7 +1308,8 @@ def main() -> int:
                    rz_call_bull_deep=rz["call-bull-deep"], rz_halo=rz["halo"],
                    rz_edges={k: v for k, v in rz.items()
                              if k.startswith("edge")},
-                   rz_capacity=rz["capacity"], lm=lm, lm_kernels=lm_kern)
+                   rz_capacity=rz["capacity"], lsmc=lsmc, layout=layout,
+                   launcher=launcher, lm=lm, lm_kernels=lm_kern)
     print("[summary] " + json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

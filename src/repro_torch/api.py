@@ -20,7 +20,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .configs.pricing import ExecutionConfig
+from .configs.pricing import ExecutionConfig, execution_device
 from .core.device import DEFAULT_DTYPE, resolve_device
 from .core.lattice import LatticeModel
 from .core.notc import notc_payoff_rows
@@ -28,8 +28,8 @@ from .core.payoff import (PAYOFF_FAMILIES, PayoffProcess, american_call,
                           american_put, bull_spread, cash_settled,
                           kernel_params, param_payoff)
 from .core.rz import price_rz
-from .scenarios import (_NOT_PORTED, GridResult, ScenarioGrid,
-                        _notc_rows_kernel, price_grid_notc, price_grid_rz,
+from .scenarios import (GridResult, ScenarioGrid, _notc_rows_kernel,
+                        price_grid_lsmc, price_grid_notc, price_grid_rz,
                         route_engine)
 
 __all__ = ["price_american", "price_grid", "price_flat", "PriceQuote",
@@ -40,9 +40,6 @@ __all__ = ["price_american", "price_grid", "price_flat", "PriceQuote",
 
 # the JAX package's individual execution kwargs warn once per process
 _legacy_exec_warned = False
-_LEGACY_BACKENDS = {"jnp": "torch", "pallas": "kernel"}
-_LEGACY_PLATFORMS = {"gpu": "cuda", "cpu": "cpu"}
-_LSMC_KNOBS = ("n_paths", "seed", "basis", "degree", "antithetic")
 
 
 def _reset_legacy_exec_warning() -> None:
@@ -70,11 +67,11 @@ def _merge_execution(fn: str, execution: Optional[ExecutionConfig], *,
       ``device="cpu"`` and, unless ``backend`` says otherwise,
       ``backend="kernel"``: the kernels' plain versions.  It raises
       ``ValueError`` with ``platform="gpu"``, as ``interpret=False`` (the
-      compiled kernels) does with ``platform="cpu"``;
-    * ``engine`` and ``devices`` keep their meaning (``devices > 1`` is
-      not ported and raises where the grid is priced);
-    * ``n_paths``/``seed``/``basis``/``degree``/``antithetic`` tune the
-      LSMC engine, which is not ported: ``NotImplementedError``.
+      compiled kernels) does with ``platform="cpu"``
+      (``configs/pricing.py::execution_device``);
+    * ``engine``, ``devices`` and the LSMC knobs ``n_paths``/``basis``/
+      ``degree``/``antithetic`` keep their meaning; ``seed`` is
+      ``mc_seed``.
     """
     legacy = {name: v for name, v in (
         ("engine", engine), ("backend", backend), ("platform", platform),
@@ -97,40 +94,22 @@ def _merge_execution(fn: str, execution: Optional[ExecutionConfig], *,
                 "execution=ExecutionConfig(...) "
                 "(repro_torch.api.ExecutionConfig)",
                 DeprecationWarning, stacklevel=3)
-    lsmc = [k for k in _LSMC_KNOBS if k in legacy]
-    if lsmc:
-        raise NotImplementedError(f"{fn}({', '.join(lsmc)}=...): "
-                                  + _NOT_PORTED["lsmc"])
-    device = None
-    if platform is not None:
-        if platform not in _LEGACY_PLATFORMS:
-            raise ValueError(f"platform {platform!r} is not a platform of "
-                             f"the port; use one of "
-                             f"{tuple(_LEGACY_PLATFORMS)}")
-        device = _LEGACY_PLATFORMS[platform]
-    if backend is not None:
-        backend = _LEGACY_BACKENDS.get(backend, backend)
-    if interpret is not None:
-        if interpret and device == "cuda":
-            raise ValueError("interpret=True runs the kernels' plain "
-                             "versions on the CPU; it contradicts "
-                             "platform='gpu'")
-        if not interpret and device == "cpu":
-            raise ValueError("interpret=False runs the compiled kernels on "
-                             "the card; it contradicts platform='cpu'")
-        if interpret:
-            device = "cpu"
-            backend = backend or "kernel"
-    return ExecutionConfig(engine=engine, backend=backend, device=device,
-                           devices=devices).resolved()
+    device, backend = execution_device(platform, interpret, backend)
+    return ExecutionConfig(
+        engine=engine, backend=backend, device=device, devices=devices,
+        n_paths=n_paths, mc_seed=seed, basis=basis, degree=degree,
+        antithetic=antithetic).resolved()
 
 
 @dataclasses.dataclass(frozen=True)
 class PriceQuote:
-    """Two-sided quote for one contract (ask == bid without costs)."""
+    """Two-sided quote for one contract (ask == bid without costs).
+    ``stderr`` is the Monte Carlo standard error when the quote came
+    from the ``lsmc`` engine (0.0 from the deterministic lattices)."""
     ask: float
     bid: float
     max_pieces: int = 0
+    stderr: float = 0.0
 
     @property
     def mid(self) -> float:
@@ -205,8 +184,17 @@ def price_grid(grid: Optional[ScenarioGrid] = None, *,
     Pass a :class:`ScenarioGrid` or cartesian axes as keywords (forwarded
     to :meth:`ScenarioGrid.cartesian`); a sequence of ``n_steps`` prices
     one grid per depth.  ``engine="auto"`` routes through
-    :func:`route_engine`: ``rz`` when any scenario has ``cost_rate > 0``,
-    else ``notc``.  ``levels``/``block`` tune the kernels' round plan.
+    :func:`route_engine`: a basket (``n_assets > 1``) or a Bermudan
+    ``exercise_steps`` grid goes to ``lsmc``; otherwise ``rz`` when any
+    scenario has ``cost_rate > 0``, else ``notc``.  ``levels``/``block``
+    tune the kernels' round plan; ``n_paths``/``mc_seed``/``basis``/
+    ``degree``/``antithetic`` of the config tune ``lsmc``.
+
+    ``mesh`` (a tuple of ``torch.device``) or the config's ``devices``
+    shard the flat batch over a 1-D mesh under a cost-model plan
+    (``core/partition.py::plan_shards``; ``shard_plan`` overrides it);
+    ``devices`` above the card count runs the simulated layout.  Results
+    are those of the single-device call.
 
     The JAX package's individual execution kwargs (``engine``,
     ``backend``, ``platform``, ``interpret``, ``devices`` and the LSMC
@@ -221,10 +209,15 @@ def price_grid(grid: Optional[ScenarioGrid] = None, *,
                            degree=degree, antithetic=antithetic)
     if grid is None:
         if isinstance(n_steps, (list, tuple)):
+            if shard_plan is not None:
+                raise TypeError(
+                    "shard_plan cannot combine with a sequence of n_steps: "
+                    "one plan covers one flat batch (pass mesh=/devices= "
+                    "and let each depth plan itself)")
             return [price_grid(execution=cfg, capacity=capacity,
                                greeks=greeks, n_steps=int(n), levels=levels,
-                               block=block, mesh=mesh, shard_plan=shard_plan,
-                               **axes) for n in n_steps]
+                               block=block, mesh=mesh, **axes)
+                    for n in n_steps]
         grid = ScenarioGrid.cartesian(n_steps=int(n_steps or 100), **axes)
     elif axes or n_steps is not None:
         raise TypeError("pass either a ScenarioGrid or cartesian axes, "
@@ -245,8 +238,12 @@ def price_grid(grid: Optional[ScenarioGrid] = None, *,
                                block=256 if block is None else block,
                                device=cfg.device, **shard)
     if eng == "lsmc":
-        raise NotImplementedError(_NOT_PORTED["lsmc"])
-    raise ValueError(f"unknown engine {eng!r}; use 'auto', 'rz' or 'notc'")
+        return price_grid_lsmc(grid, n_paths=cfg.n_paths, seed=cfg.mc_seed,
+                               basis=cfg.basis, degree=cfg.degree,
+                               antithetic=cfg.antithetic, greeks=greeks,
+                               device=cfg.device, **shard)
+    raise ValueError(f"unknown engine {eng!r}; use 'auto', 'rz', 'notc' "
+                     "or 'lsmc'")
 
 
 def price_flat(*, s0, sigma, rate, maturity, cost_rate=0.0, payoff="put",
@@ -264,8 +261,10 @@ def price_flat(*, s0, sigma, rate, maturity, cost_rate=0.0, payoff="put",
                pad_to: Optional[int] = None, mesh=None,
                devices: Optional[int] = None, shard_plan=None) -> GridResult:
     """Price a flat batch of heterogeneous contracts (row ``i`` is request
-    ``i``); ``pad_to`` pads by repeating the last row.  The execution
-    kwargs behave as in :func:`price_grid`."""
+    ``i``); ``pad_to`` pads by repeating the last row, and a
+    ``shard_plan`` must cover the padded batch.  The execution kwargs
+    and ``mesh``/``devices``/``shard_plan`` behave as in
+    :func:`price_grid`."""
     cfg = _merge_execution("price_flat", execution, engine=engine,
                            backend=backend, platform=platform,
                            interpret=interpret, devices=devices,

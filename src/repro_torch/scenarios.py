@@ -8,38 +8,49 @@ as one batch (the row dimension JAX vmapped over):
 
 * :func:`price_grid_rz` — Roux–Zastawniak ask/bid under transaction
   costs (exact at cost rate 0 too);
-* :func:`price_grid_notc` — the friction-free binomial price.
+* :func:`price_grid_notc` — the friction-free binomial price;
+* :func:`price_grid_lsmc` — least-squares Monte Carlo, for baskets and
+  Bermudan schedules (``core/lsmc.py``).
 
 ``backend="kernel"`` runs the round loops around the CUDA kernels (their
 plain versions on the CPU); ``backend="torch"`` runs the plain level
 walks.  Central-difference Greeks (delta, vega) ride in the same batch.
+
+``mesh``/``devices``/``shard_plan`` shard the flat batch over a 1-D mesh
+of devices (``core/distributed.py``) under a cost-model plan
+(``core/partition.py::plan_shards``): rows are permuted so that each
+shard's predicted work is near-equal, each shard's slice is padded with
+duplicates of its own rows, and results gather back through the inverse
+permutation.  Pads are duplicates, so ``max_pieces``, ``row_pieces`` and
+the ``OverflowError`` check see exactly the single-device values.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .core.device import DEFAULT_DTYPE, resolve_device
+from .core.distributed import resolve_grid_mesh, sharded_rows
+from .core.lsmc import (LSMC_BASES, exercise_schedule, lsmc_rows,
+                        path_seeds)
 from .core.notc import notc_rows
+from .core.partition import (ShardPlan, plan_shards, scenario_costs,
+                             shard_layout)
 from .core.payoff import PAYOFF_FAMILIES, payoff_params
 from .core.rz import RZ_BACKENDS, rz_backward, rz_backward_kernel
 
-__all__ = ["ScenarioGrid", "GridResult", "price_grid_rz", "price_grid_notc",
-           "route_engine", "PAYOFF_FAMILIES", "payoff_params"]
+__all__ = ["ScenarioGrid", "GridResult", "ShardExecInfo", "price_grid_rz",
+           "price_grid_notc", "price_grid_lsmc", "route_engine",
+           "PAYOFF_FAMILIES", "payoff_params"]
 
 _DELTA_REL_BUMP = 1e-4
 _VEGA_BUMP = 1e-4
-
-_NOT_PORTED = {
-    "lsmc": "engine='lsmc' is not ported yet (ROADMAP Queue A #6, LSMC)",
-    "shard": "mesh/devices/shard_plan are not ported yet "
-             "(ROADMAP Queue A #7, scenario sharding)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +59,9 @@ class ScenarioGrid:
 
     Per-scenario fields are float64 numpy arrays of length
     ``n_scenarios``; ``shape`` is the logical grid shape results take.
-    ``n_assets``/``exercise_steps`` other than 1/None belong to the LSMC
-    engine, which is not ported: the lattice engines reject them.
+    ``n_assets > 1`` (a basket a row) and ``exercise_steps`` (a Bermudan
+    schedule of lattice steps, terminal step included) belong to the
+    LSMC engine: the lattice engines reject them.
     """
     s0: np.ndarray
     sigma: np.ndarray
@@ -66,6 +78,9 @@ class ScenarioGrid:
     exercise_steps: Optional[tuple] = None
 
     def __post_init__(self):
+        if self.exercise_steps is not None:
+            object.__setattr__(self, "exercise_steps", exercise_schedule(
+                self.n_steps, self.exercise_steps))
         if int(self.n_assets) < 1:
             raise ValueError(f"need n_assets >= 1, got {self.n_assets}")
 
@@ -150,13 +165,35 @@ class ScenarioGrid:
             exercise_steps=self.exercise_steps)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardExecInfo:
+    """How a grid call was laid out over a device mesh.
+
+    ``plan`` is the :class:`~repro_torch.core.partition.ShardPlan` the
+    call ran under; ``simulated`` is True when no mesh was available and
+    the identical layout ran on the one device (bit-equal results; see
+    ``resolve_grid_mesh``).  ``per_shard_pieces`` is the *measured* peak
+    PWL knot count of each shard's rows (zero off the TC engine) and
+    ``measured_work`` the cost model re-evaluated with those pieces: the
+    signal a rebalancer feeds back into the next plan.
+    """
+    plan: ShardPlan
+    mesh_shape: tuple
+    simulated: bool
+    per_shard_pieces: tuple
+    per_shard_rows: tuple
+    measured_work: tuple
+
+
 @dataclasses.dataclass
 class GridResult:
     """Ask/bid surfaces (and optional Greeks) over a scenario grid.
 
     Arrays have ``grid.shape``; ``max_pieces`` is the batch-wide peak PWL
     knot count and ``row_pieces`` the per-scenario peak (zeros on the
-    friction-free path).
+    friction-free path).  ``shard_info`` is set when the call ran over a
+    mesh (or its simulation); ``stderr`` is the per-scenario Monte Carlo
+    standard error (``lsmc`` only, None from the lattice engines).
     """
     grid: ScenarioGrid
     ask: np.ndarray
@@ -166,7 +203,9 @@ class GridResult:
     delta_bid: Optional[np.ndarray] = None
     vega_ask: Optional[np.ndarray] = None
     vega_bid: Optional[np.ndarray] = None
+    shard_info: Optional[ShardExecInfo] = None
     row_pieces: Optional[np.ndarray] = None
+    stderr: Optional[np.ndarray] = None
     engine: Optional[str] = None
 
     @property
@@ -194,12 +233,6 @@ def _require_lattice(grid: ScenarioGrid, engine: str):
             f"(got n_assets={grid.n_assets}, exercise_steps="
             f"{grid.exercise_steps!r}); baskets and Bermudan schedules need "
             "the 'lsmc' engine")
-
-
-def _require_single_device(mesh, devices, shard_plan):
-    if mesh is not None or shard_plan is not None or (
-            devices is not None and int(devices) != 1):
-        raise NotImplementedError(_NOT_PORTED["shard"])
 
 
 def _grid_inputs(grid: ScenarioGrid, device) -> tuple:
@@ -243,34 +276,136 @@ def _split_bumps(vals, n: int, copies: int, s0, shape):
     return base, delta, vega
 
 
+
+
+# --------------------------------------------------------------------- #
+# sharded dispatch over a 1-D mesh (core/distributed.py)
+# --------------------------------------------------------------------- #
+def _resolve_shard(grid: ScenarioGrid, n_rows: int, copies: int, *,
+                   capacity: int, mesh, devices, kind: str,
+                   shard_plan: Optional[ShardPlan], costs=None):
+    """Normalise sharding knobs to ``(mesh_or_None, plan_or_None)``.
+
+    A caller's ``shard_plan`` (a serving layer's rebalanced plan) must
+    cover the *bumped* flat batch; otherwise a fresh cost-model plan is
+    made here (``costs``, when given, overrides the lattice cost model:
+    the lsmc engine passes its own).  ``(None, None)`` is the
+    single-device path.
+    """
+    mesh, n_shards = resolve_grid_mesh(devices, mesh, kind=kind)
+    if shard_plan is None and n_shards <= 1:
+        return None, None
+    if shard_plan is None:
+        if costs is None:
+            costs = np.tile(scenario_costs(grid.n_steps, grid.cost_rate,
+                                           capacity=capacity), copies)
+        shard_plan = plan_shards(costs, n_shards)
+    elif n_shards > 1 and shard_plan.n_shards != n_shards:
+        # also on the simulated path: a mismatch fails as on a real mesh
+        raise ValueError(f"shard_plan has {shard_plan.n_shards} shards but "
+                         f"devices/mesh asked for {n_shards}")
+    if shard_plan.n_rows != n_rows:
+        raise ValueError(f"shard_plan covers {shard_plan.n_rows} rows, "
+                         f"batch has {n_rows} (greeks bumps included)")
+    return mesh, shard_plan
+
+
+def _run_rows(rows_fn, static: dict, inputs, mesh, plan: Optional[ShardPlan]):
+    """Run the flat-batch row function; laid out by ``plan`` if present.
+
+    Returns ``(outputs as numpy, positions)``: ``positions`` (None on the
+    single path) maps original row ``i`` to its slot in the laid-out
+    outputs.  With a plan but no mesh the identical layout runs on the
+    one device (the *simulated* mesh).
+    """
+    if plan is None:
+        out = rows_fn(*inputs, **static)
+        return tuple(o.cpu().numpy() for o in out), None
+    gather, positions = shard_layout(plan)
+    g = torch.as_tensor(gather)
+    laid_out = tuple(a[g.to(a.device)] for a in inputs)
+    if mesh is None:
+        out = rows_fn(*laid_out, **static)
+    else:
+        out = sharded_rows(partial(rows_fn, **static), mesh)(*laid_out)
+    return tuple(o.cpu().numpy()[positions] for o in out), positions
+
+
+def _shard_exec_info(plan: ShardPlan, mesh, grid: ScenarioGrid, copies: int,
+                     pieces_rows: Optional[np.ndarray]) -> ShardExecInfo:
+    """Measured per-shard stats for a rebalancer (see
+    :class:`ShardExecInfo`)."""
+    cr = np.tile(np.atleast_1d(np.asarray(grid.cost_rate)), copies)
+    if pieces_rows is None:
+        pieces_rows = np.zeros(plan.n_rows)
+    costs = scenario_costs(grid.n_steps, cr,
+                           pieces=np.maximum(pieces_rows, 1.0))
+    per_pieces, measured = [], []
+    for rows in plan.shards:
+        idx = list(rows)
+        per_pieces.append(int(np.max(pieces_rows[idx])) if idx else 0)
+        measured.append(float(np.sum(costs[idx])) if idx else 0.0)
+    return ShardExecInfo(plan=plan, mesh_shape=(plan.n_shards,),
+                         simulated=mesh is None,
+                         per_shard_pieces=tuple(per_pieces),
+                         per_shard_rows=plan.sizes,
+                         measured_work=tuple(measured))
+
+
+# --------------------------------------------------------------------- #
+# Roux–Zastawniak grid engine (transaction costs; exact at lambda = 0)
+# --------------------------------------------------------------------- #
+def _rz_rows(s0, sigma, rate, maturity, k, alpha, zeta, w1, w2, k1, k2, *,
+             n_steps: int, capacity: int):
+    """Flat-batch RZ rows, the plain level walk: ``(ask, bid, pieces)``."""
+    return rz_backward(s0, sigma, rate, maturity, k,
+                       (alpha, zeta, w1, w2, k1, k2), n_steps=n_steps,
+                       capacity=capacity)
+
+
+def _rz_rows_kernel(s0, sigma, rate, maturity, k, alpha, zeta, w1, w2, k1, k2,
+                    *, n_steps: int, capacity: int, levels, block):
+    """Flat-batch RZ rows through ``rz_round``: ``(ask, bid, pieces)``."""
+    return rz_backward_kernel(s0, sigma, rate, maturity, k,
+                              (alpha, zeta, w1, w2, k1, k2), n_steps=n_steps,
+                              capacity=capacity, levels=levels, block=block)
+
+
 def price_grid_rz(grid: ScenarioGrid, *, capacity: int = 48,
                   greeks: bool = False, backend: str = "kernel",
                   levels: Optional[int] = None, block: Optional[int] = None,
                   device="cuda", mesh=None, devices: Optional[int] = None,
-                  shard_plan=None) -> GridResult:
+                  shard_plan: Optional[ShardPlan] = None) -> GridResult:
     """Price every scenario of ``grid`` under transaction costs.
 
     ``backend="kernel"`` walks the ``core/partition.py`` round plan
     through ``kernels/rz_step.py::rz_round`` (``levels``/``block`` tune
     it); ``backend="torch"`` is the plain level walk.  Raises
     ``OverflowError`` if any scenario needs more than ``capacity`` knots.
+    ``mesh``/``devices``/``shard_plan`` shard the batch (module
+    docstring); results, ``max_pieces`` and the overflow check are those
+    of the single-device call.
     """
     _require_lattice(grid, "rz")
-    _require_single_device(mesh, devices, shard_plan)
     dev = resolve_device(device)
     inputs, copies = _with_bumps(_grid_inputs(grid, dev), greeks)
-    args, pay = inputs[:5], inputs[5:]
     if backend == "kernel":
-        ask, bid, pieces = rz_backward_kernel(
-            *args, pay, n_steps=grid.n_steps, capacity=capacity,
-            levels=levels, block=block)
+        rows_fn = _rz_rows_kernel
+        static = dict(n_steps=grid.n_steps, capacity=capacity, levels=levels,
+                      block=block)
     elif backend == "torch":
-        ask, bid, pieces = rz_backward(*args, pay, n_steps=grid.n_steps,
-                                       capacity=capacity)
+        rows_fn = _rz_rows
+        static = dict(n_steps=grid.n_steps, capacity=capacity)
     else:
         raise ValueError(f"unknown backend {backend!r}; use one of "
                          f"{RZ_BACKENDS}")
-    ask, bid, pieces = (a.cpu().numpy() for a in (ask, bid, pieces))
+    mesh, plan = _resolve_shard(grid, inputs[0].shape[0], copies,
+                                capacity=capacity, mesh=mesh,
+                                devices=devices, kind=dev.type,
+                                shard_plan=shard_plan)
+    (ask, bid, pieces), _ = _run_rows(rows_fn, static, inputs, mesh, plan)
+    shard_info = (None if plan is None else
+                  _shard_exec_info(plan, mesh, grid, copies, pieces))
     n = grid.n_scenarios
     max_pieces = int(pieces.max())
     if max_pieces > capacity:
@@ -282,9 +417,13 @@ def price_grid_rz(grid: ScenarioGrid, *, capacity: int = 48,
     row_pieces = pieces[:n].reshape(grid.shape).astype(int)
     return GridResult(grid=grid, ask=a, bid=b, max_pieces=max_pieces,
                       delta_ask=da, delta_bid=db, vega_ask=va, vega_bid=vb,
-                      row_pieces=row_pieces, engine="rz")
+                      shard_info=shard_info, row_pieces=row_pieces,
+                      engine="rz")
 
 
+# --------------------------------------------------------------------- #
+# friction-free grid engine
+# --------------------------------------------------------------------- #
 def _notc_rows_kernel(s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2,
                       *, n_steps: int, levels: int, block: int):
     """Host round loop around ``lattice_round_param`` over all rows."""
@@ -310,35 +449,110 @@ def _notc_rows_kernel(s0, sigma, rate, maturity, alpha, zeta, w1, w2, k1, k2,
     return v[:, 0]
 
 
+def _notc_rows_torch(*cols, n_steps: int):
+    """Flat-batch friction-free rows as a 1-tuple: the plain level walk."""
+    return (notc_rows(*cols, n_steps=n_steps),)
+
+
+def _notc_rows_round(*cols, n_steps: int, levels: int, block: int):
+    """Flat-batch friction-free rows as a 1-tuple: through
+    ``lattice_round_param``."""
+    return (_notc_rows_kernel(*cols, n_steps=n_steps, levels=levels,
+                              block=block),)
+
+
 def price_grid_notc(grid: ScenarioGrid, *, backend: str = "kernel",
                     greeks: bool = False, levels: int = 64, block: int = 256,
                     device="cuda", mesh=None, devices: Optional[int] = None,
-                    shard_plan=None) -> GridResult:
+                    shard_plan: Optional[ShardPlan] = None) -> GridResult:
     """Friction-free binomial prices for every scenario of ``grid``.
 
     ``backend="kernel"`` runs the host round loop around
     ``kernels/binomial_step.py::lattice_round_param``; ``backend="torch"``
     the fixed-buffer level walk.  ``grid.cost_rate`` is ignored.
+    ``mesh``/``devices``/``shard_plan`` shard the batch as in
+    :func:`price_grid_rz` (friction-free rows all cost the same, so the
+    default plan is the even split).
     """
     _require_lattice(grid, "notc")
-    _require_single_device(mesh, devices, shard_plan)
     dev = resolve_device(device)
     inputs, copies = _with_bumps(_grid_inputs(grid, dev), greeks)
+    # drop the cost-rate column (index 4): this engine is friction-free
     args = inputs[:4] + inputs[5:]
     if backend == "kernel":
-        vals = _notc_rows_kernel(*args, n_steps=grid.n_steps, levels=levels,
-                                 block=block)
+        if levels is None or block is None:
+            raise ValueError("backend='kernel' needs levels and block; got "
+                             f"levels={levels!r}, block={block!r}")
+        rows_fn = _notc_rows_round
+        static = dict(n_steps=grid.n_steps, levels=levels, block=block)
     elif backend == "torch":
-        vals = notc_rows(*args, n_steps=grid.n_steps)
+        rows_fn = _notc_rows_torch
+        static = dict(n_steps=grid.n_steps)
     else:
         raise ValueError(f"unknown backend {backend!r}; use 'kernel' or "
                          "'torch'")
+    mesh, plan = _resolve_shard(grid, args[0].shape[0], copies, capacity=1,
+                                mesh=mesh, devices=devices, kind=dev.type,
+                                shard_plan=shard_plan)
+    (vals,), _ = _run_rows(rows_fn, static, args, mesh, plan)
+    shard_info = (None if plan is None else
+                  _shard_exec_info(plan, mesh, grid, copies, None))
     n = grid.n_scenarios
-    p, dp, vp = _split_bumps(vals.cpu().numpy(), n, copies, grid.s0,
-                             grid.shape)
+    p, dp, vp = _split_bumps(vals, n, copies, grid.s0, grid.shape)
     cp = lambda a: None if a is None else a.copy()
     return GridResult(grid=grid, ask=p, bid=p.copy(), max_pieces=0,
                       delta_ask=dp, delta_bid=cp(dp), vega_ask=vp,
-                      vega_bid=cp(vp),
+                      vega_bid=cp(vp), shard_info=shard_info,
                       row_pieces=np.zeros(grid.shape, dtype=int),
                       engine="notc")
+
+
+# --------------------------------------------------------------------- #
+# least-squares Monte Carlo grid engine (baskets, Bermudan schedules)
+# --------------------------------------------------------------------- #
+def price_grid_lsmc(grid: ScenarioGrid, *, n_paths: int = 4096,
+                    seed: int = 0, basis: str = "poly", degree: int = 3,
+                    antithetic: bool = True, greeks: bool = False,
+                    device="cuda", mesh=None, devices: Optional[int] = None,
+                    shard_plan: Optional[ShardPlan] = None) -> GridResult:
+    """Longstaff–Schwartz Monte Carlo prices for every scenario of ``grid``.
+
+    The engine for ``grid.n_assets > 1`` (an arithmetic basket a row) and
+    Bermudan ``grid.exercise_steps``; it also prices the plain 1-D
+    American grid, which is how the tests hold it to the lattice.
+
+    Deterministic for a given ``seed``: row ``i`` draws from a generator
+    seeded by ``path_seeds(seed, n)[i]`` (``core/lsmc.py``), so results
+    are bitwise reproducible on one device type and independent of
+    padding and of the ``mesh``/``devices``/``shard_plan`` layout.
+    ``GridResult.stderr`` carries each scenario's standard error.
+    ``greeks`` uses the fused central-difference bumps with **common
+    random numbers**: bumped copies of a row share that row's seed.
+    """
+    if basis not in LSMC_BASES:
+        raise ValueError(f"unknown basis {basis!r}; use one of {LSMC_BASES}")
+    steps = exercise_schedule(grid.n_steps, grid.exercise_steps)
+    dev = resolve_device(device)
+    inputs, copies = _with_bumps(_grid_inputs(grid, dev), greeks)
+    n = grid.n_scenarios
+    inputs = inputs + (path_seeds(seed, n).repeat(copies),)
+    static = dict(n_steps=grid.n_steps, steps=steps, n_paths=int(n_paths),
+                  n_assets=grid.n_assets, degree=int(degree), basis=basis,
+                  antithetic=bool(antithetic))
+    costs = np.tile(scenario_costs(grid.n_steps, grid.cost_rate,
+                                   engine="lsmc", n_paths=n_paths,
+                                   n_exercise=len(steps),
+                                   n_assets=grid.n_assets), copies)
+    mesh, plan = _resolve_shard(grid, inputs[0].shape[0], copies, capacity=1,
+                                mesh=mesh, devices=devices, kind=dev.type,
+                                shard_plan=shard_plan, costs=costs)
+    (ask, bid, se), _ = _run_rows(lsmc_rows, static, inputs, mesh, plan)
+    shard_info = (None if plan is None else
+                  _shard_exec_info(plan, mesh, grid, copies, None))
+    a, da, va = _split_bumps(ask, n, copies, grid.s0, grid.shape)
+    b, db, vb = _split_bumps(bid, n, copies, grid.s0, grid.shape)
+    return GridResult(grid=grid, ask=a, bid=b, max_pieces=0,
+                      delta_ask=da, delta_bid=db, vega_ask=va, vega_bid=vb,
+                      shard_info=shard_info,
+                      row_pieces=np.zeros(grid.shape, dtype=int),
+                      stderr=se[:n].reshape(grid.shape), engine="lsmc")

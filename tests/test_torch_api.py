@@ -5,7 +5,9 @@ the JAX package's ``jnp`` and ``pallas`` backends), the fused FD Greeks,
 ``OverflowError`` parity, the halo round plan, the single-contract entry
 points, the JAX package's individual execution kwargs, closure-only
 payoffs, the grid layout and routing, the paths not yet ported, the
-device contract and the import boundary.  The transaction-cost grid
+device contract and the import boundary.  LSMC, sharding and the
+launcher are in ``tests/test_torch_lsmc.py``, ``test_torch_shard.py``
+and ``test_torch_launch.py``.  The transaction-cost grid
 against JAX is in ``tests/test_torch_grid.py``.
 """
 import ast
@@ -251,9 +253,12 @@ def test_legacy_kwargs_beside_execution_are_a_type_error(fresh_legacy_warning):
 
 
 @pytest.mark.parametrize("legacy,err,match", [
-    (dict(devices=2, platform="cpu"), NotImplementedError, "Queue A #7"),
-    (dict(n_paths=256, platform="cpu"), NotImplementedError, "Queue A #6"),
-    (dict(seed=3, basis="poly"), NotImplementedError, "Queue A #6"),
+    (dict(devices=3, platform="cpu", mesh=("cpu", "cpu")), ValueError,
+     "conflicts"),
+    (dict(n_paths=255, engine="lsmc", platform="cpu"), ValueError,
+     "even n_paths"),
+    (dict(seed=3, basis="hermite", engine="lsmc", platform="cpu"),
+     ValueError, "unknown basis"),
     (dict(platform="tpu"), ValueError, "platform"),
     (dict(interpret=True, platform="gpu"), ValueError, "interpret"),
     (dict(interpret=False, platform="cpu"), ValueError, "interpret"),
@@ -354,16 +359,27 @@ def test_scenario_grid_matches_jax_layout():
 
 
 def test_unported_paths_raise_naming_the_roadmap():
+    """LSMC (Queue A #6) and scenario sharding (#7) price now; what is
+    left unported raises naming its ROADMAP item: the launcher's node
+    axis (#7) and the language models not ported yet (#11)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import price as launch
     g = ScenarioGrid.cartesian(s0=100.0, n_steps=4)
-    with pytest.raises(NotImplementedError, match="Queue A #6"):
-        api.price_grid(g, execution=_cfg("kernel", "lsmc"))
-    with pytest.raises(NotImplementedError, match="Queue A #7"):
-        api.price_grid(g, execution=api.ExecutionConfig(device="cpu",
-                                                        devices=2))
-    with pytest.raises(NotImplementedError, match="Queue A #7"):
+    mc = api.price_grid(g, execution=api.ExecutionConfig(
+        engine="lsmc", device="cpu", n_paths=256))
+    assert mc.engine == "lsmc" and (mc.stderr > 0).all()
+    two = api.price_grid(g, execution=api.ExecutionConfig(device="cpu",
+                                                          devices=2))
+    assert two.shard_info.plan.n_shards == 2 and two.shard_info.simulated
+    with pytest.raises(TypeError, match="sequence of torch.device"):
         api.price_grid(g, mesh=object(), execution=_cfg("torch"))
     with pytest.raises(ValueError, match="backend"):
         api.price_grid(g, execution=_cfg("jnp"))
+    with pytest.raises(NotImplementedError,
+                       match=r"Queue A #7 \(node axis\)"):
+        launch.main(["--model", "2", "--device", "cpu", "--n-steps", "4"])
+    with pytest.raises(KeyError, match="Queue A #11"):
+        get_config("qwen3-0.6b")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
@@ -396,7 +412,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"kernels/flash_attention.py", "kernels/lru_scan.py",
             "models/layers.py", "models/transformer.py", "serve/engine.py",
             "launch/serve.py", "configs/base.py",
-            "configs/recurrentgemma_2b.py"} <= names
+            "configs/recurrentgemma_2b.py", "core/lsmc.py",
+            "core/distributed.py", "core/partition.py",
+            "launch/price.py"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path

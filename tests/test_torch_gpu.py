@@ -200,6 +200,36 @@ def test_grids_on_card_match_the_plain_walks(cuda):
     np.testing.assert_allclose(nt.ask, nt_ref.ask, rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("engine", ["rz", "notc", "lsmc"])
+def test_layouts_bit_equal_on_card(cuda, engine):
+    """Rows are independent on the card too: ``devices=4`` (simulated on
+    fewer cards) and ``mesh=(cuda:0,) * 4`` (the real per-shard dispatch)
+    give the single-device call's bits, the padded grid's first rows
+    included; the LSMC standard errors are finite and positive."""
+    kw = dict(s0=(90.0, 97.0, 103.0, 110.0), sigma=(0.2, 0.3),
+              payoff=("put", "call"), strike=100.0, n_steps=12)
+    if engine == "rz":
+        kw["cost_rate"] = (0.005, 0.01)
+    if engine == "lsmc":
+        kw.update(n_assets=2, exercise_steps=(0, 4, 8, 12))
+    grid = api.ScenarioGrid.cartesian(**kw)
+    run = lambda g, **k: api.price_grid(
+        g, capacity=16, levels=4 if engine == "notc" else None,
+        block=16 if engine == "notc" else None, mesh=k.pop("mesh", None),
+        execution=api.ExecutionConfig(engine=engine, n_paths=2048, **k))
+    one = run(grid)
+    fields = ("ask", "bid", "row_pieces") + (
+        ("stderr",) if engine == "lsmc" else ())
+    for label, got in (("devices=4", run(grid, devices=4)),
+                       ("mesh", run(grid, mesh=(cuda,) * 4)),
+                       ("pad_to", run(grid.pad_to(grid.n_scenarios + 5)))):
+        for f in fields:
+            a, b = getattr(one, f).ravel(), getattr(got, f).ravel()
+            assert np.array_equal(a, b[:a.size]), (label, f)
+    if engine == "lsmc":
+        assert np.isfinite(one.stderr).all() and (one.stderr > 0).all()
+
+
 @pytest.mark.parametrize("B,T,W", [(2, 77, 2560), (3, 256, 100),
                                    (1, 300, 2560), (2, 20, 77),
                                    (1, 1, 33)])

@@ -42,6 +42,24 @@ under ``devices=1``, ``devices=4`` (simulated on one card) and
 and ``python -m repro_torch.launch.price --grid --engine lsmc --devices
 4`` as a subprocess (``[main] launcher``).
 
+Then the pricing service on the card (``repro_torch.serve``): a
+2048-request trace shuffled from a seed (1536 friction-free
+put/call/bull-spread requests at N=1500, 256 friction-free puts at
+N=40000, 256 transaction-cost puts at N=1500, K=48) through
+``PricingService(max_batch=256, deadline_ms=5, capacity=48)`` driven by
+``launch/serve_pricing.py::drive`` as fast as it goes, counting the
+kernels' launches of that run, then at half the measured rate (``[main]
+pricing service``); every quote against its bucket priced in one
+``price_flat`` call (``[check] service vs price_flat``, 1e-9 and equal
+``row_pieces``); the same trace through ``PricingGateway`` with two
+thread replicas on cuda:0, then two spawned worker processes with a
+real SIGKILL of replica 0 at its first chunk (``[main] pricing
+gateway``: every quote delivered and equal to the service's); a
+192-row ``StreamingBook`` through ``run_stream`` on 64 synthetic ticks,
+held to a full reprice (``[main] streaming book``); and ``python -m
+repro_torch.launch.serve_pricing`` as a subprocess, the service and then
+the process-pool gateway with a crash (``[main] serve launcher``).
+
 Then it serves recurrentgemma-2b at its published width (26 layers,
 d_model 2560, random weights from a seeded generator on the card,
 float32) through ``repro_torch.serve.engine.LMEngine``: batch 4, a
@@ -67,16 +85,24 @@ time by kernel and the device's idle share within the profiled window.
 TF32 is switched off for matrix products and cuDNN before the LM runs,
 so every product compared is full float32.
 
+Each launcher runs in a session of its own and fails the script if any
+process of that session outlives it; at the end the script stops the
+resource tracker that spawning the workers started and fails if a
+child process is left (``[procs]``).  Whatever a failed phase left is
+killed and reaped before the script exits.
+
 The line before the last is a JSON object with each kernel's times and
 bound; the last line is ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
+import contextlib
 import dataclasses
 import importlib
 import json
 import re
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -148,6 +174,62 @@ class SmokeError(RuntimeError):
 def check(cond, what):
     if not cond:
         raise SmokeError(what)
+
+
+def processes(parent=None, session=None):
+    """(pid, state, command) of every process whose parent is ``parent``
+    or whose session is ``session``, as /proc lists them (zombies too)."""
+    found = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue                     # ended while we looked
+        state, ppid, sid = fields[0], int(fields[1]), int(fields[3])
+        if ppid == parent or sid == session:
+            found.append((int(d), state, cmd.strip()[:120]))
+    return found
+
+
+def run_alone(cmd, timeout=600):
+    """Run ``cmd`` from the checkout in a session of its own, as a user
+    would; once it ends, fail if any process of its session is left
+    (after killing them), as at ``timeout``."""
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=dict(os.environ, PYTHONPATH=SRC),
+                         cwd=ROOT, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise SmokeError(f"{' '.join(cmd[1:3])} ran past {timeout} s")
+    deadline = time.monotonic() + 1.0    # room for init to reap an orphan
+    while (left := processes(session=p.pid)) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if left:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(p.pid, signal.SIGKILL)
+    check(not left, f"{' '.join(cmd[1:3])} left processes behind: {left}")
+    return subprocess.CompletedProcess(cmd, p.returncode, out, err)
+
+
+def stop_children():
+    """Kill and reap the worker processes a failed phase left, then the
+    helper process that spawning them started."""
+    import multiprocessing
+    for p in multiprocessing.active_children():
+        p.kill()
+        p.join(10.0)
+    pp = sys.modules.get("repro_torch.serve.procpool")
+    if pp is not None:
+        pp.stop_spawn_helper()
 
 
 def cuda_ms(torch, fn, reps):
@@ -1081,10 +1163,8 @@ def launcher_phase():
            "--engine", "lsmc", "--devices", "4", "--n-steps", "50",
            "--paths", "16384", "--exercise-dates", "10,20,30,40,50",
            "--n-assets", "3", "--s0", "90,100,110", "--lambdas", "0,0.01"]
-    env = dict(os.environ, PYTHONPATH=SRC)
     t = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                       env=env, cwd=ROOT)
+    r = run_alone(cmd)
     s = time.perf_counter() - t
     lines = r.stdout.strip().splitlines()
     mesh = [ln for ln in lines if ln.startswith("[simulated mesh")
@@ -1098,6 +1178,364 @@ def launcher_phase():
     check(len(mesh) == 1 and sum("se=" in ln for ln in lines) == 6,
           "launcher output: one mesh line and 6 rows with se=")
     return dict(returncode=r.returncode, wall_s=s, mesh_line=mesh[0])
+
+
+# the pricing service: PricingService(max_batch=256, deadline_ms=5,
+# capacity=48) and the gateway on a 2048-request trace of the shape of
+# launch/serve_pricing.py::synth_trace at the paper's depths
+SERVE_MAX_BATCH, SERVE_DEADLINE_MS, SERVE_SEED = 256, 5.0, 0
+SERVE_MIX = (("notc", 1536), ("notc_deep", 256), ("tc_put", 256))
+# the streaming book: 8 underlyings x 24 rows at PAPER_PUT's N=1500 and
+# K=48; the cost rates cycle with the payoff families, so the cost rows
+# are the puts (cost calls and bull spreads outgrow any capacity with N:
+# a N=120 cost call needed 142 knots after a tick) and the calls and
+# bull spreads are friction-free
+BOOK_UNDERLYINGS, BOOK_ROWS, BOOK_COSTS, BOOK_TICKS = 8, 24, (0.01, 0.0,
+                                                              0.0), 64
+
+
+def service_trace(np, PriceRequest, cfgs):
+    """2048 single-contract requests, shuffled from a seed: spots 90-110
+    in 9 steps, sigma {0.15, 0.2, 0.3}, rate 0.1, maturity {0.25, 0.5},
+    strikes {95, 100, 105}; 1536 friction-free put/call/bull-spread
+    requests at PAPER_PUT's N=1500, 256 friction-free puts at
+    PAPER_NOTC's N=40000 and 256 transaction-cost puts at PAPER_PUT
+    (N=1500, cost {0.005, 0.01}).  Cost calls and bull spreads overflow
+    K=48 at N=1500 (ROADMAP Queue C), so the cost requests are puts."""
+    rng = np.random.default_rng(SERVE_SEED)
+    n_put, n_notc = cfgs.PAPER_PUT.n_steps, cfgs.PAPER_NOTC.n_steps
+    reqs = []
+    for kind, count in SERVE_MIX:
+        for _ in range(count):
+            reqs.append(PriceRequest(
+                s0=float(rng.choice(np.linspace(90.0, 110.0, 9))),
+                sigma=float(rng.choice((0.15, 0.2, 0.3))), rate=0.1,
+                maturity=float(rng.choice((0.25, 0.5))),
+                cost_rate=(float(rng.choice((0.005, 0.01)))
+                           if kind == "tc_put" else 0.0),
+                payoff=(str(rng.choice(("put", "call", "bull_spread")))
+                        if kind == "notc" else "put"),
+                strike=float(rng.choice((95.0, 100.0, 105.0))),
+                n_steps=n_notc if kind == "notc_deep" else n_put))
+    return [reqs[i] for i in rng.permutation(len(reqs))]
+
+
+def quotes_in_order(quotes):
+    """{rid: quote} as a list in submission order (rids count up)."""
+    return [quotes[rid] for rid in sorted(quotes)]
+
+
+def same_quotes(a, b):
+    return all(x.ask == y.ask and x.bid == y.bid
+               and x.max_pieces == y.max_pieces for x, y in zip(a, b)) \
+        and len(a) == len(b)
+
+
+def card_memory_by_pid(pids):
+    """MiB each process holds on the card, CUDA context included, as
+    nvidia-smi lists compute processes (None where it does not)."""
+    try:
+        r = subprocess.run(["nvidia-smi",
+                            "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return {pid: None for pid in pids}
+    used = {}
+    for line in r.stdout.strip().splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            used[int(parts[0])] = parts[1]
+    return {pid: used.get(pid) for pid in pids}
+
+
+def serving_phase(torch, np, mod, cfgs, all_launches):
+    """The pricing service, the gateway (thread and process replicas) and
+    the streaming book on the card, each held to the service's quotes or
+    to price_flat; returns the summary."""
+    api = mod("api")
+    PriceRequest = mod("serve.engine").PriceRequest
+    PricingService = mod("serve.scheduler").PricingService
+    sp = mod("launch.serve_pricing")
+    capacity = cfgs.PAPER_PUT.capacity
+    trace = service_trace(np, PriceRequest, cfgs)
+    check(len(trace) == 2048, "service trace size")
+    out = {}
+
+    def service():
+        return PricingService(max_batch=SERVE_MAX_BATCH,
+                              deadline_ms=SERVE_DEADLINE_MS,
+                              capacity=capacity)
+
+    # 1. as fast as it goes, counting the launches of this run only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(all_launches)
+    svc = service()
+    t = time.perf_counter()
+    quotes = quotes_in_order(sp.drive(svc, trace, qps=0))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    launches = launch_counts(all_launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = svc.metrics()
+    rate = len(trace) / s
+    out["service"] = dict(
+        requests=len(trace), wall_s=s, requests_per_s=rate,
+        batches=m["batches"], engine_batches=m["engine_batches"],
+        pad_waste=m["pad_waste"], cache_hits=m["cache_hits"],
+        compile_misses=m["compile_misses"], engine_s=m["engine_seconds"],
+        p50_ms=m["p50_latency_ms"], p99_ms=m["p99_latency_ms"],
+        launches=launches, peak_device_gb=peak)
+    print(f"[main] pricing service: {len(trace)} requests (1536 no-TC "
+          f"N={cfgs.PAPER_PUT.n_steps}, 256 no-TC N={cfgs.PAPER_NOTC.n_steps}"
+          f", 256 TC puts N={cfgs.PAPER_PUT.n_steps} K={capacity}), max "
+          f"batch {SERVE_MAX_BATCH}, deadline {SERVE_DEADLINE_MS:g} ms, qps "
+          f"0: {s:.3f} s, {rate:.1f} requests/s, {m['batches']} batches "
+          f"{json.dumps(m['engine_batches'])}, pad waste "
+          f"{m['pad_waste']:.4f}, result-cache hits {m['cache_hits']}, "
+          f"launch shapes {m['compile_misses']}, engine "
+          f"{m['engine_seconds']:.3f} s, p50/p99 {m['p50_latency_ms']:.2f} / "
+          f"{m['p99_latency_ms']:.2f} ms, kernel launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}, peak "
+          f"device memory {peak:.3f} GB", flush=True)
+    check(m["completed"] == len(trace) and all(q is not None for q in quotes),
+          "service delivered every quote")
+    for name in ("lattice_round_param", "rz_round"):
+        check(launches[name] > 0, f"{name} was not launched by the service")
+    # 2. the same trace at half the measured rate
+    svc2 = service()
+    half = rate / 2.0
+    t = time.perf_counter()
+    quotes2 = quotes_in_order(sp.drive(svc2, trace, qps=half))
+    s2 = time.perf_counter() - t
+    m2 = svc2.metrics()
+    out["service_half_rate"] = dict(
+        qps=half, wall_s=s2, batches=m2["batches"],
+        p50_ms=m2["p50_latency_ms"], p99_ms=m2["p99_latency_ms"])
+    print(f"[main] pricing service at half that rate ({half:.1f} qps): "
+          f"{s2:.3f} s, {m2['batches']} batches, p50/p99 "
+          f"{m2['p50_latency_ms']:.2f} / {m2['p99_latency_ms']:.2f} ms",
+          flush=True)
+    check(same_quotes(quotes, quotes2), "service quotes at half rate")
+    # the trace repeats contracts, so the LRU answers about half of it;
+    # the same qps-0 run with the LRU off sends every request to an engine
+    svc3 = PricingService(max_batch=SERVE_MAX_BATCH,
+                          deadline_ms=SERVE_DEADLINE_MS, capacity=capacity,
+                          result_cache_size=0)
+    t = time.perf_counter()
+    quotes3 = quotes_in_order(sp.drive(svc3, trace, qps=0))
+    torch.cuda.synchronize()
+    s3 = time.perf_counter() - t
+    m3 = svc3.metrics()
+    out["service_no_cache"] = dict(
+        wall_s=s3, requests_per_s=len(trace) / s3, batches=m3["batches"],
+        engine_batches=m3["engine_batches"], pad_waste=m3["pad_waste"],
+        cache_hits=m3["cache_hits"], engine_s=m3["engine_seconds"],
+        p50_ms=m3["p50_latency_ms"], p99_ms=m3["p99_latency_ms"])
+    print(f"[main] pricing service, result cache off, qps 0: {s3:.3f} s, "
+          f"{len(trace) / s3:.1f} requests/s, {m3['batches']} batches "
+          f"{json.dumps(m3['engine_batches'])}, pad waste "
+          f"{m3['pad_waste']:.4f}, result-cache hits {m3['cache_hits']}, "
+          f"engine {m3['engine_seconds']:.3f} s, p50/p99 "
+          f"{m3['p50_latency_ms']:.2f} / {m3['p99_latency_ms']:.2f} ms",
+          flush=True)
+    check(m3["cache_hits"] == 0 and same_quotes(quotes, quotes3),
+          "service quotes with the result cache off")
+    # where the time goes: the qps-0 run again under the profiler
+    wall_p, n_k, kernels = profile_window(
+        torch, lambda: sp.drive(service(), trace, qps=0))
+    busy = sum(t for _, t in kernels)
+    out["service_profile"] = dict(
+        wall_s=wall_p, device_busy_s=busy, idle_share=1.0 - busy / wall_p,
+        kernels=n_k, top_kernels_s=[(k[:60], t) for k, t in kernels[:4]])
+    print(f"[profile] pricing service qps 0: {n_k} kernels, device busy "
+          f"{busy * 1e3:.3f} ms of {wall_p * 1e3:.3f} ms under the profiler "
+          f"(idle share {1.0 - busy / wall_p:.3f}); top kernels: "
+          + ", ".join(f"{k[:60]} {t * 1e3:.3f} ms" for k, t in kernels[:4]),
+          flush=True)
+
+    # every quote against its bucket priced in one price_flat call
+    buckets = {}
+    for i, r in enumerate(trace):
+        buckets.setdefault((r.n_steps, r.cost_rate > 0), []).append(i)
+    d, pieces_equal = 0.0, True
+    for (n_steps, _), idx in sorted(buckets.items()):
+        col = lambda f: np.array([getattr(trace[i], f) for i in idx])
+        want = api.price_flat(
+            s0=col("s0"), sigma=col("sigma"), rate=col("rate"),
+            maturity=col("maturity"), cost_rate=col("cost_rate"),
+            payoff=tuple(col("payoff")), strike=col("strike"),
+            n_steps=n_steps, capacity=capacity)
+        got = [quotes[i] for i in idx]
+        d = max(d, float(np.abs(np.array([q.ask for q in got])
+                                - want.ask).max()),
+                float(np.abs(np.array([q.bid for q in got])
+                             - want.bid).max()))
+        pieces_equal &= [q.max_pieces for q in got] == \
+            want.row_pieces.astype(int).tolist()
+    out["vs_price_flat"] = dict(max_abs=d, row_pieces_equal=pieces_equal)
+    print(f"[check] service vs price_flat: {len(trace)} quotes against "
+          f"{len(buckets)} buckets each priced in one price_flat call: max "
+          f"|d| ask/bid {d:.3e} (limit {TOL:g}), equal row_pieces "
+          f"{pieces_equal}", flush=True)
+    check(d <= TOL and pieces_equal, "service vs price_flat")
+
+    # the gateway: two thread replicas on cuda:0 through the launcher's
+    # drive_gateway, then two processes with a real SIGKILL of replica 0
+    # at its first chunk, built here so the workers' memory is read
+    # before the gateway closes them
+    import asyncio
+    gw_mod, rep_mod = mod("serve.gateway"), mod("serve.replica")
+    pp = mod("serve.procpool")
+
+    def process_gateway():
+        wu = pp.warmup_chunk(n_steps=cfgs.PAPER_PUT.n_steps,
+                             backend="kernel", capacity=capacity)
+        rp = pp.ReplicaPool("process", device="cuda", warmup=wu)
+        workers = [pp.ProcessReplica("replica-0", device="cuda", warmup=wu,
+                                     faults={0: "sigkill"}), rp.factory(1)]
+
+        def respawn(i):
+            workers.append(rp.factory(i))
+            return workers[-1]
+
+        async def run():
+            async with gw_mod.PricingGateway(
+                    replicas=list(workers), max_batch=SERVE_MAX_BATCH,
+                    deadline_ms=SERVE_DEADLINE_MS, capacity=capacity,
+                    default_n_steps=cfgs.PAPER_PUT.n_steps, restart_s=1.0,
+                    replica_factory=respawn) as gw:
+                rids = [await gw.submit(r) for r in trace]
+                got = {rid: await gw.result(rid) for rid in rids}
+                mem = {w.name: dict(w.memory(), warmup_s=w.warmup_seconds)
+                       for w in workers if w.alive}
+                return got, gw.metrics(), mem
+
+        got, gm, mem = asyncio.run(run())
+        used = card_memory_by_pid([v["pid"] for v in mem.values()])
+        for v in mem.values():
+            v["nvidia_smi_mib"] = used[v["pid"]]
+        return got, gm, mem
+
+    for kind in ("thread", "process"):
+        t = time.perf_counter()
+        if kind == "thread":
+            got, gm = sp.drive_gateway(
+                trace, replicas=2, crash_at=None, max_batch=SERVE_MAX_BATCH,
+                deadline_ms=SERVE_DEADLINE_MS, capacity=capacity,
+                backend="kernel", n_steps=cfgs.PAPER_PUT.n_steps,
+                pool_kind="thread", device="cuda")
+            mem = None
+        else:
+            got, gm, mem = process_gateway()
+        s = time.perf_counter() - t
+        got = quotes_in_order(got)
+        equal = same_quotes(got, quotes)
+        out[f"gateway_{kind}"] = dict(
+            wall_s=s, requests_per_s=len(trace) / s,
+            p50_ms=gm["p50_latency_ms"], p99_ms=gm["p99_latency_ms"],
+            batches=gm["batches"], healthy=gm["healthy_replicas"],
+            crashes=gm["replica_crashes"], requeues=gm["requeues"],
+            restarts=gm["replica_restarts"], completed=gm["completed"],
+            failed=gm["failed"], equal_to_service=equal, worker_memory=mem)
+        line = (f"[main] pricing gateway, 2 {kind} replicas on cuda:0: "
+                f"{len(trace)} requests in {s:.3f} s (process start and "
+                f"warm-up included), {len(trace) / s:.1f} requests/s, "
+                f"{gm['batches']} batches, p50/p99 {gm['p50_latency_ms']:.2f}"
+                f" / {gm['p99_latency_ms']:.2f} ms, healthy replicas "
+                f"{gm['healthy_replicas']}, crashes={gm['replica_crashes']} "
+                f"requeues={gm['requeues']} restarts="
+                f"{gm['replica_restarts']}, delivered {gm['completed']}/"
+                f"{len(trace)}, equal to the service's quotes {equal}")
+        if mem is not None:
+            line += ("; workers (warm-up s in the worker; device memory "
+                     "peak allocated / reserved MB; nvidia-smi MiB with the "
+                     "CUDA context): " + ", ".join(
+                         f"{k} pid {v['pid']}: {v['warmup_s']:.2f} s, "
+                         f"{v['peak_allocated'] / 1e6:.1f} / "
+                         f"{v['reserved'] / 1e6:.1f} MB, "
+                         f"{v['nvidia_smi_mib'] or 'not listed'}"
+                         for k, v in mem.items()))
+        print(line, flush=True)
+        check(gm["completed"] == len(trace) and gm["failed"] == 0 and equal,
+              f"gateway ({kind}) delivered every quote, equal")
+        if kind == "process":
+            check(gm["replica_crashes"] == 1 and gm["requeues"] >= 1,
+                  "gateway process pool recovered one SIGKILL")
+
+    # the streaming book through the gateway's run_stream
+    st = mod("serve.streaming")
+    book = st.StreamingBook.mixed(
+        n_underlyings=BOOK_UNDERLYINGS, per_underlying=BOOK_ROWS,
+        n_steps=(cfgs.PAPER_PUT.n_steps,), cost_rates=BOOK_COSTS,
+        capacity=capacity)
+    check(set(book.payoff[book.cost_rate > 0]) == {"put"},
+          "the book's cost rows are puts")
+    book.full_reprice()
+    ticks = st.synth_ticks(BOOK_TICKS, n_underlyings=BOOK_UNDERLYINGS,
+                           seed=SERVE_SEED)
+
+    async def stream():
+        async with gw_mod.PricingGateway(
+                replicas=[rep_mod.LocalReplica(f"r{i}", device="cuda:0")
+                          for i in range(2)],
+                max_batch=SERVE_MAX_BATCH, deadline_ms=SERVE_DEADLINE_MS,
+                capacity=capacity) as gw:
+            return await gw.run_stream(book, ticks)
+
+    t = time.perf_counter()
+    summary = asyncio.run(stream())
+    s = time.perf_counter() - t
+    ref = book.copy()
+    ref.full_reprice()
+    d = max(float(np.abs(book.ask - ref.ask).max()),
+            float(np.abs(book.bid - ref.bid).max()))
+    same = bool(np.array_equal(book.row_pieces, ref.row_pieces))
+    out["streaming"] = dict(rows=book.n_rows, wall_s=s,
+                            ticks_per_s=summary["ticks"] / s,
+                            vs_full_reprice_max_abs=d,
+                            row_pieces_equal=same, **summary)
+    print(f"[main] streaming book: {book.n_rows} rows ({BOOK_UNDERLYINGS} "
+          f"underlyings; cost puts, friction-free calls and bull spreads; "
+          f"N={cfgs.PAPER_PUT.n_steps}, K={capacity}), {summary['ticks']}"
+          f" ticks in {s:.3f} s, {summary['ticks'] / s:.2f} ticks/s, "
+          f"{summary['rows_requoted']} rows requoted, staleness p50/p99 "
+          f"{summary['staleness_p50_ms']:.2f} / "
+          f"{summary['staleness_p99_ms']:.2f} ms; incremental vs full "
+          f"reprice max |d| {d:.3e}, equal row_pieces {same}", flush=True)
+    check(d <= TOL and same and book.max_pieces <= capacity,
+          "streaming book vs full reprice")
+    return out
+
+
+def serve_launcher_phase():
+    """``python -m repro_torch.launch.serve_pricing`` as a user runs it:
+    the service at N=1500, then the gateway with two process replicas
+    and a real SIGKILL of replica 0 at its first chunk."""
+    base = [sys.executable, "-m", "repro_torch.launch.serve_pricing",
+            "--n-steps", "1500", "--max-batch", "256", "--qps", "0"]
+    out = []
+    for extra in (["--requests", "1024"],
+                  ["--gateway", "--pool", "process", "--replicas", "2",
+                   "--crash-at", "0", "--requests", "256"]):
+        cmd = base + extra
+        t = time.perf_counter()
+        r = run_alone(cmd)
+        s = time.perf_counter() - t
+        lines = r.stdout.strip().splitlines()
+        keep = [ln.strip() for ln in lines
+                if "requests/s" in ln or "failover" in ln]
+        print(f"[main] serve launcher: {' '.join(cmd[1:])}: exit "
+              f"{r.returncode} in {s:.1f} s; " + "; ".join(keep), flush=True)
+        check(r.returncode == 0, f"serve launcher exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        if "--crash-at" in extra:
+            check(any("crashes=1" in ln for ln in lines),
+                  "serve launcher: one crash recovered")
+        out.append(dict(cmd=cmd[1:], returncode=r.returncode, wall_s=s,
+                        lines=keep))
+    return out
 
 
 def main() -> int:
@@ -1254,6 +1692,8 @@ def main() -> int:
     layout = layout_phase(torch, np, api, tc_grid, notc_grid, notc_cfg,
                           capacity, pricing_launches)
     launcher = launcher_phase()
+    serving = serving_phase(torch, np, mod, cfgs, pricing_launches)
+    serve_launcher = serve_launcher_phase()
 
     # 4. the language model's serve path at full width
     FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
@@ -1309,7 +1749,14 @@ def main() -> int:
                    rz_edges={k: v for k, v in rz.items()
                              if k.startswith("edge")},
                    rz_capacity=rz["capacity"], lsmc=lsmc, layout=layout,
-                   launcher=launcher, lm=lm, lm_kernels=lm_kern)
+                   launcher=launcher, serving=serving,
+                   serve_launcher=serve_launcher, lm=lm, lm_kernels=lm_kern)
+    # 5. no process the script started outlives it: the gateways closed
+    # their workers; the helper process spawning them started goes too
+    mod("serve.procpool").stop_spawn_helper()
+    left = processes(parent=os.getpid())
+    print(f"[procs] child processes left: {left or 'none'}", flush=True)
+    check(not left, f"child processes left: {left}")
     print("[summary] " + json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1321,7 +1768,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        rc = main()
     except SmokeError as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
-        sys.exit(1)
+        rc = 1
+    finally:
+        stop_children()
+    sys.exit(rc)

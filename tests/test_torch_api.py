@@ -359,9 +359,10 @@ def test_scenario_grid_matches_jax_layout():
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """LSMC (Queue A #6) and scenario sharding (#7) price now; what is
-    left unported raises naming its ROADMAP item: the launcher's node
-    axis (#7) and the language models not ported yet (#11)."""
+    """LSMC (Queue A #6), scenario sharding (#7) and the pricing
+    service (#8) run now; what is left unported raises naming its
+    ROADMAP item: the launcher's node axis (#7) and the language models
+    not ported yet (#11)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import price as launch
     g = ScenarioGrid.cartesian(s0=100.0, n_steps=4)

@@ -302,3 +302,94 @@ def test_reduced_lm_on_card_matches_cpu(no_tf32):
     assert TF.LAUNCHES["flash_attention"] == n_fa + 2
     assert TL.LAUNCHES["lru_scan"] == n_ls + 6
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# the pricing service on the card
+# --------------------------------------------------------------------- #
+def _service_trace():
+    from repro_torch.serve.engine import PriceRequest
+    rng = np.random.default_rng(7)
+    fams = ("put", "call", "bull_spread")
+    reqs = [PriceRequest(s0=float(rng.uniform(90, 110)), sigma=0.2, rate=0.1,
+                         maturity=0.25, cost_rate=0.0,
+                         payoff=fams[i % 3], strike=100.0, n_steps=64)
+            for i in range(37)]
+    reqs += [PriceRequest(s0=float(rng.uniform(90, 110)), sigma=0.2,
+                          rate=0.1, maturity=0.25,
+                          cost_rate=(0.005, 0.01)[i % 2], payoff="put",
+                          strike=100.0, n_steps=64) for i in range(11)]
+    return reqs
+
+
+def test_service_on_card_matches_price_flat(cuda):
+    """Quotes through the service's buckets equal each bucket priced in
+    one ``price_flat`` call on the card (rows are independent)."""
+    from repro_torch.kernels import binomial_step, rz_step
+    from repro_torch.serve.scheduler import PricingService
+    reqs = _service_trace()
+    n_rz = rz_step.LAUNCHES["rz_round"]
+    n_lat = binomial_step.LAUNCHES["lattice_round_param"]
+    svc = PricingService(max_batch=16, capacity=16, default_n_steps=64)
+    ids = [svc.submit(r) for r in reqs]
+    svc.flush()
+    assert rz_step.LAUNCHES["rz_round"] > n_rz
+    assert binomial_step.LAUNCHES["lattice_round_param"] > n_lat
+    for tc in (False, True):
+        sel = [i for i, r in enumerate(reqs) if (r.cost_rate > 0) == tc]
+        col = lambda f: np.array([getattr(reqs[i], f) for i in sel])
+        want = api.price_flat(
+            s0=col("s0"), sigma=col("sigma"), rate=col("rate"),
+            maturity=col("maturity"), cost_rate=col("cost_rate"),
+            payoff=tuple(col("payoff")), strike=col("strike"), n_steps=64,
+            capacity=16)
+        got = [svc.result(ids[i]) for i in sel]
+        assert np.abs(np.array([q.ask for q in got]) - want.ask).max() <= TOL
+        assert np.abs(np.array([q.bid for q in got]) - want.bid).max() <= TOL
+        assert [q.max_pieces for q in got] == want.row_pieces.tolist()
+
+
+def test_two_thread_replicas_on_one_card_equal_one(cuda):
+    """Two thread replicas on cuda:0, each on its own stream, give the
+    quotes of one."""
+    import asyncio
+    from repro_torch.serve.gateway import PricingGateway
+    from repro_torch.serve.replica import LocalReplica
+    reqs = _service_trace()
+
+    async def run(n):
+        async with PricingGateway(
+                replicas=[LocalReplica(f"r{i}", device="cuda:0")
+                          for i in range(n)],
+                max_batch=8, capacity=16, default_n_steps=64) as gw:
+            rids = [await gw.submit(r) for r in reqs]
+            return [await gw.result(r) for r in rids], gw.metrics()
+
+    one, _ = asyncio.run(run(1))
+    two, m = asyncio.run(run(2))
+    assert m["completed"] == len(reqs) and m["failed"] == 0
+    assert [(q.ask, q.bid, q.max_pieces) for q in one] == \
+        [(q.ask, q.bid, q.max_pieces) for q in two]
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_process_replica_on_card_answers_jax_wire(cuda, backend):
+    """A spawned worker on the card prices the JAX package's wire dicts
+    (``tests/_jax_wire.py``); its quotes equal the same chunks on the
+    host."""
+    from _jax_wire import JAX_CHUNK_WIRES
+    from repro_torch.serve.core import ChunkSpec, execute_chunk
+    from repro_torch.serve.procpool import ProcessReplica, warmup_chunk
+    rep = ProcessReplica("p0", device="cuda", warmup=warmup_chunk())
+    try:
+        for wire in JAX_CHUNK_WIRES.values():
+            chunk = ChunkSpec.from_wire(dict(wire, backend=backend))
+            got = rep.price_chunk(chunk)
+            want = execute_chunk(chunk, device="cpu")
+            assert np.abs(got.ask - want.ask).max() <= TOL
+            assert np.abs(got.bid - want.bid).max() <= TOL
+            np.testing.assert_array_equal(got.row_pieces, want.row_pieces)
+            assert got.max_pieces == want.max_pieces
+        assert rep.memory()["peak_allocated"] > 0
+    finally:
+        rep.close()

@@ -38,9 +38,23 @@ standard errors of the lattice kernel's price (``[check] LSMC vs
 lattice``); the TC put, no-TC and LSMC grids (and the LSMC grid padded)
 under ``devices=1``, ``devices=4`` (simulated on one card) and
 ``mesh=(cuda:0,) * 4`` (the real per-shard dispatch), held bit for bit
-(``[check] layout``, with each layout's kernel launches counted from 0);
-and ``python -m repro_torch.launch.price --grid --engine lsmc --devices
-4`` as a subprocess (``[main] launcher``).
+(``[check] layout``, with each layout's kernel launches counted from 0).
+
+Then the node axis (``core/distributed.py::build_rz_sharded`` and
+``build_notc_sharded``, the paper's §4 halo rounds): ``rz_round`` and
+``lattice_round`` with ``lane0 > 0`` (and ``owned`` below the lanes) at
+the shapes of a shard of the 1 x 4 axis, against their plain versions
+(``[kernel] rz_round lane0``, ``[kernel] lattice_round lane0``); the
+paper's 256 puts (N=1500, K=48, L=5) on meshes 1 x 1, 1 x 2 and 1 x 4
+of cuda:0 (and of distinct cards where the machine has them), and 256
+friction-free puts (N=40000, L=50) on 1 x 4, each held to
+``price_flat`` on the same rows (1e-9, equal ``max_pieces``), with its
+launches, halo bytes a round and peak memory (``[main] node axis``),
+and the device's busy time over one more run of each 1 x 4 on cuda:0
+(``[profile] node axis``).
+Then ``python -m repro_torch.launch.price`` as a subprocess: ``--grid
+--engine lsmc --devices 4``, and the node axis ``--model 4`` (``[main]
+launcher``).
 
 Then the pricing service on the card (``repro_torch.serve``): a
 2048-request trace shuffled from a seed (1536 friction-free
@@ -506,18 +520,19 @@ def rz_step_ops(torch, mu, mc, mo):
     return s1 + s2 + s3 + 22
 
 
-def rz_bound(torch, z, got, sc, levels, K):
+def rz_bound(torch, z, got, sc, levels, K, lane0=0):
     """Least time for one rz_round on these inputs: rz_step_ops at each
     live lane-level of the owned lanes, with each lane's input counts
     (its own and its right neighbour's) and its output count, over the
     float64 rate; against each input's valid knots read once (with its
     sl, sr and m) and each output record written once, over the memory
-    rate.  Returns (ms, "operations" or "bytes", operations, bytes)."""
+    rate.  Lane i is tree column lane0 + i.  Returns (ms, "operations"
+    or "bytes", operations, bytes)."""
     R, S, lanes = z.m.shape
     mi = z.m.double()
     mu = torch.cat([mi[..., 1:], mi[..., -1:]], dim=-1)
     mo = got.m.double()
-    g = torch.arange(lanes, dtype=torch.float64, device=mi.device)
+    g = lane0 + torch.arange(lanes, dtype=torch.float64, device=mi.device)
     live = torch.clamp(torch.floor(sc[:, 0, None] - g), 0, levels)[:, None]
     ops = float((live * rz_step_ops(torch, mu, mi, mo)).sum())
     nbytes = float(16 * mi.sum() + 20 * mi.numel()
@@ -527,13 +542,13 @@ def rz_bound(torch, z, got, sc, levels, K):
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
 
-def rz_hold(torch, RS, label, z, sc, levels, block):
-    """rz_round against its plain version: max abs error <= 1e-9 and
-    equal knot counts and raw counts.  Returns the kernel's result, the
-    plain version's time and the error."""
-    got, pieces = RS.rz_round(z, sc, levels=levels, block=block)
+def rz_hold(torch, RS, label, z, sc, levels, block, **kw):
+    """rz_round against its plain version (``kw``: lane0, owned): max abs
+    error <= 1e-9 and equal knot counts and raw counts.  Returns the
+    kernel's result, the plain version's time and the error."""
+    got, pieces = RS.rz_round(z, sc, levels=levels, block=block, **kw)
     (want, wpieces), plain_ms = timed_once(torch, lambda: RS.rz_round_plain(
-        z, sc, levels=levels, block=block))
+        z, sc, levels=levels, block=block, **kw))
     err = max_pwl_err(got, want)
     same_m = bool(torch.equal(got.m, want.m))
     same_p = bool(torch.equal(pieces, wpieces))
@@ -1156,28 +1171,246 @@ def layout_phase(torch, np, api, tc_grid, notc_grid, notc_cfg, capacity,
     return out
 
 
+# the node axis (core/distributed.py): PAPER_PUT's 256 puts on meshes
+# 1 x W of cuda:0 (and of distinct cards where the machine has them),
+# PAPER_NOTC's 256 puts on 1 x 4
+NODE_WIDTHS, NODE_NOTC_WIDTH = (1, 2, 4), 4
+
+
+def node_rz_state(torch, R, put, s0, lanes, lane0):
+    """PAPER_PUT's fused leaf over a shard buffer of ``lanes`` lanes from
+    tree column ``lane0``, for the spots ``s0``, and its round scalars at
+    the first round (lvl0 = N + 1)."""
+    dev = torch.device("cuda")
+    n = len(s0)
+    t = lambda x: torch.full((n,), float(x), dtype=torch.float64, device=dev)
+    params = R.rz_params(torch.as_tensor(s0, device=dev), t(put.sigma),
+                         t(put.rate), t(put.maturity), t(put.cost_rate),
+                         n_steps=put.n_steps)
+    leaf = R.leaf_level(put.n_steps, params, put.capacity, lanes, lane0)
+    z = leaf.map(lambda a: a[:, None].expand(
+        (n, 2) + a.shape[1:]).contiguous())
+    sc = torch.stack([t(put.n_steps + 1), params["s0"],
+                      params["sig_sqrt_dt"], params["r"], params["k"],
+                      t(1.0), t(-1.0), t(0.0), t(0.0), t(put.strike),
+                      t(put.strike)], dim=1)
+    return z, sc.contiguous()
+
+
+def node_kernel_holds(torch, np, B, RS, R, D, put, notc):
+    """Both kernels with lane0 > 0 and (rz_round) owned < lanes against
+    their plain versions, at the shapes of shard 1 of the 1 x 4 node axis:
+    rz_round on PAPER_PUT's [S | H] buffer at the leaf, lattice_round on
+    PAPER_NOTC's buffer padded to the block."""
+    out = {}
+    n = put.contracts
+    plan = D.plan_rounds(put.n_steps, NODE_NOTC_WIDTH, put.round_depth)
+    S, H = plan["shard_lanes"], plan["halo"]
+    z, sc = node_rz_state(torch, R, put, np.linspace(90.0, 110.0, n), S + H,
+                          S)
+    kw = dict(lane0=S, owned=S)
+    got, pieces, plain_ms, err = rz_hold(torch, RS, "lane0", z, sc, H, S + H,
+                                         **kw)
+    ms = cuda_ms(torch, lambda: RS.rz_round(z, sc, levels=H, block=S + H,
+                                            **kw), 20)
+    bound, bound_by, ops, nbytes = rz_bound(torch, z, got, sc, H,
+                                            put.capacity, lane0=S)
+    out["rz_round lane0"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=bound_by, rows=n,
+                                 lanes=S + H, levels=H, lane0=S, owned=S,
+                                 pieces=int(pieces.max()))
+    print(f"[kernel] rz_round lane0: rows={n} N={put.n_steps} lanes={S + H} "
+          f"lane0={S} owned={S} levels={H} K={put.capacity} max_abs_err="
+          f"{err:.3e} equal_m=True pieces={int(pieces.max())} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({bound_by}: "
+          f"{ops:.4e} float64 operations, {nbytes:.4e} bytes)", flush=True)
+
+    block = B.DEFAULT_BLOCK
+    plan = D.plan_rounds(notc.n_steps - 1, NODE_NOTC_WIDTH, notc.round_depth)
+    S, H = plan["shard_lanes"], plan["halo"]
+    P = -(-(S + H) // block) * block
+    x, s = lattice_inputs(torch, torch.device("cuda"), n, P,
+                          float(notc.n_steps), "put")
+    got = B.lattice_round(x, s, levels=H, block=block, lane0=S)
+    (want, plain_ms) = timed_once(torch, lambda: B.lattice_round_plain(
+        x, s, levels=H, block=block, kind="put", lane0=S))
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"lattice_round lane0: kernel differs from "
+          f"plain (max abs err {err})")
+    ms = cuda_ms(torch, lambda: B.lattice_round(x, s, levels=H, block=block,
+                                                lane0=S), 20)
+    bound, bound_by = lattice_bound(torch, x, s, "put", H)
+    out["lattice_round lane0"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound,
+                                      bound_by=bound_by, rows=n, P=P,
+                                      levels=H, block=block, lane0=S)
+    print(f"[kernel] lattice_round lane0: rows={n} P={P} lane0={S} "
+          f"levels={H} block={block} max_abs_err={err:.3e} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f}", flush=True)
+    return out
+
+
+def node_meshes(torch, D, width):
+    """(label, mesh): 1 x width of cuda:0, then of distinct cards where
+    the machine has that many."""
+    cuda0 = torch.device("cuda", 0)
+    out = [(f"1 x {width} on cuda:0",
+            D.DeviceMesh([[cuda0] * width], ("data", "model")))]
+    if 1 < width <= torch.cuda.device_count():
+        devs = [torch.device("cuda", i) for i in range(width)]
+        out.append((f"1 x {width} on cuda:0-{width - 1}",
+                     D.DeviceMesh([devs], ("data", "model"))))
+    return out
+
+
+def node_axis_phase(torch, np, mod, cfgs, all_launches):
+    """The node axis at full width, through build_rz_sharded and
+    build_notc_sharded: PAPER_PUT (256 puts, spots 90-110, N=1500, K=48,
+    L=5) on meshes 1 x {1, 2, 4}, PAPER_NOTC (256 puts, N=40000, L=50) on
+    1 x 4; each held to price_flat on the same rows (1e-9, equal
+    max_pieces), with its launches counted from 0."""
+    api, D, pay = mod("api"), mod("core.distributed"), mod("core.payoff")
+    B, RS, R = mod("kernels.binomial_step"), mod("kernels.rz_step"), \
+        mod("core.rz")
+    put, notc = cfgs.PAPER_PUT, cfgs.PAPER_NOTC
+    out = node_kernel_holds(torch, np, B, RS, R, D, put, notc)
+    n = put.contracts
+    s0 = np.linspace(90.0, 110.0, n)
+    col = lambda x: np.full(n, float(x))
+
+    def flat(cfg, **kw):
+        return api.price_flat(s0=s0, sigma=cfg.sigma, rate=cfg.rate,
+                              maturity=cfg.maturity, cost_rate=cfg.cost_rate,
+                              payoff="put", strike=cfg.strike,
+                              n_steps=cfg.n_steps, **kw)
+
+    def profiled(label, fn):
+        """Device time by kernel over one more run of ``fn``, on the
+        widest mesh of cuda:0."""
+        wall_p, n_k, kernels = profile_window(torch, fn)
+        busy = sum(t for _, t in kernels)
+        print(f"[profile] node axis {label}: {n_k} kernels, device busy "
+              f"{busy * 1e3:.3f} ms of {wall_p * 1e3:.3f} ms under the "
+              f"profiler (idle share {1.0 - busy / wall_p:.3f}); top "
+              "kernels: " + ", ".join(f"{k[:60]} {t * 1e3:.3f} ms"
+                                      for k, t in kernels[:4]), flush=True)
+        return dict(wall_s=wall_p, device_busy_s=busy, kernels=n_k,
+                    idle_share=1.0 - busy / wall_p,
+                    top_kernels_s=[(k[:60], t) for k, t in kernels[:4]])
+
+    ref = flat(put, capacity=put.capacity)
+    for width in NODE_WIDTHS:
+        plan = D.plan_rounds(put.n_steps, width, put.round_depth)
+        for label, mesh in node_meshes(torch, D, width):
+            f = D.build_rz_sharded(mesh, n_steps=put.n_steps,
+                                   payoff=pay.american_put(put.strike),
+                                   capacity=put.capacity,
+                                   round_depth=put.round_depth)
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(all_launches)
+            (ask, bid, pieces), s = wall(torch, lambda: f(
+                s0, col(put.sigma), col(put.rate), col(put.maturity),
+                col(put.cost_rate)))
+            launches = {k: v for k, v in launch_counts(all_launches).items()
+                        if v}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            d = max(float(np.abs(ask.numpy() - ref.ask).max()),
+                    float(np.abs(bid.numpy() - ref.bid).max()))
+            halo = width * n * 2 * plan["halo"] * (16 * put.capacity + 20)
+            rec = dict(wall_s=s, launches=launches, plan=plan,
+                       halo_bytes_a_round=halo, peak_device_gb=peak,
+                       max_abs_vs_price_flat=d, max_pieces=pieces,
+                       price_flat_max_pieces=ref.max_pieces)
+            out[f"TC put {label}"] = rec
+            print(f"[main] node axis TC put: {n} contracts N={put.n_steps} "
+                  f"K={put.capacity} L={put.round_depth} mesh {label}: "
+                  f"{s:.3f} s, {plan['rounds']} halo rounds + "
+                  f"{plan['tail_levels']} tail levels, launches "
+                  f"{json.dumps(launches)}, halo {halo} bytes a round, peak "
+                  f"device memory {peak:.3f} GB; vs price_flat max |d| "
+                  f"{d:.3e}, max_pieces {pieces} ({ref.max_pieces})",
+                  flush=True)
+            check(d <= TOL and pieces == ref.max_pieces,
+                  f"node axis TC put {label}: max |d| {d}, max_pieces "
+                  f"{pieces} vs {ref.max_pieces}")
+            check(launches.get("rz_round", 0) > 0,
+                  f"node axis TC put {label}: rz_round not launched")
+            if width == NODE_WIDTHS[-1] and label.endswith("on cuda:0"):
+                rec["profile"] = profiled(f"TC put {label}", lambda: f(
+                    s0, col(put.sigma), col(put.rate), col(put.maturity),
+                    col(put.cost_rate)))
+
+    ref = flat(notc, levels=notc.round_depth, block=256)
+    plan = D.plan_rounds(notc.n_steps - 1, NODE_NOTC_WIDTH, notc.round_depth)
+    for label, mesh in node_meshes(torch, D, NODE_NOTC_WIDTH):
+        f = D.build_notc_sharded(mesh, n_steps=notc.n_steps,
+                                 strike=notc.strike, kind="put",
+                                 round_depth=notc.round_depth)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(all_launches)
+        price, s = wall(torch, lambda: f(s0, col(notc.sigma), col(notc.rate),
+                                         col(notc.maturity)))
+        launches = {k: v for k, v in launch_counts(all_launches).items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        d = float(np.abs(price.numpy() - ref.ask).max())
+        halo = NODE_NOTC_WIDTH * n * plan["halo"] * 8
+        out[f"no-TC {label}"] = dict(wall_s=s, launches=launches, plan=plan,
+                                     halo_bytes_a_round=halo,
+                                     peak_device_gb=peak,
+                                     max_abs_vs_price_flat=d)
+        print(f"[main] node axis no-TC: {n} puts N={notc.n_steps} "
+              f"L={notc.round_depth} mesh {label}: {s:.3f} s, "
+              f"{plan['rounds']} halo rounds + {plan['tail_levels']} tail "
+              f"levels, launches {json.dumps(launches)}, halo {halo} bytes "
+              f"a round, peak device memory {peak:.3f} GB; vs price_flat "
+              f"max |d| {d:.3e}", flush=True)
+        check(d <= TOL and np.isfinite(price.numpy()).all(),
+              f"node axis no-TC {label}: max |d| {d}")
+        check(launches.get("lattice_round", 0) > 0,
+              f"node axis no-TC {label}: lattice_round not launched")
+        if label.endswith("on cuda:0"):
+            out[f"no-TC {label}"]["profile"] = profiled(
+                f"no-TC {label}", lambda: f(s0, col(notc.sigma),
+                                            col(notc.rate),
+                                            col(notc.maturity)))
+    return out
+
+
 def launcher_phase():
-    """The launcher a user runs, as a subprocess on the card: grid mode,
-    the LSMC engine, four shards (simulated on one card)."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.price", "--grid",
-           "--engine", "lsmc", "--devices", "4", "--n-steps", "50",
-           "--paths", "16384", "--exercise-dates", "10,20,30,40,50",
-           "--n-assets", "3", "--s0", "90,100,110", "--lambdas", "0,0.01"]
-    t = time.perf_counter()
-    r = run_alone(cmd)
-    s = time.perf_counter() - t
-    lines = r.stdout.strip().splitlines()
-    mesh = [ln for ln in lines if ln.startswith("[simulated mesh")
-            or ln.startswith("[device mesh")]
-    print(f"[main] launcher: {' '.join(cmd[1:])}: exit {r.returncode} in "
-          f"{s:.1f} s (process start, import and run); "
-          f"{mesh[0] if mesh else 'no mesh line'}; "
-          f"{lines[-1] if lines else ''}", flush=True)
-    check(r.returncode == 0, f"launcher exit {r.returncode}: "
-          f"{r.stderr[-2000:]}")
-    check(len(mesh) == 1 and sum("se=" in ln for ln in lines) == 6,
-          "launcher output: one mesh line and 6 rows with se=")
-    return dict(returncode=r.returncode, wall_s=s, mesh_line=mesh[0])
+    """The launcher a user runs, as a subprocess on the card: grid mode
+    with the LSMC engine and four shards (simulated on one card); then
+    the non-grid mode on the node axis, 1 x 4 (cuda:0 repeated on a
+    one-card machine)."""
+    out = {}
+    for key, cmd, mesh_prefix, rows_with in (
+            ("grid lsmc", ["--grid", "--engine", "lsmc", "--devices", "4",
+                           "--n-steps", "50", "--paths", "16384",
+                           "--exercise-dates", "10,20,30,40,50",
+                           "--n-assets", "3", "--s0", "90,100,110",
+                           "--lambdas", "0,0.01"],
+             ("[simulated mesh", "[device mesh"), ("se=", 6)),
+            ("node axis", ["--n-steps", "1500", "--contracts", "8",
+                           "--model", "4", "--round-depth", "5"],
+             ("[mesh: 1 x 4 on cuda",), ("bid=", 8))):
+        cmd = [sys.executable, "-m", "repro_torch.launch.price"] + cmd
+        t = time.perf_counter()
+        r = run_alone(cmd)
+        s = time.perf_counter() - t
+        lines = r.stdout.strip().splitlines()
+        mesh = [ln for ln in lines if ln.startswith(mesh_prefix)]
+        knots = [ln for ln in lines if ln.startswith("max PWL knots")]
+        print(f"[main] launcher: {' '.join(cmd[1:])}: exit {r.returncode} in "
+              f"{s:.1f} s (process start, import and run); "
+              f"{mesh[0] if mesh else 'no mesh line'}; "
+              f"{(knots[0] + '; ') if knots else ''}"
+              f"{lines[-1] if lines else ''}", flush=True)
+        check(r.returncode == 0, f"launcher exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        check(len(mesh) == 1 and sum(rows_with[0] in ln for ln in lines)
+              == rows_with[1], f"launcher {key} output: one mesh line and "
+              f"{rows_with[1]} rows with {rows_with[0]}")
+        out[key] = dict(returncode=r.returncode, wall_s=s, mesh_line=mesh[0])
+    return out
 
 
 # the pricing service: PricingService(max_batch=256, deadline_ms=5,
@@ -1691,6 +1924,7 @@ def main() -> int:
     lsmc = lsmc_phase(torch, np, api, pricing_launches)
     layout = layout_phase(torch, np, api, tc_grid, notc_grid, notc_cfg,
                           capacity, pricing_launches)
+    node = node_axis_phase(torch, np, mod, cfgs, pricing_launches)
     launcher = launcher_phase()
     serving = serving_phase(torch, np, mod, cfgs, pricing_launches)
     serve_launcher = serve_launcher_phase()
@@ -1715,6 +1949,10 @@ def main() -> int:
             launches=launches[name], max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None,
+            node_axis_launches=sum(v["launches"].get(name, 0)
+                                   for k, v in node.items()
+                                   if k.startswith(("TC put", "no-TC"))),
+            lane0_hold=node.get(f"{name} lane0"),
             bound_note=("counted: the float64 operations of the kernel's "
                         "device functions (rz_step_ops) at each live "
                         "lane-level, with the lanes' input and output knot "
@@ -1749,6 +1987,7 @@ def main() -> int:
                    rz_edges={k: v for k, v in rz.items()
                              if k.startswith("edge")},
                    rz_capacity=rz["capacity"], lsmc=lsmc, layout=layout,
+                   node_axis=node,
                    launcher=launcher, serving=serving,
                    serve_launcher=serve_launcher, lm=lm, lm_kernels=lm_kern)
     # 5. no process the script started outlives it: the gateways closed

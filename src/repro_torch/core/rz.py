@@ -120,11 +120,12 @@ def rz_level_step_lanes(z: P.PWL, lvl, params: dict, pay, *, capacity: int,
 
 
 def leaf_level(n_steps: int, params: dict, capacity: int,
-               lanes: int | None = None) -> P.PWL:
-    """z at the extra instant t = N+1 (payoff (0, 0)): ``(R, lanes)``."""
+               lanes: int | None = None, lane0: int = 0) -> P.PWL:
+    """z at the extra instant t = N+1 (payoff (0, 0)): ``(R, lanes)``,
+    lane 0 at tree column ``lane0``."""
     s0 = params["s0"]
     Pn = n_steps + 2 if lanes is None else lanes
-    idx = torch.arange(Pn, dtype=s0.dtype, device=s0.device)
+    idx = lane0 + torch.arange(Pn, dtype=s0.dtype, device=s0.device)
     s = s0[:, None] * torch.exp((2.0 * idx - (n_steps + 1))
                                 * params["sig_sqrt_dt"][:, None])
     a = (1.0 + params["k"][:, None]) * s
@@ -137,8 +138,8 @@ def _sides(dev) -> torch.Tensor:
     return torch.tensor([[True], [False]], device=dev)     # seller, buyer
 
 
-def _fused_leaf(n_steps, params, capacity, lanes) -> P.PWL:
-    leaf = leaf_level(n_steps, params, capacity, lanes)
+def _fused_leaf(n_steps, params, capacity, lanes, lane0=0) -> P.PWL:
+    leaf = leaf_level(n_steps, params, capacity, lanes, lane0)
     return leaf.map(lambda a: a[:, None].expand(
         (a.shape[0], 2) + a.shape[1:]).contiguous())
 

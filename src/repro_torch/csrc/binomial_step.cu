@@ -13,7 +13,8 @@
 // steps depends only on the `levels` lanes to its right, so the round is
 // out[i] = F(V[i .. i+levels]) over the virtual row V[p] = v[p] for p < P
 // and V[p] = v[p - block] for P <= p < P + block (the last block's clamped
-// halo), with the intrinsic taken at p in both cases.
+// halo), with the intrinsic taken at tree column lane0 + p in both cases
+// (lane0 > 0 for a shard of the node axis).
 //
 // What bounds it on the H100: float64 operations.  Per node and level the
 // function needs 5 (p*up, q*v, their sum, *inv_r, the max); the intrinsic
@@ -152,7 +153,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 lattice_round_kernel(const double* __restrict__ v,
                      const double* __restrict__ scalars,
                      double* __restrict__ out, int P, int block, int levels,
-                     int n_scalars, int tile) {
+                     int n_scalars, int tile, int lane0) {
   extern __shared__ double smem[];
   const int nsrc = tile + levels;          // lanes the owned ones depend on
   double* src = smem;
@@ -187,9 +188,9 @@ lattice_round_kernel(const double* __restrict__ v,
     dst[x] = 0.0;
   }
   if (active > 0) {
-    // j = 2p - (lvl0 - s) for local lane x = p - t0 at step s is
-    // jbase + 2x + s - 1
-    const long long jbase = 2 * t0 - (long long)lvl0 + 1;
+    // j = 2(lane0 + p) - (lvl0 - s) for local lane x = p - t0 at step s
+    // is jbase + 2x + s - 1
+    const long long jbase = 2 * (lane0 + t0) - (long long)lvl0 + 1;
     for (int k = threadIdx.x; k < 2 * nsrc; k += blockDim.x)
       g[tab(k)] = intrinsic<KIND>(c, c.s0 * exp((double)(jbase + k) * c.sig));
   }
@@ -215,7 +216,7 @@ lattice_round_kernel(const double* __restrict__ v,
 
 template <int KIND>
 int launch(const double* v, const double* sc, double* out, int rows, int P,
-           int block, int levels, int n_scalars, cudaStream_t st) {
+           int block, int levels, int n_scalars, int lane0, cudaStream_t st) {
   const int tile = WARPS * (W - (levels < W / 2 ? levels : W / 2));
   const int nsrc = tile + levels;
   const size_t shmem =
@@ -228,23 +229,26 @@ int launch(const double* v, const double* sc, double* out, int rows, int P,
   }
   dim3 grid((P + tile - 1) / tile, rows);
   kern<<<grid, WARPS * 32, shmem, st>>>(v, sc, out, P, block, levels,
-                                        n_scalars, tile);
+                                        n_scalars, tile, lane0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // kind 0: the 4-parameter payoff (11 scalars a row); 1: put, 2: call (6).
+// lane0 is the tree column of v's lane 0 (a shard's offset on the node
+// axis; 0 for a whole row).
 extern "C" int lattice_round_launch(const void* v, const void* scalars,
                                     void* out, int rows, int P, int block,
-                                    int levels, int kind, void* stream) {
+                                    int levels, int kind, int lane0,
+                                    void* stream) {
   const double* vp = (const double*)v;
   const double* sp = (const double*)scalars;
   double* op = (double*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (kind == 0)
-    return launch<0>(vp, sp, op, rows, P, block, levels, 11, st);
+    return launch<0>(vp, sp, op, rows, P, block, levels, 11, lane0, st);
   if (kind == 1)
-    return launch<1>(vp, sp, op, rows, P, block, levels, 6, st);
-  return launch<2>(vp, sp, op, rows, P, block, levels, 6, st);
+    return launch<1>(vp, sp, op, rows, P, block, levels, 6, lane0, st);
+  return launch<2>(vp, sp, op, rows, P, block, levels, 6, lane0, st);
 }

@@ -16,7 +16,9 @@
 // virtual row V: for one block, V[p] = z[p mod lanes] at level index
 // p mod lanes (the roll); for several, V[p] = z[p] for p < lanes and
 // z[p - block] past them (the last block's clamped halo), at index p.  The
-// roll of a multi-block buffer never reaches an owned lane.
+// roll of a multi-block buffer never reaches an owned lane.  An index is a
+// tree column counted from lane0, the column of the input's lane 0 (a shard
+// of the node axis has lane0 > 0; its pieces count owned_lanes lanes).
 //
 // What bounds it on the H100: float64 operations, and how fast each
 // thread's chain of them can issue.  A lane step is a few hundred float64
@@ -431,13 +433,15 @@ __device__ int claim_slot(unsigned* masks, int nslots) {
   }
 }
 
-// Virtual row: the input lane behind position g and its level index.
+// Virtual row: the input lane behind position g and its level index, the
+// tree column of the input's lane 0 being lane0.
 __device__ __forceinline__ int src_lane(int g, int lanes_in, int halo_block) {
   if (halo_block == 0) return g % lanes_in;
   return g < lanes_in ? g : g - halo_block;
 }
-__device__ __forceinline__ double lane_index(int g, int lanes_in, int halo_block) {
-  return (double)(halo_block == 0 ? g % lanes_in : g);
+__device__ __forceinline__ double lane_index(int g, int lanes_in, int halo_block,
+                                             int lane0) {
+  return (double)(lane0 + (halo_block == 0 ? g % lanes_in : g));
 }
 
 template <int KM>
@@ -448,7 +452,7 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
                 double* xs_out, double* ys_out, double* sl_out, double* sr_out,
                 int* m_out, int* pieces_out, double* wide, unsigned* masks,
                 int nslots, int S, int lanes_in, int lanes_out, int owned_lanes,
-                int K, int halo_block, int levels, int tile,
+                int lane0, int K, int halo_block, int levels, int tile,
                 unsigned seller_mask) {
   extern __shared__ double smem[];
   const int row = blockIdx.y;
@@ -482,7 +486,7 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
 
   // clip the extent at the first lane that no level of the round steps
   for (int i = threadIdx.x; i < owned + levels; i += THREADS) {
-    const double idx = lane_index(t0 + i, lanes_in, halo_block);
+    const double idx = lane_index(t0 + i, lanes_in, halo_block, lane0);
     if (!(idx <= lvl0 - 1.0)) atomicMin(&s_ext, i + 1);
   }
   __syncthreads();
@@ -490,7 +494,7 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
 
   // steps of each lane: while it is live and an owned lane still needs it
   for (int i = threadIdx.x; i < ext; i += THREADS) {
-    const double idx = lane_index(t0 + i, lanes_in, halo_block);
+    const double idx = lane_index(t0 + i, lanes_in, halo_block, lane0);
     int n = 0;
     while (n < levels && i < ext - (n + 1) && idx <= lvl0 - (double)(n + 1)) ++n;
     nst[i] = n;
@@ -520,7 +524,7 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
     for (int it = threadIdx.x; it < S * nact; it += THREADS) {
       const int s = it / nact, i = it - s * nact;
       if (c > nst[i]) continue;
-      const double idx = lane_index(t0 + i, lanes_in, halo_block);
+      const double idx = lane_index(t0 + i, lanes_in, halo_block, lane0);
       const double sp = s0 * exp((2.0 * idx - lvl) * sig);
       const bool no_tc = lvl == 0.0;
       const double a = no_tc ? sp : (1.0 + k) * sp;
@@ -623,8 +627,8 @@ cudaError_t prepare(int* slots) {
 
 template <int KM>
 cudaError_t launch(void* const* p, int nslots, int R, int S, int lanes_in,
-                   int lanes_out, int owned_lanes, int K, int halo_block,
-                   int levels, int tile, int tiles, unsigned mask,
+                   int lanes_out, int owned_lanes, int lane0, int K,
+                   int halo_block, int levels, int tile, int tiles, unsigned mask,
                    cudaStream_t st) {
   int slots = 0;
   cudaError_t err = prepare<KM>(&slots);
@@ -638,7 +642,7 @@ cudaError_t launch(void* const* p, int nslots, int R, int S, int lanes_in,
       (const double*)p[3], (const int*)p[4], (const double*)p[5],
       (double*)p[6], (double*)p[7], (double*)p[8], (double*)p[9], (int*)p[10],
       (int*)p[11], (double*)p[12], (unsigned*)p[13], nslots, S, lanes_in,
-      lanes_out, owned_lanes, K, halo_block, levels, tile, mask);
+      lanes_out, owned_lanes, lane0, K, halo_block, levels, tile, mask);
   return cudaGetLastError();
 }
 
@@ -661,13 +665,14 @@ extern "C" int rz_round_slots(int K, int* slots) {
 // lanes_in lanes (halo_block 0: the row wraps; else the last halo_block
 // lanes repeat past the end), advanced `levels` levels, in tiles of `tile`
 // owned lanes; pieces over owned live lanes below owned_lanes, one int per
-// (row, tile).
+// (row, tile).  lane0 is the tree column of the input's lane 0 (a shard's
+// offset on the node axis; 0 for a whole row).
 extern "C" int rz_round_launch(
     void* xs, void* ys, void* sl, void* sr, void* m, void* scalars,
     void* xs_o, void* ys_o, void* sl_o, void* sr_o, void* m_o, void* pieces,
     void* wide, void* masks, int nslots, int R, int S, int lanes_in,
-    int lanes_out, int owned_lanes, int K, int halo_block, int levels,
-    int tile, int tiles, int seller_mask, void* stream) {
+    int lanes_out, int owned_lanes, int lane0, int K, int halo_block,
+    int levels, int tile, int tiles, int seller_mask, void* stream) {
   void* p[14] = {xs, ys, sl, sr, m, scalars, xs_o, ys_o, sl_o, sr_o, m_o,
                  pieces, wide, masks};
   if (S < 1 || S > 2 || tile + levels > EMAX) return (int)cudaErrorInvalidValue;
@@ -675,7 +680,7 @@ extern "C" int rz_round_launch(
   const unsigned mask = (unsigned)seller_mask;
   cudaError_t err;
 #define RZ_LAUNCH(KM) launch<KM>(p, nslots, R, S, lanes_in, lanes_out, owned_lanes, \
-                                 K, halo_block, levels, tile, tiles, mask, st)
+                                 lane0, K, halo_block, levels, tile, tiles, mask, st)
   if (K <= 16) err = RZ_LAUNCH(16);
   else if (K <= 32) err = RZ_LAUNCH(32);
   else if (K <= 48) err = RZ_LAUNCH(48);

@@ -47,7 +47,8 @@ LAUNCHES = {"lattice_round_param": 0, "lattice_round": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"lattice_round_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"lattice_round_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _P]}
 
 
 def _intrinsic(s, sc, kind: str):
@@ -62,8 +63,9 @@ def _intrinsic(s, sc, kind: str):
 
 
 def lattice_round_plain(v, scalars, *, levels: int, block: int,
-                        kind: str = "param"):
-    """Plain PyTorch version of one round: ``v (R, P)``, ``scalars (R, n)``.
+                        kind: str = "param", lane0: int = 0):
+    """Plain PyTorch version of one round: ``v (R, P)``, ``scalars (R, n)``,
+    lane 0 at tree column ``lane0``.
 
     Builds each block's ``2*block``-lane buffer (block + clamped right
     halo), runs ``levels`` steps with a wrapping shift like the TPU
@@ -74,7 +76,7 @@ def lattice_round_plain(v, scalars, *, levels: int, block: int,
     blocks = v.reshape(R, nblk, block)
     nxt = torch.clamp(torch.arange(nblk, device=v.device) + 1, max=nblk - 1)
     buf = torch.cat([blocks, blocks[:, nxt]], dim=2)        # (R, nblk, 2B)
-    idx = (torch.arange(nblk, device=v.device)[:, None] * block
+    idx = (lane0 + torch.arange(nblk, device=v.device)[:, None] * block
            + torch.arange(2 * block, device=v.device)).to(v.dtype)
     sc = [scalars[:, j, None, None] for j in range(scalars.shape[1])]
     if kind == "param":
@@ -90,7 +92,9 @@ def lattice_round_plain(v, scalars, *, levels: int, block: int,
     return buf[:, :, :block].reshape(R, P).contiguous()
 
 
-def _check(v, scalars, levels: int, block: int, n_scalars: int):
+def _check(v, scalars, levels: int, block: int, n_scalars: int, lane0: int):
+    if lane0 < 0:
+        raise ValueError(f"need lane0 >= 0, got {lane0}")
     if v.dim() != 2 or scalars.dim() != 2:
         raise ValueError("need v (R, P) and scalars (R, n)")
     R, P = v.shape
@@ -108,7 +112,7 @@ def _check(v, scalars, levels: int, block: int, n_scalars: int):
         raise ValueError(f"need 1 <= levels <= block, got levels={levels}")
 
 
-def _launch(v, scalars, levels: int, block: int, kind: str):
+def _launch(v, scalars, levels: int, block: int, kind: str, lane0: int):
     if not (v.is_contiguous() and scalars.is_contiguous()):
         raise ValueError("the lattice kernel takes contiguous tensors")
     lib = _build.load("binomial_step", _SIGNATURES)
@@ -117,45 +121,49 @@ def _launch(v, scalars, levels: int, block: int, kind: str):
     stream = torch.cuda.current_stream(v.device).cuda_stream
     err = lib.lattice_round_launch(v.data_ptr(), scalars.data_ptr(),
                                    out.data_ptr(), R, P, block, levels,
-                                   _KINDS[kind], stream)
+                                   _KINDS[kind], lane0, stream)
     _build.check(err, "lattice_round_launch")
     return out
 
 
-def _round(v, scalars, levels, block, kind, name, n_scalars):
+def _round(v, scalars, levels, block, kind, name, n_scalars, lane0):
     squeeze = v.dim() == 1
     if squeeze:
         v, scalars = v[None], scalars[None]
-    _check(v, scalars, levels, block, n_scalars)
+    lane0 = int(lane0)
+    _check(v, scalars, levels, block, n_scalars, lane0)
     if v.device.type == "cuda":
-        out = _launch(v, scalars, levels, block, kind)
+        out = _launch(v, scalars, levels, block, kind, lane0)
         LAUNCHES[name] += 1
     elif v.device.type == "cpu":
         out = lattice_round_plain(v, scalars, levels=levels, block=block,
-                                  kind=kind)
+                                  kind=kind, lane0=lane0)
     else:
         raise ValueError(f"unsupported device {v.device}")
     return out[0] if squeeze else out
 
 
-def lattice_round_param(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK):
+def lattice_round_param(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK,
+                        lane0: int = 0):
     """One round with the payoff as data: ``v (P,)`` or ``(R, P)``,
-    ``scalars (11,)`` or ``(R, 11)`` in ``PARAM_SCALARS`` order.
+    ``scalars (11,)`` or ``(R, 11)`` in ``PARAM_SCALARS`` order; ``lane0``
+    is the tree column of lane 0 (a shard of the node axis sets it).
 
     ``lvl0`` (slot 0) must be a whole number, a level of the lattice, as
     the host round loops pass it: the CUDA kernel takes it as an integer
     and is not checked, so a fractional ``lvl0`` gives another round than
     the plain version's there."""
     return _round(v, scalars, levels, block, "param", "lattice_round_param",
-                  PARAM_SCALARS)
+                  PARAM_SCALARS, lane0)
 
 
 def lattice_round(v, scalars, *, levels: int, block: int = DEFAULT_BLOCK,
-                  kind: str = "put"):
+                  kind: str = "put", lane0: int = 0):
     """One round with put/call baked in: ``scalars (6,)`` or ``(R, 6)``
     = ``[lvl0, p_up, inv_r, strike, s0, sig_sqrt_dt]``; ``lvl0`` must be a
-    whole number, as for ``lattice_round_param``."""
+    whole number, and ``lane0`` is taken, as for
+    ``lattice_round_param``."""
     if kind not in ("put", "call"):
         raise ValueError(f"kind must be 'put' or 'call', got {kind!r}")
     return _round(v, scalars, levels, block, kind, "lattice_round",
-                  KIND_SCALARS)
+                  KIND_SCALARS, lane0)

@@ -61,7 +61,7 @@ LAUNCHES = {"rz_round": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"rz_round_launch": [_P] * 14 + [_I] * 12 + [_P],
+_SIGNATURES = {"rz_round_launch": [_P] * 14 + [_I] * 13 + [_P],
                "rz_round_slots": [_I, ctypes.POINTER(_I)]}
 _SLOTS: dict = {}
 
@@ -76,16 +76,18 @@ class Tile(NamedTuple):
 
 
 def tile_plan(lanes: int, block: int, levels: int, *, lanes_out=None,
-              lvl0=None, tile_lanes: int = TILE_LANES) -> List[Tile]:
+              lvl0=None, lane0: int = 0,
+              tile_lanes: int = TILE_LANES) -> List[Tile]:
     """The kernel's tiles for a round of ``levels`` levels over ``lanes``
     lanes in blocks of ``block``: equal tiles of at most ``tile_lanes -
     levels`` owned lanes over ``lanes_out`` (default ``lanes``) output
     lanes, each reading its owned lanes and ``levels`` more of the virtual
     row.  With ``lvl0`` the extent ends at the first lane that no level of
     the round steps (its value never changes, so nothing to its right
-    reaches an owned lane), as the kernel clips it for each row.  The
-    kernel holds ``TILE_LANES``; a smaller ``tile_lanes`` gives the same
-    schedule over more tiles (the CPU tests' small rows)."""
+    reaches an owned lane), as the kernel clips it for each row; ``lane0``
+    is the tree column of lane 0.  The kernel holds ``TILE_LANES``; a
+    smaller ``tile_lanes`` gives the same schedule over more tiles (the
+    CPU tests' small rows)."""
     if not 1 <= levels < tile_lanes or levels > LEVELS_PER_LAUNCH:
         raise ValueError(f"one launch takes 1..{LEVELS_PER_LAUNCH} levels "
                          f"and fewer than its {tile_lanes} lanes, got {levels}")
@@ -97,7 +99,7 @@ def tile_plan(lanes: int, block: int, levels: int, *, lanes_out=None,
         owned = min(tile, lanes_out - start)
         extent = owned + levels
         if lvl0 is not None:
-            _, idx = virtual_row(start, extent, lanes, block)
+            _, idx = virtual_row(start, extent, lanes, block, lane0)
             dead = (~(idx <= lvl0 - 1.0)).nonzero()
             if len(dead):
                 extent = int(dead[0]) + 1
@@ -105,23 +107,26 @@ def tile_plan(lanes: int, block: int, levels: int, *, lanes_out=None,
     return plan
 
 
-def virtual_row(start: int, extent: int, lanes: int, block: int):
+def virtual_row(start: int, extent: int, lanes: int, block: int,
+                lane0: int = 0):
     """Input lanes and level indices of virtual positions ``[start, start
     + extent)``: a single-block round wraps (the TPU kernel's roll), lane
-    p mod lanes at index p mod lanes; a multi-block round repeats the last
-    block past the end (its clamped right halo), lane p - block at index
-    p.  Returns ``(src int64, idx float64)`` tensors."""
+    p mod lanes at index lane0 + p mod lanes; a multi-block round repeats
+    the last block past the end (its clamped right halo), lane p - block
+    at index lane0 + p.  Returns ``(src int64, idx float64)`` tensors."""
     p = torch.arange(start, start + extent)
     if lanes // block == 1:
         src = p % lanes
-        return src, src.to(torch.float64)
-    return torch.where(p < lanes, p, p - block), p.to(torch.float64)
+        return src, (lane0 + src).to(torch.float64)
+    return torch.where(p < lanes, p, p - block), (lane0 + p).to(torch.float64)
 
 
 def rz_round_plain(z: P.PWL, scalars, *, levels: int, block: int,
-                   sellers=(True, False)):
+                   sellers=(True, False), lane0: int = 0,
+                   owned: int | None = None):
     """Plain PyTorch round: ``z`` over ``(R, S, lanes)`` lanes, ``scalars
-    (R, 11)``; returns ``(z_new, pieces (R,))``."""
+    (R, 11)``, lane 0 at tree column ``lane0``, pieces over lanes below
+    ``owned`` (default all); returns ``(z_new, pieces (R,))``."""
     R, S, lanes, K = z.xs.shape
     nblk = lanes // block
     dev, dtype = z.xs.device, z.xs.dtype
@@ -134,26 +139,33 @@ def rz_round_plain(z: P.PWL, scalars, *, levels: int, block: int,
     else:
         buf = blocks
     W = buf.sl.shape[-1]
-    offset = (torch.arange(nblk, device=dev) * block).to(dtype)[:, None, None]
+    base = torch.arange(nblk, device=dev) * block
+    offset = (lane0 + base).to(dtype)[:, None, None]
     c = lambda j: scalars[:, j, None, None, None]
     lvl0 = c(0)
     params = dict(s0=c(1), sig_sqrt_dt=c(2), r=c(3), k=c(4))
     pay = tuple(c(5 + j) for j in range(6))
     seller = torch.tensor(list(sellers), device=dev)[:, None]
-    owned = torch.arange(W, device=dev) < block
+    w = torch.arange(W, device=dev)
+    counted = ((w < block) & (base[:, None] + w
+                              < (lanes if owned is None else owned)))[:, None]
     pieces = torch.zeros(R, dtype=torch.int32, device=dev)
     for j in range(levels):
         buf, pc = rz_level_step_lanes(buf, lvl0 - (j + 1), params, pay,
                                       capacity=K, seller=seller,
                                       idx_offset=offset)
-        pieces = torch.maximum(pieces, torch.where(owned, pc, 0).amax(dim=(1, 2, 3)))
+        pieces = torch.maximum(pieces, torch.where(counted, pc, 0).amax(dim=(1, 2, 3)))
     out = buf.map(lambda a: a[:, :, :, :block].transpose(1, 2)
                   .reshape((R, S, lanes) + a.shape[4:]).contiguous())
     return out, pieces
 
 
-def _check(z: P.PWL, scalars, levels: int, block: int, sellers):
+def _check(z: P.PWL, scalars, levels: int, block: int, sellers, lane0: int,
+           owned: int):
     R, S, lanes, K = z.xs.shape
+    if lane0 < 0 or not 1 <= owned <= lanes:
+        raise ValueError(f"need lane0 >= 0 and 1 <= owned <= lanes {lanes}, "
+                         f"got lane0={lane0}, owned={owned}")
     if S != len(sellers):
         raise ValueError(f"side axis {S} != len(sellers) {len(sellers)}")
     if block < 1 or lanes % block != 0:
@@ -207,7 +219,8 @@ def _pool_len(nslots: int, K: int) -> int:
     return nslots * _RECORDS_PER_CTA * 2 * K
 
 
-def _launch(z: P.PWL, scalars, levels: int, block: int, sellers):
+def _launch(z: P.PWL, scalars, levels: int, block: int, sellers,
+            lane0: int, owned: int):
     """Launch the round kernel, ``LEVELS_PER_LAUNCH`` levels at a time;
     returns ``(z_new, pieces (R,), launches)``."""
     if not all(a.is_contiguous() for a in (*z, scalars)):
@@ -217,7 +230,8 @@ def _launch(z: P.PWL, scalars, levels: int, block: int, sellers):
         raise ValueError(f"capacity {K} > {MAX_CAPACITY} is not built")
     if S > 2:      # a CTA holds two sides; the sides never mix
         parts = [_launch(z.map(lambda a: a[:, s:s + 2].contiguous()),
-                         scalars, levels, block, sellers[s:s + 2])
+                         scalars, levels, block, sellers[s:s + 2], lane0,
+                         owned)
                  for s in range(0, S, 2)]
         return (P.PWL(*(torch.cat(c, dim=1)
                         for c in zip(*(p[0] for p in parts)))),
@@ -246,7 +260,7 @@ def _launch(z: P.PWL, scalars, levels: int, block: int, sellers):
         pc = torch.empty((R, len(plan)), dtype=torch.int32, device=dev)
         ptrs = [a.data_ptr() for a in (*z, sc, *out, pc, wide, masks)]
         err = lib.rz_round_launch(*ptrs, nslots, R, S, lanes_in, lanes_out,
-                                  lanes, K, halo, lv, plan[0].owned,
+                                  owned, lane0, K, halo, lv, plan[0].owned,
                                   len(plan), mask, stream)
         _build.check(err, "rz_round_launch")
         pc = pc.amax(dim=1)
@@ -257,7 +271,8 @@ def _launch(z: P.PWL, scalars, levels: int, block: int, sellers):
 
 
 def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
-             sellers: tuple = (True, False)):
+             sellers: tuple = (True, False), lane0: int = 0,
+             owned: int | None = None):
     """One round of ``levels`` fused TC level steps over all node blocks.
 
     ``z``: PWL over ``(S, lanes)`` or ``(R, S, lanes)`` lanes (S sides,
@@ -265,6 +280,12 @@ def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
     ``(11,)`` or ``(R, 11)`` in ``RZ_SCALARS`` order.  Returns ``(z_new,
     pieces)`` with ``pieces`` the max raw knot count over owned live lanes
     (a scalar, or ``(R,)`` for a row batch).
+
+    ``lane0`` is the tree column of lane 0 (a shard of the node axis sets
+    it; its spots and its "no costs at level 0" rule follow the column),
+    and ``pieces`` counts lanes ``[0, owned)`` only (default all: a
+    shard's buffer ends in halo lanes that a single-block round's wrap
+    pollutes).
     """
     squeeze = z.sl.dim() == 2
     if squeeze:
@@ -273,13 +294,16 @@ def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
         raise ValueError("need z over (S, lanes) or (R, S, lanes) and "
                          "scalars (11,) or (R, 11)")
     sellers = tuple(bool(s) for s in sellers)
-    _check(z, scalars, levels, block, sellers)
+    lane0 = int(lane0)
+    owned = z.xs.shape[2] if owned is None else int(owned)
+    _check(z, scalars, levels, block, sellers, lane0, owned)
     if z.xs.device.type == "cuda":
-        out, pieces, launches = _launch(z, scalars, levels, block, sellers)
+        out, pieces, launches = _launch(z, scalars, levels, block, sellers,
+                                        lane0, owned)
         LAUNCHES["rz_round"] += launches
     elif z.xs.device.type == "cpu":
         out, pieces = rz_round_plain(z, scalars, levels=levels, block=block,
-                                     sellers=sellers)
+                                     sellers=sellers, lane0=lane0, owned=owned)
     else:
         raise ValueError(f"unsupported device {z.xs.device}")
     if squeeze:

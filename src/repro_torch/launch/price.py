@@ -1,14 +1,17 @@
 """Pricing launcher: the paper's workload from the command line.
 
     PYTHONPATH=src python -m repro_torch.launch.price --n-steps 500 \\
-        --contracts 8 [--data D --model 1] [--no-tc] [--device cpu]
+        --contracts 8 [--data D --model M] [--no-tc] [--device cpu]
 
 The port of the JAX package's ``launch/price.py``, with the same flags
 and output lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the
-kernels' plain versions).  Contracts shard over ``--data D`` devices
-(``devices=D`` of the grid engines: the scenario axis).  The node axis
-(``--model > 1``: the paper's §4 halo rounds over several devices) is
-not ported yet.
+kernels' plain versions).  This mode prices through the node-axis
+engines (``core/distributed.py::build_rz_sharded`` /
+``build_notc_sharded``, the paper's §4 halo rounds of ``--round-depth``
+levels) on a ``D x M`` mesh: contracts over ``--data D``, each tree's
+nodes over ``--model M``.  Where the process sees fewer than ``D * M``
+devices of ``--device``'s kind, the mesh repeats its first one; the
+``[mesh: ...]`` line says which ran.
 
 Scenario-grid mode (one call over the cartesian product of the axes)::
 
@@ -38,12 +41,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 
-from ..api import ScenarioGrid, price_grid
+from ..api import price_grid
 from ..configs.pricing import (LEGACY_BACKENDS, ExecutionConfig,
                                PricingConfig)
+from ..core.distributed import (DeviceMesh, build_notc_sharded,
+                                build_rz_sharded)
+from ..core.payoff import american_put, bull_spread
+from .mesh import make_test_mesh
 
 
 def _floats(csv: str):
@@ -114,40 +122,59 @@ def run_grid(args):
     return res
 
 
+@dataclasses.dataclass
+class ContractRun:
+    """What the non-grid mode priced: ``ask`` and ``bid`` (equal, the
+    price, without costs), the largest knot count (``None`` without
+    costs) and the mesh it ran on."""
+    ask: np.ndarray
+    bid: np.ndarray
+    max_pieces: Optional[int]
+    mesh: DeviceMesh
+
+
+def _mesh_line(mesh: DeviceMesh) -> str:
+    devs = mesh.devices.ravel()
+    names = (str(devs[0]) if all(d == devs[0] for d in devs)
+             else ", ".join(str(d) for d in devs))
+    return f"[mesh: {mesh.shape['data']} x {mesh.shape['model']} on {names}]"
+
+
 def run_contracts(args):
     """Non-grid mode: ``--contracts`` puts (or bull spreads) at spots
-    90..110 through the grid engines, over ``--data`` devices."""
-    if args.model > 1:
-        raise NotImplementedError(
-            f"--model {args.model}: sharding the lattice's node axis over "
-            "devices is not ported yet (ROADMAP Queue A #7 (node axis)); "
-            "use --model 1 and --data D")
+    90..110 through the node-axis engines on a ``--data`` x ``--model``
+    mesh, as the JAX package's launcher does."""
+    ex = _execution(args)
+    mesh = make_test_mesh(args.data, args.model, kind=ex.device, repeat=True)
+    print(_mesh_line(mesh))
     n = args.contracts
-    tc = not args.no_tc
-    put = args.payoff == "put" or not tc
-    grid = ScenarioGrid.explicit(
-        s0=np.linspace(90.0, 110.0, n), sigma=0.2, rate=0.1, maturity=0.25,
-        cost_rate=args.cost_rate if tc else 0.0,
-        payoff="put" if put else "bull_spread",
-        strike=100.0 if put else 95.0, strike2=None if put else 105.0,
-        n_steps=args.n_steps)
-    cfg = _execution(args, engine="rz" if tc else "notc",
-                     devices=args.data)
+    s0 = np.linspace(90.0, 110.0, n)
+    sig, rate, mat = (np.full(n, x) for x in (0.2, 0.1, 0.25))
     t0 = time.perf_counter()
-    res = price_grid(grid, execution=cfg, capacity=args.capacity,
-                     levels=args.round_depth)
-    dt = time.perf_counter() - t0
-    for i in range(n):
-        if tc:
-            print(f"S0={grid.s0[i]:6.1f}  ask={res.ask[i]:.6f}  "
-                  f"bid={res.bid[i]:.6f}")
-        else:
-            print(f"S0={grid.s0[i]:6.1f}  price={res.ask[i]:.6f}")
-    if tc:
-        print(f"max PWL knots: {res.max_pieces} (capacity {args.capacity})")
+    if args.no_tc:
+        f = build_notc_sharded(mesh, n_steps=args.n_steps, strike=100.0,
+                               round_depth=args.round_depth,
+                               backend=ex.backend)
+        ask = bid = f(s0, sig, rate, mat).numpy()
+        pieces = None
+        dt = time.perf_counter() - t0
+        for i in range(n):
+            print(f"S0={s0[i]:6.1f}  price={ask[i]:.6f}")
+    else:
+        pay = american_put(100.0) if args.payoff == "put" else bull_spread()
+        f = build_rz_sharded(mesh, n_steps=args.n_steps, payoff=pay,
+                             capacity=args.capacity,
+                             round_depth=args.round_depth,
+                             backend=ex.backend)
+        ask, bid, pieces = f(s0, sig, rate, mat, np.full(n, args.cost_rate))
+        ask, bid = ask.numpy(), bid.numpy()
+        dt = time.perf_counter() - t0
+        for i in range(n):
+            print(f"S0={s0[i]:6.1f}  ask={ask[i]:.6f}  bid={bid[i]:.6f}")
+        print(f"max PWL knots: {pieces} (capacity {args.capacity})")
     print(f"{n} contracts, N={args.n_steps}: {dt:.2f}s (the first call on "
           "a card includes building the kernels)")
-    return res
+    return ContractRun(ask=ask, bid=bid, max_pieces=pieces, mesh=mesh)
 
 
 def main(argv=None):

@@ -358,11 +358,10 @@ def test_scenario_grid_matches_jax_layout():
                 any_tc=any_tc, n_assets=n_assets, exercise_steps=ex)
 
 
-def test_unported_paths_raise_naming_the_roadmap():
-    """LSMC (Queue A #6), scenario sharding (#7) and the pricing
-    service (#8) run now; what is left unported raises naming its
-    ROADMAP item: the launcher's node axis (#7) and the language models
-    not ported yet (#11)."""
+def test_unported_paths_raise_naming_the_roadmap(capsys):
+    """LSMC (Queue A #6), scenario and node-axis sharding (#7) and the
+    pricing service (#8) run now; what is left unported raises naming
+    its ROADMAP item: the language models not ported yet (#11)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import price as launch
     g = ScenarioGrid.cartesian(s0=100.0, n_steps=4)
@@ -376,9 +375,10 @@ def test_unported_paths_raise_naming_the_roadmap():
         api.price_grid(g, mesh=object(), execution=_cfg("torch"))
     with pytest.raises(ValueError, match="backend"):
         api.price_grid(g, execution=_cfg("jnp"))
-    with pytest.raises(NotImplementedError,
-                       match=r"Queue A #7 \(node axis\)"):
-        launch.main(["--model", "2", "--device", "cpu", "--n-steps", "4"])
+    run = launch.main(["--model", "2", "--device", "cpu", "--n-steps", "4",
+                       "--contracts", "2"])
+    assert "[mesh: 1 x 2 on cpu]" in capsys.readouterr().out
+    assert np.isfinite(run.ask).all() and (run.ask >= run.bid).all()
     with pytest.raises(KeyError, match="Queue A #11"):
         get_config("qwen3-0.6b")
 
@@ -415,7 +415,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "launch/serve.py", "configs/base.py",
             "configs/recurrentgemma_2b.py", "core/lsmc.py",
             "core/distributed.py", "core/partition.py",
-            "launch/price.py"} <= names
+            "launch/price.py", "launch/mesh.py"} <= names
     for path in files:
         text = path.read_text()
         assert not _FORBIDDEN.search(text), path

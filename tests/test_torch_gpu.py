@@ -159,6 +159,49 @@ def test_rz_kernel_matches_plain(cuda, case):
         assert int(z.m.max()) > TR.INLINE_KNOTS
 
 
+# (n_steps, capacity, lanes, levels, lane0, owned, walk, payoff): a
+# node-axis shard's [S owned | H halo] buffer at tree column lane0, the
+# last shard's (its halo beyond the tree), and two launches' worth of
+# levels
+RZ_LANE0_CASES = {
+    "shard-1-of-4": (300, 48, 81, 5, 76, 76, 0, PUT),
+    "last-shard": (300, 48, 81, 5, 228, 76, 20, BULL),
+    "call-wide-lanes-two-launches": (120, 48, 100, 200, 20, 60, 64, CALL),
+}
+
+
+@pytest.mark.parametrize("case", list(RZ_LANE0_CASES))
+def test_rz_kernel_with_lane0_and_owned_matches_plain(cuda, case):
+    n, K, lanes, levels, lane0, owned, walk, pay = RZ_LANE0_CASES[case]
+    z, sc = _rz_state(n, K, n + 2, walk, cuda, pay)
+    z = z.map(lambda a: torch.cat([a, a], dim=2)[:, :, lane0:lane0 + lanes]
+              .contiguous())
+    kw = dict(levels=levels, block=lanes, lane0=lane0, owned=owned)
+    got, pieces = TR.rz_round(z, sc, **kw)
+    want, wp = TR.rz_round_plain(z, sc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.m, want.m)
+    assert torch.equal(pieces, wp)
+    for a, b in zip(got[:4], want[:4]):
+        assert (a - b).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("kind,lane0,P,block,levels", [
+    ("put", 10001, 10240, 256, 50), ("call", 77, 512, 64, 40),
+    ("param", 300, 1024, 256, 256)])
+def test_lattice_kernel_with_lane0_matches_plain(cuda, kind, lane0, P, block,
+                                                 levels):
+    v, sc = _lattice_inputs(kind, 4, P, cuda, [P + lane0 - 10.0, 30.0,
+                                                 lane0 + 5.0, 2.0 * P])
+    fn = TB.lattice_round_param if kind == "param" else TB.lattice_round
+    kw = {} if kind == "param" else {"kind": kind}
+    got = fn(v, sc, levels=levels, block=block, lane0=lane0, **kw)
+    want = TB.lattice_round_plain(v, sc, levels=levels, block=block,
+                                  kind=kind, lane0=lane0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("sides", [(True,), (False, True, True)])
 def test_rz_kernel_takes_any_number_of_sides(cuda, sides):
     """A CTA holds two sides; one side, or three in two launches, give
@@ -228,6 +271,39 @@ def test_layouts_bit_equal_on_card(cuda, engine):
             assert np.array_equal(a, b[:a.size]), (label, f)
     if engine == "lsmc":
         assert np.isfinite(one.stderr).all() and (one.stderr > 0).all()
+
+
+@pytest.mark.parametrize("engine", ["rz", "notc"])
+def test_node_axis_on_card_equals_one_shard(cuda, engine):
+    """The node axis on (cuda:0,) * 4 and, where the machine has more
+    than one card, on distinct cards (halos by peer copies) gives the
+    bits of one shard, with halo rounds on every mesh."""
+    from repro_torch.core.distributed import (DeviceMesh, build_notc_sharded,
+                                              build_rz_sharded)
+    from repro_torch.core.payoff import american_put
+    s0 = np.linspace(90.0, 110.0, 8)
+    col = lambda x: np.full(8, x)
+
+    def run(devs):
+        mesh = DeviceMesh([devs], ("data", "model"))
+        if engine == "rz":
+            f = build_rz_sharded(mesh, n_steps=300, payoff=american_put(100.0),
+                                 round_depth=5, collapse_lanes=40)
+            return f(s0, col(0.2), col(0.1), col(0.25), col(0.005))
+        f = build_notc_sharded(mesh, n_steps=3000, strike=100.0,
+                               round_depth=50, collapse_lanes=200)
+        return (f(s0, col(0.3), col(0.06), col(3.0)),)
+
+    one = run([cuda])
+    meshes = [[cuda] * 4]
+    n = torch.cuda.device_count()
+    if n > 1:
+        meshes.append([torch.device("cuda", i) for i in range(min(n, 4))])
+    for devs in meshes:
+        got = run(devs)
+        for a, b in zip(one, got):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b), devs
 
 
 @pytest.mark.parametrize("B,T,W", [(2, 77, 2560), (3, 256, 100),

@@ -2,9 +2,12 @@
 
 Grid mode prints what ``api.price_grid`` returns for the same execution
 (the ``[simulated mesh: ...]`` line and the ``se=`` column included);
-the non-grid mode with ``--model 1`` prices its contracts through the
-port's grid engines and agrees to 1e-9 with the JAX package's
-node-sharded builders on a 1 x 1 mesh.
+the non-grid mode prices its contracts through the port's node-axis
+engines on a ``--data`` x ``--model`` mesh (here 1 x 2, with halo
+rounds) and agrees to 1e-9 with the JAX package's node-sharded builders
+on a 1 x 1 mesh, given a ``collapse_lanes`` that makes them run halo
+rounds too.  On one shard JAX's halo lanes lie beyond the tree, so its
+``stat`` is the exact knot count, which the launcher prints.
 """
 import argparse
 import re
@@ -16,10 +19,12 @@ import pytest
 
 import repro.core  # noqa: F401  (x64)
 from repro.core.distributed import build_notc_sharded, build_rz_sharded
+from repro.core.distributed import plan_rounds as j_plan_rounds
 from repro.core.payoff import american_put
 from repro.launch.mesh import make_test_mesh
 
 from repro_torch import api
+from repro_torch.core import distributed as PT
 from repro_torch.launch import price as launch
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -64,25 +69,32 @@ def test_grid_mode_prints_the_api_prices(capsys, argv, execution, grid):
 
 @pytest.mark.parametrize("extra", [[], ["--no-tc"]], ids=["put", "notc"])
 def test_contract_mode_matches_jax_node_sharded_builders(capsys, extra):
-    n_steps, n, depth = 6, 4, 3
+    n_steps, n, depth = 16, 4, 3
     res = launch.main(["--device", "cpu", "--n-steps", str(n_steps),
                        "--contracts", str(n), "--capacity", "8",
-                       "--round-depth", str(depth), "--data", "2"] + extra)
+                       "--round-depth", str(depth), "--data", "1",
+                       "--model", "2"] + extra)
     out = capsys.readouterr().out
-    assert res.shard_info.plan.n_shards == 2
+    assert "[mesh: 1 x 2 on cpu]" in out
+    assert PT.plan_rounds(n_steps - ("--no-tc" in extra), 2, depth)[
+        "rounds"] > 0
     mesh = make_test_mesh(1, 1)
+    collapse = 5
+    assert j_plan_rounds(n_steps - ("--no-tc" in extra), 1, depth,
+                         collapse)["rounds"] > 0
     s0 = jnp.linspace(90.0, 110.0, n).astype(jnp.float64)
     col = lambda x: jnp.full((n,), x)
     if "--no-tc" in extra:
         f = jax.jit(build_notc_sharded(mesh, n_steps=n_steps, strike=100.0,
-                                       round_depth=depth))
+                                       round_depth=depth,
+                                       collapse_lanes=collapse))
         want = np.asarray(f(s0, col(0.2), col(0.1), col(0.25)))
         np.testing.assert_allclose(res.ask, want, rtol=0, atol=TOL)
         assert "price=" in out
         return
     f = jax.jit(build_rz_sharded(mesh, n_steps=n_steps,
                                  payoff=american_put(100.0), capacity=8,
-                                 round_depth=depth))
+                                 round_depth=depth, collapse_lanes=collapse))
     ask, bid, pieces = f(s0, col(0.2), col(0.1), col(0.25), col(0.005))
     np.testing.assert_allclose(res.ask, np.asarray(ask), rtol=0, atol=TOL)
     np.testing.assert_allclose(res.bid, np.asarray(bid), rtol=0, atol=TOL)

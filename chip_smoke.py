@@ -96,7 +96,20 @@ that a prefill of 4096 tokens and a decode of token 4096 give a prefill
 of 4097's last logits (the kernels' ragged last tile).  Last it
 profiles one prefill and four decode steps (``torch.profiler``): device
 time by kernel and the device's idle share within the profiled window.
-TF32 is switched off for matrix products and cuDNN before the LM runs,
+
+Then the same serve, checks and profile for two more architectures at
+their published width and depth, each with random float32 weights
+drawn on the card and freed before the next: falcon-mamba-7b (64 mamba
+layers, d_model 4096, d_state 16; batch 2, prompt 4096, 32 tokens), its
+``lru_scan`` held bit for bit on the first mamba layer's captured
+inputs (the flattened ``(B, T, di * ds)`` width, 131072 channels) and on
+slow-decay inputs of that shape, 64 launches a prefill; and qwen3-4b
+(36 attention layers, 32 query heads over 8 KV heads, head_dim 128,
+qk-norm; batch 4, prompt 4096, 32 tokens), its causal
+``flash_attention`` held to 2e-5 on the first layer's captured inputs
+beside ``scaled_dot_product_attention(is_causal=True)`` on the same
+tensors, 36 launches a prefill.  Neither launches a kernel in decode.
+TF32 is switched off for matrix products and cuDNN before the LMs run,
 so every product compared is full float32.
 
 Each launcher runs in a session of its own and fails the script if any
@@ -138,15 +151,22 @@ SPLIT_TF32_MMAS = 3
 LATTICE_STEP_OPS = 5
 LATTICE_INTRINSIC_OPS = {"param": 15, "put": 5, "call": 5}
 CB_STEPS = 120    # depth of the call/bull-spread grid
-# the LM serve: recurrentgemma-2b at full width
+# the LM serves at full width: (arch, batch, prompt, new tokens).
+# falcon-mamba-7b at batch 2: its scan tensors (B, T, di * ds) are 4.3 GB
+# each at B = 2, T = 4096 (W = 8192 * 16 = 131072), 8.6 GB at batch 4,
+# where a layer's three of them and the 29.1 GB of float32 weights would
+# leave too little of the 80 GB for the kernel holds beside them
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "recurrentgemma-2b", 4, 4096, 32
+MAMBA_SERVE = ("falcon-mamba-7b", 2, 4096, 32)
+GQA_SERVE = ("qwen3-4b", 4, 4096, 32)
 # flash against its plain version: the bound JAX's own flash is held to.
 # lru_scan rounds as its plain version does (no fused multiply-add) and
 # is held to equality, within the float32 contract's 2e-6.
 FLASH_TOL = 2e-5
 # prefill(T) + decode(T) against prefill(T + 1), last logits: float32
-# through 26 layers, sums of up to 7680 terms in other orders (flash
-# kernel against naive decode attention, cuBLAS at other shapes)
+# through 26 to 64 layers, sums of up to 9728 terms in other orders (flash
+# kernel against naive decode attention, the scan against the one-step
+# update, cuBLAS at other shapes)
 CONSIST_TOL = 1e-3
 # lru_scan's edge shapes (B, T, W): a ragged last ring chunk, T shorter
 # than a chunk, W not a multiple of a warp's 32 channels nor 16-byte
@@ -682,113 +702,145 @@ def capture_kernel_inputs(ops, fn):
     return out, seen
 
 
-def lm_kernel_phase(torch, np, FL, LS, seen):
-    """lru_scan and flash_attention vs their plain versions on the inputs
-    the full-width prefill gave them (lru_scan also on slow-decay inputs
-    of the same shape); SDPA with the same mask as the attention kernel's
-    yardstick."""
-    import torch.nn.functional as F
-    out = {}
-    (a, b, h0), _ = seen["lru_scan"]
-    # the captured a is about exp(-16): h_t is b_t to within an ulp, so a
-    # kernel that dropped the carry would pass on them.  Slow decay, as
-    # trained RG-LRU gates have, makes the carry dominate.
-    g = torch.Generator(device=a.device).manual_seed(7)
-    slow = (0.9 + 0.1 * torch.rand(a.shape, generator=g, device=a.device),
-            torch.randn(a.shape, generator=g, device=a.device),
-            torch.randn(h0.shape, generator=g, device=a.device))
+def lru_hold(torch, LS, seen, label):
+    """``lru_scan`` against its plain version, bit for bit, on the inputs
+    the first scanning layer of a full-width prefill gave it (taken out of
+    ``seen``), timed there; then on seeded inputs of the same shape whose
+    decay is slow.  Returns the kernel's record."""
+    (a, b, h0), _ = seen.pop("lru_scan")
     errs = {}
-    for label, xs in (("prefill inputs", (a, b, h0)), ("slow decay", slow)):
+
+    def hold(what, xs):
         got = LS.lru_scan(*xs)
         want = LS.lru_scan_plain(*xs)
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(got, want))
-        errs[label] = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        errs[what] = max(float((x - y).abs().max()) for x, y in zip(got, want))
         carry = float((want[0] - xs[1]).abs().max())
-        print(f"[kernel] lru_scan {label}: equal to plain {same}, max abs "
-              f"err {errs[label]:.3e}, max |h_t - b_t| {carry:.3e}", flush=True)
-        check(same, f"lru_scan {label}: kernel differs from plain "
-              f"(max abs err {errs[label]})")
-    del slow, got, want
-    for Bx, Tx, Wx in LRU_EDGES:
-        xs = (torch.rand(Bx, Tx, Wx, generator=g, device=a.device),
-              torch.randn(Bx, Tx, Wx, generator=g, device=a.device),
-              torch.randn(Bx, Wx, generator=g, device=a.device))
-        got, want = LS.lru_scan(*xs), LS.lru_scan_plain(*xs)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(got, want))
-        label = f"edge B={Bx} T={Tx} W={Wx}"
-        errs[label] = max(float((x - y).abs().max())
-                          for x, y in zip(got, want))
-        print(f"[kernel] lru_scan {label}: equal to plain {same}", flush=True)
-        check(same, f"lru_scan {label}: kernel differs from plain")
-    err = max(errs.values())
+        print(f"[kernel] lru_scan {label}{what}: a,b {tuple(xs[0].shape)} "
+              f"equal to plain {same}, max abs err {errs[what]:.3e}, max "
+              f"|h_t - b_t| {carry:.3e}", flush=True)
+        check(same, f"lru_scan {label}{what}: kernel differs from plain "
+              f"(max abs err {errs[what]})")
+
+    hold("prefill inputs", (a, b, h0))
     ms = cuda_ms(torch, lambda: LS.lru_scan(a, b, h0), 20)
     plain_ms = cuda_ms(torch, lambda: LS.lru_scan_plain(a, b, h0), 2)
-    n = a.numel()
-    t_bytes = (3 * n + 2 * h0.numel()) * 4 / HBM_BYTES_PER_S
+    shape, n, n_h = tuple(a.shape), a.numel(), h0.numel()
+    dev = a.device
+    del a, b, h0
+    # the captured a of a random init decays fast (recurrentgemma's is
+    # about exp(-16)): h_t is b_t to within an ulp, so a kernel that
+    # dropped the carry would pass on them.  Slow decay, as trained gates
+    # have, makes the carry dominate.
+    g = torch.Generator(device=dev).manual_seed(7)
+    slow = (0.9 + 0.1 * torch.rand(shape, generator=g, device=dev),
+            torch.randn(shape, generator=g, device=dev),
+            torch.randn((shape[0], shape[2]), generator=g, device=dev))
+    hold("slow decay", slow)
+    del slow
+    t_bytes = (3 * n + 2 * n_h) * 4 / HBM_BYTES_PER_S
     t_ops = 2 * n / FP32_OPS_PER_S
-    out["lru_scan"] = dict(max_abs_err=err, errs=errs, ms=ms,
-                           plain_ms=plain_ms,
-                           bound_ms=max(t_ops, t_bytes) * 1e3,
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations", library_ms=None,
-                           shape=list(a.shape))
-    print(f"[kernel] lru_scan: a,b {tuple(a.shape)} max_abs_err={err:.3e} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={out['lru_scan']['bound_ms']:.4f}", flush=True)
+    rec = dict(max_abs_err=max(errs.values()), errs=errs, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, shape=list(shape))
+    print(f"[kernel] lru_scan{' ' + label.strip() if label else ''}: a,b "
+          f"{shape} max_abs_err={rec['max_abs_err']:.3e} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f}",
+          flush=True)
+    return rec
 
-    (q, k, v), kw = seen["flash_attention"]
+
+def flash_hold(torch, np, FL, seen, label):
+    """``flash_attention`` against its plain version on the inputs the
+    first attention layer of a full-width prefill gave it (taken out of
+    ``seen``), timed there beside ``scaled_dot_product_attention`` on the
+    same tensors with the same mask.  Returns the kernel's record."""
+    import torch.nn.functional as F
+    (q, k, v), kw = seen.pop("flash_attention")
     B, T, H, hd = q.shape
     S = k.shape[1]
     got = FL.flash_attention(q, k, v, **kw)
     want = FL.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(err <= FLASH_TOL, f"flash_attention: kernel vs plain max abs err "
-          f"{err}")
+    check(err <= FLASH_TOL, f"flash_attention {label.strip() or 'prefill'}: "
+          f"kernel vs plain max abs err {err}")
+    del want
     ms = cuda_ms(torch, lambda: FL.flash_attention(q, k, v, **kw), 5)
     plain_ms = cuda_ms(torch, lambda: FL.flash_attention_plain(q, k, v, **kw),
                        2)
     # the library's attention on the same inputs, heads first, the KV head
-    # repeated for every query head, the same causal-window mask
+    # repeated for every query head, the same mask
     qs = q.transpose(1, 2)
-    ks = k.transpose(1, 2).expand(B, H, S, hd).contiguous()
-    vs = v.transpose(1, 2).expand(B, H, S, hd).contiguous()
-    pos_q = torch.arange(T, device=q.device)[:, None]
-    pos_k = torch.arange(S, device=q.device)[None, :]
-    mask = pos_q >= pos_k if kw["causal"] else torch.ones_like(pos_q >= pos_k)
-    if kw["window"] is not None:
-        mask &= pos_q - pos_k < kw["window"]
-    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    ks = k.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
+    vs = v.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
+    if kw["causal"] and kw["window"] is None:
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=True)
+    else:
+        pos_q = torch.arange(T, device=q.device)[:, None]
+        pos_k = torch.arange(S, device=q.device)[None, :]
+        mask = (pos_q >= pos_k if kw["causal"]
+                else torch.ones_like(pos_q >= pos_k))
+        if kw["window"] is not None:
+            mask &= pos_q - pos_k < kw["window"]
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=mask)
     lib_err = float((sdpa().transpose(1, 2) - got).abs().max())
     lib_ms = cuda_ms(torch, sdpa, 5)
-    del ks, vs
+    del ks, vs, got
     pairs = live_pairs(np, T, S, kw["causal"], kw["window"]) * B * H
     # the kernel's products: 3 TF32 MMAs (split TF32) of 4*hd operations a
     # live pair; the FFMA bound of the same pairs beside it
     t_ops = SPLIT_TF32_MMAS * 4 * hd * pairs / TF32_OPS_PER_S
     t_ffma = 4 * hd * pairs / FP32_OPS_PER_S
     t_bytes = 2 * (q.numel() + k.numel()) * 4 / HBM_BYTES_PER_S
-    out["flash_attention"] = dict(
+    rec = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_ops, t_bytes) * 1e3, ffma_bound_ms=t_ffma * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_max_abs_diff=lib_err, live_pairs=pairs,
-        q_shape=list(q.shape), kv_shape=list(k.shape), window=kw["window"])
-    print(f"[kernel] flash_attention: q {tuple(q.shape)} k,v {tuple(k.shape)} "
+        q_shape=list(q.shape), kv_shape=list(k.shape), causal=kw["causal"],
+        window=kw["window"])
+    print(f"[kernel] flash_attention{' ' + label.strip() if label else ''}: "
+          f"q {tuple(q.shape)} k,v {tuple(k.shape)} causal={kw['causal']} "
           f"window={kw['window']} live_pairs={pairs} max_abs_err={err:.3e} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={out['flash_attention']['bound_ms']:.4f} (split TF32 "
-          f"on the tensor cores) ffma_bound_ms={t_ffma * 1e3:.4f} "
-          f"sdpa_ms={lib_ms:.4f} (sdpa vs kernel {lib_err:.3e})", flush=True)
-    del q, k, v, got, want
+          f"bound_ms={rec['bound_ms']:.4f} (split TF32 on the tensor cores) "
+          f"ffma_bound_ms={t_ffma * 1e3:.4f} sdpa_ms={lib_ms:.4f} (sdpa vs "
+          f"kernel {lib_err:.3e})", flush=True)
+    return rec
+
+
+def rg_kernel_phase(torch, np, FL, LS, seen):
+    """recurrentgemma-2b's holds: both kernels on the prefill's inputs
+    (``lru_hold``, ``flash_hold``), ``lru_scan`` on edge shapes and
+    ``flash_attention`` beyond the prefill's instance (``FLASH_EXTRA``)."""
+    out = {"lru_scan": lru_hold(torch, LS, seen, ""),
+           "flash_attention": flash_hold(torch, np, FL, seen, "")}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    for Bx, Tx, Wx in LRU_EDGES:
+        xs = (torch.rand(Bx, Tx, Wx, generator=g, device=dev),
+              torch.randn(Bx, Tx, Wx, generator=g, device=dev),
+              torch.randn(Bx, Wx, generator=g, device=dev))
+        got, want = LS.lru_scan(*xs), LS.lru_scan_plain(*xs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        label = f"edge B={Bx} T={Tx} W={Wx}"
+        out["lru_scan"]["errs"][label] = max(
+            float((x - y).abs().max()) for x, y in zip(got, want))
+        print(f"[kernel] lru_scan {label}: equal to plain {same}", flush=True)
+        check(same, f"lru_scan {label}: kernel differs from plain")
+    out["lru_scan"]["max_abs_err"] = max(out["lru_scan"]["errs"].values())
     extra = out["flash_attention"]["extra"] = {}
-    g = torch.Generator(device=a.device).manual_seed(11)
+    g = torch.Generator(device=dev).manual_seed(11)
     for label, Bx, Tx, Hx, KVHx, hdx, causal, window in FLASH_EXTRA:
-        qx = torch.randn(Bx, Tx, Hx, hdx, generator=g, device=a.device)
-        kx = torch.randn(Bx, Tx, KVHx, hdx, generator=g, device=a.device)
-        vx = torch.randn(Bx, Tx, KVHx, hdx, generator=g, device=a.device)
+        qx = torch.randn(Bx, Tx, Hx, hdx, generator=g, device=dev)
+        kx = torch.randn(Bx, Tx, KVHx, hdx, generator=g, device=dev)
+        vx = torch.randn(Bx, Tx, KVHx, hdx, generator=g, device=dev)
         kwx = dict(causal=causal, window=window)
         got = FL.flash_attention(qx, kx, vx, **kwx)
         want = FL.flash_attention_plain(qx, kx, vx, **kwx)
@@ -829,7 +881,8 @@ def profile_window(torch, fn):
     return wall_s, n_kernels, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
-def lm_profile(torch, T_, model, cfg, run, prompt, timings, n_dec=4):
+def lm_profile(torch, T_, model, cfg, run, prompt, prompt_len, timings,
+               n_dec=4):
     """Where a full-width prefill and ``n_dec`` decode steps spend device
     time, and the device's idle share: 1 - device busy time over the
     host-clock time of the same profiled window.  The tracing slows the
@@ -839,14 +892,14 @@ def lm_profile(torch, T_, model, cfg, run, prompt, timings, n_dec=4):
 
     def do_prefill():
         state["last"], state["cache"] = T_.prefill(
-            model, {"tokens": prompt[:, :LM_PROMPT]}, cfg, run,
-            max_len=LM_PROMPT + n_dec)
+            model, {"tokens": prompt[:, :prompt_len]}, cfg, run,
+            max_len=prompt_len + n_dec)
 
     def do_decode():
         tok = torch.argmax(state["last"], dim=-1)[:, None]
         for i in range(n_dec):
             logits, _ = T_.decode_step(model, state["cache"], tok,
-                                       LM_PROMPT + i, cfg, run)
+                                       prompt_len + i, cfg, run)
             tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
     out = {}
     for label, fn, steps, unprofiled_s in (
@@ -862,101 +915,113 @@ def lm_profile(torch, T_, model, cfg, run, prompt, timings, n_dec=4):
                           unprofiled_s=unprofiled_s, idle_share=idle,
                           kernels=n_kernels / steps, top_kernels_s=top)
         share = ", ".join(f"{n} {t * 1e3:.3f} ms" for n, t in top)
-        print(f"[profile] {label} (per {'step' if steps > 1 else 'call'}): "
+        print(f"[profile] {cfg.name} {label} (per "
+              f"{'step' if steps > 1 else 'call'}): "
               f"{n_kernels / steps:.0f} kernels, device busy "
               f"{busy_s * 1e3:.3f} ms of {profiled_s * 1e3:.3f} ms under the "
               f"profiler (idle share "
               f"{'not measured' if idle is None else f'{idle:.3f}'}; "
               f"unprofiled serve {unprofiled_s * 1e3:.3f} ms); "
               f"top kernels: {share}", flush=True)
+    state.clear()
     return out
 
 
-def lm_phase(torch, np, mod, all_launches):
-    """recurrentgemma-2b at full width: the prefill/decode consistency
-    check (capturing the kernels' inputs), each kernel against its plain
-    version, then the serve through ``LMEngine.generate``."""
+def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
+             holds):
+    """One architecture at its published width and depth: the
+    prefill/decode consistency check (capturing the kernels' inputs),
+    ``holds(seen)`` holding each kernel against its plain version on
+    them, then the serve through ``LMEngine.generate`` with its launch
+    counts, and a profiled prefill and four decode steps.  Returns
+    ``(kernel records, launches, serve record)``; the model is freed
+    before it returns."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     T_, cfgs, ops = mod("models.transformer"), mod("configs"), \
         mod("kernels.ops")
     FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
     dev = torch.device("cuda")
-    cfg = cfgs.get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    cfg = cfgs.get_config(arch)
     run = T_.RunCfg(impl="flash")
     gen = torch.Generator(device=dev).manual_seed(0)
     model, init_s = wall(torch, lambda: T_.init_lm(cfg, gen, device=dev))
     n_params = sum(p.numel() for p in model.parameters())
-    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1),
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len + 1),
                            generator=gen, device=dev)
-    print(f"[lm] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[lm] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters ({n_params * 4 / 1e9:.3f} GB float32), "
           f"initialised on the card in {init_s:.2f} s", flush=True)
 
-    # prefill(T) + decode(T) against prefill(T + 1): 4097 rows leave the
-    # kernel's last 64-row tile ragged
+    # prefill(T) + decode(T) against prefill(T + 1): T + 1 rows leave the
+    # kernels' last tile (attention) and ring chunk (scan) ragged
     ((last, cache), seen), pre_s = wall(torch, lambda: capture_kernel_inputs(
-        ops, lambda: T_.prefill(model, {"tokens": prompt[:, :LM_PROMPT]}, cfg,
-                                run, max_len=LM_PROMPT + 1)))
-    dec, _ = T_.decode_step(model, cache, prompt[:, LM_PROMPT:], LM_PROMPT,
+        ops, lambda: T_.prefill(model, {"tokens": prompt[:, :prompt_len]},
+                                cfg, run, max_len=prompt_len + 1)))
+    dec, _ = T_.decode_step(model, cache, prompt[:, prompt_len:], prompt_len,
                             cfg, run)
     del cache
     full, full_s = wall(torch, lambda: T_.prefill(model, {"tokens": prompt},
                                                   cfg, run)[0])
     d = float((dec[:, 0] - full).abs().max())
     finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
-    print(f"[check] {LM_ARCH} prefill {LM_PROMPT} ({pre_s:.3f} s) + decode "
-          f"of token {LM_PROMPT} vs prefill {LM_PROMPT + 1} ({full_s:.3f} s):"
-          f" max |d| logits {d:.3e} (tol {CONSIST_TOL}), logits "
+    print(f"[check] {arch} prefill {prompt_len} ({pre_s:.3f} s) + decode "
+          f"of token {prompt_len} vs prefill {prompt_len + 1} ({full_s:.3f} "
+          f"s): max |d| logits {d:.3e} (tol {CONSIST_TOL}), logits "
           f"{tuple(full.shape)} finite {finite}, max |logit| "
           f"{float(full.abs().max()):.3f}", flush=True)
-    check(finite and tuple(full.shape) == (LM_BATCH, cfg.vocab),
-          "LM logits finite and of shape (B, V)")
-    check(d <= CONSIST_TOL, f"prefill/decode consistency {d}")
+    check(finite and tuple(full.shape) == (batch, cfg.vocab),
+          f"{arch} logits finite and of shape (B, V)")
+    check(d <= CONSIST_TOL, f"{arch} prefill/decode consistency {d}")
     del dec, full
 
-    kern = lm_kernel_phase(torch, np, FL, LS, seen)
+    kern = holds(seen)
     del seen
 
     # the serve, through the engine a user calls
-    eng = mod("serve.engine").LMEngine(model, cfg, run, batch=LM_BATCH,
-                                       max_len=LM_PROMPT + LM_NEW)
-    prompt_np = prompt[:, :LM_PROMPT].cpu().numpy()
+    eng = mod("serve.engine").LMEngine(model, cfg, run, batch=batch,
+                                       max_len=prompt_len + n_new)
+    prompt_np = prompt[:, :prompt_len].cpu().numpy()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(all_launches)
-    out, gen_s = wall(torch, lambda: eng.generate(prompt_np, LM_NEW))
+    out, gen_s = wall(torch, lambda: eng.generate(prompt_np, n_new))
     launches = {"flash_attention": FL.LAUNCHES["flash_attention"],
                 "lru_scan": LS.LAUNCHES["lru_scan"]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tm = eng.timings
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
-    want = {"flash_attention": kinds.count("local"),
-            "lru_scan": kinds.count("rglru")}
+    want = {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+            "lru_scan": sum(k in ("rglru", "mamba") for k in kinds)}
     decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
-    tok_s = LM_BATCH * LM_NEW / gen_s
-    print(f"[main] {LM_ARCH} serve: batch {LM_BATCH}, prompt {LM_PROMPT}, "
-          f"{LM_NEW} new tokens in {gen_s:.3f} s: prefill "
+    tok_s = batch * n_new / gen_s
+    print(f"[main] {arch} serve: batch {batch}, prompt {prompt_len}, "
+          f"{n_new} new tokens in {gen_s:.3f} s: prefill "
           f"{tm['prefill_s']:.3f} s, decode {decode_ms:.3f} ms/token, "
-          f"{tok_s:.2f} tokens/s ({LM_BATCH * LM_NEW} generated), "
-          f"{LM_BATCH * (LM_PROMPT + LM_NEW) / gen_s:.1f} prompt+generated "
+          f"{tok_s:.2f} tokens/s ({batch * n_new} generated), "
+          f"{batch * (prompt_len + n_new) / gen_s:.1f} prompt+generated "
           f"tokens/s; launches {json.dumps(launches)}; peak device memory "
           f"{peak_gb:.3f} GB", flush=True)
-    check(launches == want, f"LM launches {launches}, want {want} (one "
+    check(launches == want, f"{arch} launches {launches}, want {want} (one "
           "prefill, none in decode)")
-    check(out.shape == (LM_BATCH, LM_NEW) and (out >= 0).all()
-          and (out < cfg.vocab).all(), "generated tokens")
+    check(out.shape == (batch, n_new) and (out >= 0).all()
+          and (out < cfg.vocab).all(), f"{arch} generated tokens")
     top2 = torch.topk(last, 2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1] > CONSIST_TOL).cpu().numpy()
     first = torch.argmax(last, dim=-1).cpu().numpy()
     check((out[sure, 0] == first[sure]).all(),
-          "first served token vs the checked prefill's argmax")
-    prof = lm_profile(torch, T_, model, cfg, run, prompt, tm)
-    return kern, launches, dict(profile=prof,
-        params=n_params, init_s=init_s, prefill_s=tm["prefill_s"],
-        decode_ms_per_token=decode_ms, tokens_per_s=tok_s, generate_s=gen_s,
-        peak_device_gb=peak_gb, consistency_max_abs=d,
-        check_prefill_s=pre_s, check_prefill_4097_s=full_s)
+          f"{arch} first served token vs the checked prefill's argmax")
+    prof = lm_profile(torch, T_, model, cfg, run, prompt, prompt_len, tm)
+    del model, eng, last
+    torch.cuda.empty_cache()
+    return kern, launches, dict(
+        profile=prof, layers=cfg.n_layers, batch=batch, prompt=prompt_len,
+        new_tokens=n_new, params=n_params, init_s=init_s,
+        prefill_s=tm["prefill_s"], decode_ms_per_token=decode_ms,
+        tokens_per_s=tok_s, generate_s=gen_s, peak_device_gb=peak_gb,
+        consistency_max_abs=d, check_prefill_s=pre_s,
+        check_prefill_plus_one_s=full_s)
 
 
 def pricing_grids(api, cfgs, np):
@@ -1929,11 +1994,21 @@ def main() -> int:
     serving = serving_phase(torch, np, mod, cfgs, pricing_launches)
     serve_launcher = serve_launcher_phase()
 
-    # 4. the language model's serve path at full width
+    # 4. the language models' serve paths at full width
     FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
+    all_launches = (B.LAUNCHES, RS.LAUNCHES, FL.LAUNCHES, LS.LAUNCHES)
     lm_kern, lm_launches, lm = lm_phase(
-        torch, np, mod, (B.LAUNCHES, RS.LAUNCHES, FL.LAUNCHES, LS.LAUNCHES))
+        torch, np, mod, all_launches, LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW,
+        lambda seen: rg_kernel_phase(torch, np, FL, LS, seen))
     launches.update(lm_launches)
+    mamba_kern, mamba_launches, mamba = lm_phase(
+        torch, np, mod, all_launches, *MAMBA_SERVE,
+        lambda seen: {"lru_scan": lru_hold(torch, LS, seen, MAMBA_SERVE[0]
+                                           + " ")})
+    gqa_kern, gqa_launches, gqa = lm_phase(
+        torch, np, mod, all_launches, *GQA_SERVE,
+        lambda seen: {"flash_attention": flash_hold(torch, np, FL, seen,
+                                                    GQA_SERVE[0] + " ")})
 
     src = "src/repro_torch/csrc/"
     kernels = []
@@ -1960,22 +2035,32 @@ def main() -> int:
                         "5 float64 operations per node and active level, the "
                         "intrinsic once per distinct spot (exp as one), "
                         "over 34 TFLOP/s")))
-    for name, replaces, note in (
-            ("lru_scan", "src/repro/kernels/lru_scan.py:31",
-             "12 bytes per element (a, b read, h written) over 3.35 TB/s"),
-            ("flash_attention", "src/repro/kernels/flash_attention.py:29",
-             "split TF32: 3 TF32 MMAs of 4*hd operations per live (query, "
-             "key) pair over 495 TFLOP/s (ffma_bound_ms: the same pairs' "
-             "4*hd float32 operations over 67 TFLOP/s)")):
-        rec = lm_kern[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src + name + ".cu",
-            replaces=replaces, launches=launches[name],
-            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            bound_note=note, **({"ffma_bound_ms": rec["ffma_bound_ms"]}
-                                if "ffma_bound_ms" in rec else {})))
+    notes = {
+        "lru_scan": ("src/repro/kernels/lru_scan.py:31",
+                     "12 bytes per element (a, b read, h written) over "
+                     "3.35 TB/s"),
+        "flash_attention": ("src/repro/kernels/flash_attention.py:29",
+                            "split TF32: 3 TF32 MMAs of 4*hd operations per "
+                            "live (query, key) pair over 495 TFLOP/s "
+                            "(ffma_bound_ms: the same pairs' 4*hd float32 "
+                            "operations over 67 TFLOP/s)")}
+    # one entry a kernel and a main path that runs it: the earlier entries
+    # keep their names, this slice's carry the arch's
+    for path, recs, path_launches in (
+            (LM_ARCH, lm_kern, lm_launches),
+            (MAMBA_SERVE[0], mamba_kern, mamba_launches),
+            (GQA_SERVE[0], gqa_kern, gqa_launches)):
+        for name, rec in recs.items():
+            replaces, note = notes[name]
+            kernels.append(dict(
+                name=name if path == LM_ARCH else f"{name}.{path}",
+                route="cuda", source=src + name + ".cu", replaces=replaces,
+                launches=path_launches[name], max_abs_err=rec["max_abs_err"],
+                ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                library_ms=rec["library_ms"], main_path=f"{path} serve",
+                bound_note=note, **({"ffma_bound_ms": rec["ffma_bound_ms"]}
+                                    if "ffma_bound_ms" in rec else {})))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
@@ -1989,7 +2074,9 @@ def main() -> int:
                    rz_capacity=rz["capacity"], lsmc=lsmc, layout=layout,
                    node_axis=node,
                    launcher=launcher, serving=serving,
-                   serve_launcher=serve_launcher, lm=lm, lm_kernels=lm_kern)
+                   serve_launcher=serve_launcher, lm=lm, lm_kernels=lm_kern,
+                   lm_mamba=mamba, lm_mamba_kernels=mamba_kern, lm_gqa=gqa,
+                   lm_gqa_kernels=gqa_kern)
     # 5. no process the script started outlives it: the gateways closed
     # their workers; the helper process spawning them started goes too
     mod("serve.procpool").stop_spawn_helper()

@@ -3,5 +3,5 @@ and the language-model architectures the port serves
 (``configs.base``, one module per architecture)."""
 from .base import (  # noqa: F401
     ModelConfig, MoEConfig, RecurrentConfig, SSMConfig, get_config,
-    reduced_config, register,
+    list_archs, reduced_config, register,
 )

@@ -16,7 +16,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 __all__ = [
     "MoEConfig", "SSMConfig", "RecurrentConfig", "ModelConfig",
-    "register", "get_config", "reduced_config", "NOT_PORTED",
+    "register", "get_config", "list_archs", "reduced_config", "NOT_PORTED",
 ]
 
 
@@ -126,12 +126,6 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # architectures of the JAX package that the port cannot run yet, with the
 # ROADMAP item that ports the blocks they need
 NOT_PORTED = {
-    "falcon-mamba-7b": "ROADMAP Queue A #11 (mamba path)",
-    "internlm2-1.8b": "ROADMAP Queue A #11 (full-attention archs)",
-    "qwen3-0.6b": "ROADMAP Queue A #11 (full-attention archs)",
-    "qwen3-4b": "ROADMAP Queue A #11 (full-attention archs)",
-    "qwen2.5-14b": "ROADMAP Queue A #11 (full-attention archs)",
-    "chameleon-34b": "ROADMAP Queue A #11 (full-attention archs)",
     "dbrx-132b": "ROADMAP Queue A #11 (MoE)",
     "llama4-scout-17b-a16e": "ROADMAP Queue A #11 (MoE)",
     "seamless-m4t-medium": "ROADMAP Queue A #11 (enc-dec)",
@@ -146,7 +140,9 @@ def register(arch_id: str):
 
 
 def _load_all() -> None:
-    from . import recurrentgemma_2b  # noqa: F401
+    from . import (  # noqa: F401
+        chameleon_34b, falcon_mamba_7b, internlm2_1_8b, qwen2_5_14b,
+        qwen3_0_6b, qwen3_4b, recurrentgemma_2b)
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -157,6 +153,12 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
+
+
+def list_archs() -> Tuple[str, ...]:
+    """The architectures ``get_config`` builds, sorted."""
+    _load_all()
+    return tuple(sorted(_REGISTRY))
 
 
 def reduced_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,

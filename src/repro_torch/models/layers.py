@@ -1,23 +1,25 @@
-"""Model layers: norms, rotary, GQA attention, gated MLP, RG-LRU.
+"""Model layers: norms, rotary, GQA attention, gated MLP, RG-LRU, mamba.
 
-The port of the JAX package's ``models/layers.py`` for the blocks that
-recurrentgemma-2b runs (MoE and mamba wait: ROADMAP Queue A #11).  The
-weights live in ``nn.Module`` containers in the JAX layout (``(in, out)``
-matrices, used as ``x @ w``), under the JAX leaf names, so that
-converting a JAX tree is a copy; the apply functions take a container
-and read its leaves, as the JAX functions read a params dict.
+The port of the JAX package's ``models/layers.py`` for the blocks of the
+dense, recurrent and state-space architectures (MoE waits: ROADMAP
+Queue A #11).  The weights live in ``nn.Module`` containers in the JAX
+layout (``(in, out)`` matrices, used as ``x @ w``), under the JAX leaf
+names, so that converting a JAX tree is a copy; the apply functions take
+a container and read its leaves, as the JAX functions read a params
+dict.
 
 Compute is float32, the type of the port's kernels.  Two calls go to
 the kernels where the JAX model calls their references:
 
 * ``attention(impl="flash")`` with ``T > 1`` calls ``ops.flash_attention``
   (JAX: ``_attn_flash``); its positions are ``0..T-1``, a prefill;
-* ``rglru_block`` with ``T > 1`` calls ``ops.lru_scan`` (JAX:
-  ``_linear_scan_chunked``).
+* ``rglru_block`` and ``mamba_block`` with ``T > 1`` call
+  ``ops.lru_scan`` (JAX: ``_linear_scan_chunked``); mamba's state
+  ``(B, di, ds)`` is one scan width of ``di * ds`` channels.
 
-The RG-LRU's short convolution stays a sum of shifted products, as in
-the JAX package, and does not go through ``conv1d`` (cuDNN would run it
-in TF32 by default).
+The short convolutions stay sums of shifted products, as in the JAX
+package, and do not go through ``conv1d`` (cuDNN would run them in TF32
+by default).
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import mask_bias as _mask_bias
 
-__all__ = ["RMSNorm", "Attention", "MLP", "RGLRU", "dense_init_", "rmsnorm",
-           "apply_rope", "attention", "mlp", "rglru_block"]
+__all__ = ["RMSNorm", "Attention", "MLP", "RGLRU", "Mamba", "dense_init_",
+           "rmsnorm", "apply_rope", "attention", "mlp", "rglru_block",
+           "mamba_block"]
 
 _RGLRU_C = 8.0
 
@@ -127,6 +130,38 @@ class RGLRU(nn.Module):
         self.w_ig.fill_(0.5)
         self.w_rg.fill_(0.5)
         dense_init_(self.w_out, generator)
+
+
+class Mamba(nn.Module):
+    """Mamba-1 selective SSM weights (falcon-mamba), JAX's ``init_mamba``
+    leaves: ``di = expand * d``, ``ds = d_state``, ``dtr = dt_rank``
+    (default ``ceil(d / 16)``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        d, s = cfg.d_model, cfg.ssm
+        di, ds = s.expand * d, s.d_state
+        dtr = s.dt_rank or -(-d // 16)
+        self.in_proj = _leaf(d, 2 * di, device=device)
+        self.conv = _leaf(s.d_conv, di, device=device)
+        self.x_proj = _leaf(di, dtr + 2 * ds, device=device)
+        self.dt_proj = _leaf(dtr, di, device=device)
+        self.dt_bias = _leaf(di, device=device)
+        self.A_log = _leaf(di, ds, device=device)
+        self.D = _leaf(di, device=device)
+        self.out_proj = _leaf(di, d, device=device)
+
+    def init_(self, generator) -> None:
+        dense_init_(self.in_proj, generator)
+        dense_init_(self.conv, generator, scale=0.1)
+        dense_init_(self.x_proj, generator)
+        dense_init_(self.dt_proj, generator)
+        self.dt_bias.fill_(math.log(math.e - 1.0))    # softplus^-1(1)
+        ds = self.A_log.shape[1]
+        self.A_log.copy_(torch.log(torch.arange(
+            1, ds + 1, dtype=torch.float32, device=self.A_log.device)))
+        self.D.fill_(1.0)
+        dense_init_(self.out_proj, generator)
 
 
 # --------------------------------------------------------------------- #
@@ -252,4 +287,56 @@ def rglru_block(p: RGLRU, x, cfg: ModelConfig, *, state=None):
     else:
         h_seq, h_last = ops.lru_scan(a, b, h0)
     out = (h_seq * F.gelu(gate, approximate="tanh")) @ p.w_out
+    return out, (new_conv_state, h_last)
+
+
+# --------------------------------------------------------------------- #
+# Mamba-1 selective SSM block (falcon-mamba)
+# --------------------------------------------------------------------- #
+def mamba_block(p: Mamba, x, cfg: ModelConfig, *, state=None):
+    """Returns ``(out, (conv_state, h_last))``; ``state`` is
+    ``(conv_state (B, d_conv-1, di), h (B, di, ds))`` for decode.
+
+    A prefill holds a few ``(B, T, di, ds)`` float32 tensors at once
+    (``a``, ``bx``, ``h_seq``); each is dropped as soon as the next step
+    no longer reads it, so a layer's peak is about three of them."""
+    B, T, _ = x.shape
+    s = cfg.ssm
+    di, ds = s.expand * cfg.d_model, s.d_state
+    xb, z = (x @ p.in_proj).chunk(2, dim=-1)            # (B, T, di) each
+    if state is None:
+        conv_state = torch.zeros(B, s.d_conv - 1, di, dtype=x.dtype,
+                                 device=x.device)
+        h0 = torch.zeros(B, di, ds, dtype=torch.float32, device=x.device)
+    else:
+        conv_state, h0 = state
+    xpad = torch.cat([conv_state, xb], dim=1)
+    xc = sum(xpad[:, i:i + T, :] * p.conv[i] for i in range(s.d_conv))
+    new_conv_state = xpad[:, -(s.d_conv - 1):, :].clone()
+    del xpad, xb
+    xc = F.silu(xc)
+
+    proj = xc @ p.x_proj                                # (B, T, dtr + 2 ds)
+    dtr = p.dt_proj.shape[0]
+    dt, Bc, Cc = proj.split([dtr, ds, ds], dim=-1)
+    delta = F.softplus(dt @ p.dt_proj + p.dt_bias)      # (B, T, di)
+    A = -torch.exp(p.A_log)                             # (di, ds)
+    a = torch.exp_(delta[..., None] * A)                # (B, T, di, ds)
+    bx = (delta * xc)[..., None] * Bc[:, :, None, :]    # (B, T, di, ds)
+    del delta
+    if T == 1:
+        h = a[:, 0] * h0 + bx[:, 0]
+        y = torch.einsum("bds,bs->bd", h, Cc[:, 0])[:, None]
+        h_last = h
+    else:
+        h_seq, h_last = ops.lru_scan(a.view(B, T, di * ds),
+                                     bx.view(B, T, di * ds),
+                                     h0.reshape(B, di * ds))
+        del a, bx
+        # the contraction over ds as a batched product: no copy of h_seq
+        y = torch.matmul(h_seq.view(B, T, di, ds), Cc[..., None])[..., 0]
+        del h_seq
+        h_last = h_last.view(B, di, ds)
+    y = y + xc * p.D
+    out = (y * F.silu(z)) @ p.out_proj
     return out, (new_conv_state, h_last)

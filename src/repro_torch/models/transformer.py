@@ -1,9 +1,10 @@
 """Model assembly for decoder-only LMs: init, prefill and decode.
 
 The port of the JAX package's ``models/transformer.py`` for decoder-only
-stacks of ``attn``, ``local`` and ``rglru`` blocks (cross attention,
-encoders, MoE and mamba wait: ROADMAP Queue A #11).  Every block is
-pre-norm with a residual and carries a gated MLP.
+stacks of ``attn``, ``local``, ``rglru`` and ``mamba`` blocks (cross
+attention, encoders and MoE wait: ROADMAP Queue A #11).  Every block is
+pre-norm with a residual; every kind but ``mamba`` also carries a gated
+MLP behind a second norm (JAX: ``if kind != "mamba"``).
 
 The JAX package groups the layers into a scanned stack of pattern
 repetitions plus remainder layers; the port holds one flat list,
@@ -11,7 +12,8 @@ repetitions plus remainder layers; the port holds one flat list,
 layer ``r * len(pattern) + j``; remainder ``r`` follows them).  Its
 cache is the same list: one dict a layer, ``{"k", "v"}`` of shape
 ``(B, max_len, KVH, hd)`` for attention and ``{"conv", "h"}`` for
-RG-LRU.  ``decode_step`` updates the cache in place (JAX returns a new
+RG-LRU and mamba: a recurrent state whose size does not grow with
+``max_len``.  ``decode_step`` updates the cache in place (JAX returns a new
 one): that saves a copy of every KV cache per token.
 """
 from __future__ import annotations
@@ -29,7 +31,10 @@ from . import layers as L
 __all__ = ["RunCfg", "Block", "LM", "init_lm", "embed_tokens", "prefill",
            "init_cache", "decode_step"]
 
-_KINDS = ("attn", "local", "rglru")
+_KINDS = ("attn", "local", "rglru", "mamba")
+# the recurrent kinds: the block function of each, whose state is
+# ``(conv, h)``
+_RECURRENT = {"rglru": L.rglru_block, "mamba": L.mamba_block}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +47,8 @@ class RunCfg:
 
 
 class Block(nn.Module):
-    """One pre-norm block: mixer (attention or RG-LRU) and gated MLP."""
+    """One pre-norm block: a mixer (attention, RG-LRU or mamba) and, but
+    for mamba, a gated MLP."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device):
         super().__init__()
@@ -57,11 +63,14 @@ class Block(nn.Module):
         self.norm1 = L.RMSNorm(cfg.d_model, device=device)
         if kind == "rglru":
             self.rglru = L.RGLRU(cfg, device=device)
+        elif kind == "mamba":
+            self.mamba = L.Mamba(cfg, device=device)
         else:
             self.attn = L.Attention(cfg, device=device)
-        self.norm2 = L.RMSNorm(cfg.d_model, device=device)
-        if cfg.d_ff:
-            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device)
+        if kind != "mamba":
+            self.norm2 = L.RMSNorm(cfg.d_model, device=device)
+            if cfg.d_ff:
+                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device)
 
 
 class LM(nn.Module):
@@ -110,32 +119,45 @@ def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg):
     """Pre-norm block over a whole sequence from position 0.
     Returns ``(x, cache entry)``."""
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
-    if blk.kind == "rglru":
-        out, (conv, hh) = L.rglru_block(blk.rglru, h, cfg)
+    if blk.kind in _RECURRENT:
+        out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg)
         entry = {"conv": conv, "h": hh}
     else:
         window = cfg.local_window if blk.kind == "local" else None
         out, (k, v) = L.attention(blk.attn, h, cfg, window=window,
                                   impl=run.impl)
         entry = {"k": k, "v": v}
-    x = x + out
-    if cfg.d_ff:
+    return _ffn(blk, x + out, cfg), entry
+
+
+def _ffn(blk: Block, x, cfg: ModelConfig):
+    """The block's MLP sub-layer with its residual (none for mamba)."""
+    if hasattr(blk, "mlp"):
         x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
                       cfg.mlp_kind)
-    return x, entry
+    return x
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, *,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One zeroed cache entry a layer."""
+    """One zeroed cache entry a layer: K and V of ``max_len`` positions
+    for attention, a recurrent state for RG-LRU (``conv (B, d_conv-1,
+    W)``, ``h (B, W)``) and mamba (``conv (B, d_conv-1, di)``, ``h (B,
+    di, ds)``)."""
     dev = resolve_device(device)
     hd, kvh, w = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.lru_width
     cache = []
     for i in range(cfg.n_layers):
-        if cfg.block_kind(i) == "rglru":
+        kind = cfg.block_kind(i)
+        if kind == "rglru":
             cache.append({
                 "conv": torch.zeros(B, cfg.recurrent.d_conv - 1, w, device=dev),
                 "h": torch.zeros(B, w, device=dev)})
+        elif kind == "mamba":
+            di = cfg.ssm.expand * cfg.d_model
+            cache.append({
+                "conv": torch.zeros(B, cfg.ssm.d_conv - 1, di, device=dev),
+                "h": torch.zeros(B, di, cfg.ssm.d_state, device=dev)})
         else:
             cache.append({"k": torch.zeros(B, max_len, kvh, hd, device=dev),
                           "v": torch.zeros(B, max_len, kvh, hd, device=dev)})
@@ -170,9 +192,9 @@ def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
     """One block, T = 1, against its cache entry (updated in place)."""
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
     B = x.shape[0]
-    if blk.kind == "rglru":
-        out, (conv, hh) = L.rglru_block(blk.rglru, h, cfg,
-                                        state=(c["conv"], c["h"]))
+    if blk.kind in _RECURRENT:
+        out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg,
+                                               state=(c["conv"], c["h"]))
         c["conv"], c["h"] = conv, hh
     else:
         hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -189,11 +211,7 @@ def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
                             causal=True, window=window, neg=-float("inf"))
         out = L._attn_naive(q, c["k"], c["v"], bias)
         out = out.reshape(B, 1, cfg.n_heads * hd) @ blk.attn.wo
-    x = x + out
-    if cfg.d_ff:
-        x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
-                      cfg.mlp_kind)
-    return x
+    return _ffn(blk, x + out, cfg)
 
 
 @torch.inference_mode()

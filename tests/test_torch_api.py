@@ -31,6 +31,7 @@ from repro.core import bull_spread as j_bull
 from repro.core import price_ref
 from repro import scenarios as JS
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch import api
 from repro_torch.convert import grid_from_columns
 from repro_torch.core import device as D
@@ -208,33 +209,51 @@ _LEGACY_CASES = [
 ]
 
 
+_LEGACY_FLAT = dict(s0=(95.0, 105.0), sigma=0.2, rate=0.1, maturity=0.25,
+                    cost_rate=(0.01, 0.0), payoff=("put", "bull_spread"),
+                    n_steps=8, capacity=16)
+
+
+@pytest.fixture(scope="module")
+def jax_legacy_refs():
+    """The JAX package's grid and flat prices of the legacy cases, one
+    pair an engine, from its ``jnp`` backend: ``tests/test_scenarios.py``
+    holds its Pallas backend equal to that, so the cases that name
+    ``"pallas"`` or ``interpret=True`` share the one compile."""
+    made = {}
+
+    def get(engine):
+        if engine not in made:
+            kw = dict(backend="jnp", platform="cpu", engine=engine)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                made[engine] = (
+                    japi.price_grid(capacity=16, **kw, **_LEGACY_GRID),
+                    japi.price_flat(**kw, **_LEGACY_FLAT))
+        return made[engine]
+    return get
+
+
 @pytest.mark.parametrize("legacy,mapped", _LEGACY_CASES,
                          ids=lambda c: ",".join(sorted(c)))
 def test_legacy_execution_kwargs_match_execution(legacy, mapped,
-                                                 fresh_legacy_warning):
+                                                 fresh_legacy_warning,
+                                                 jax_legacy_refs):
     """JAX's individual kwargs price as ``execution=`` does, warn once
-    per process, and agree with the JAX package called the same way."""
+    per process, and agree with the JAX package's prices of the same
+    engine."""
     want = api.price_grid(capacity=16, execution=api.ExecutionConfig(
         **mapped), **_LEGACY_GRID)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         got = api.price_grid(capacity=16, **legacy, **_LEGACY_GRID)
-        flat = api.price_flat(s0=(95.0, 105.0), sigma=0.2, rate=0.1,
-                              maturity=0.25, cost_rate=(0.01, 0.0),
-                              payoff=("put", "bull_spread"), n_steps=8,
-                              capacity=16, **legacy)
+        flat = api.price_flat(**legacy, **_LEGACY_FLAT)
     dep = [x for x in w if issubclass(x.category, DeprecationWarning)]
     assert len(dep) == 1 and "ExecutionConfig" in str(dep[0].message)
     np.testing.assert_array_equal(got.ask, want.ask)
     np.testing.assert_array_equal(got.bid, want.bid)
     assert got.max_pieces == want.max_pieces
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        ref = japi.price_grid(capacity=16, **legacy, **_LEGACY_GRID)
-        jflat = japi.price_flat(s0=(95.0, 105.0), sigma=0.2, rate=0.1,
-                                maturity=0.25, cost_rate=(0.01, 0.0),
-                                payoff=("put", "bull_spread"), n_steps=8,
-                                capacity=16, **legacy)
+    ref, jflat = jax_legacy_refs(legacy.get("engine"))
     for g, r in ((got, ref), (flat, jflat)):
         np.testing.assert_allclose(g.ask, np.asarray(r.ask), rtol=0, atol=TOL)
         np.testing.assert_allclose(g.bid, np.asarray(r.bid), rtol=0, atol=TOL)
@@ -379,8 +398,9 @@ def test_unported_paths_raise_naming_the_roadmap(capsys):
                        "--contracts", "2"])
     assert "[mesh: 1 x 2 on cpu]" in capsys.readouterr().out
     assert np.isfinite(run.ask).all() and (run.ask >= run.bid).all()
-    with pytest.raises(KeyError, match="Queue A #11"):
-        get_config("qwen3-0.6b")
+    for arch in ("seamless-m4t-medium", "dbrx-132b"):
+        with pytest.raises(KeyError, match="Queue A #11"):
+            get_config(arch)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):

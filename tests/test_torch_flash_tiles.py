@@ -35,6 +35,7 @@ import torch
 from repro.kernels.flash_attention import flash_ref
 from repro.models.layers import _attn_naive, _mask_bias
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.kernels import flash_attention as TF
 
 FLASH_TOL = 2e-5

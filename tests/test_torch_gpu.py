@@ -326,6 +326,39 @@ def test_lru_scan_kernel_matches_plain(cuda, B, T, W):
     assert torch.equal(got_seq, want_seq) and torch.equal(got_last, want_last)
 
 
+def test_lru_scan_kernel_at_the_mamba_width(cuda):
+    """falcon-mamba-7b's scan width, W = di * ds = 8192 * 16 = 131072
+    channels (4096 one-warp blocks a batch row), at a short T with a
+    ragged last ring chunk and slow decay, so the carry matters."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, T, W = 2, 45, 8192 * 16
+    a = 0.9 + 0.1 * torch.rand(B, T, W, generator=g, device=cuda)
+    b = torch.randn(B, T, W, generator=g, device=cuda)
+    h0 = torch.randn(B, W, generator=g, device=cuda)
+    got_seq, got_last = TL.lru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    want_seq, want_last = TL.lru_scan_plain(a, b, h0)
+    assert torch.equal(got_seq, want_seq) and torch.equal(got_last, want_last)
+    assert (want_seq - b).abs().max().item() > 1.0
+
+
+def test_flash_kernel_causal_gqa_at_hd128_ragged(no_tf32):
+    """The dense archs' attention: causal, no window, head_dim 128, G = 4
+    query heads a KV head (qwen3-4b's 32 / 8), T = 517, which leaves the
+    kernel's last 64-row q tile and 32-key KV tile ragged and skips the
+    KV tiles above the diagonal."""
+    g = torch.Generator(device=no_tf32).manual_seed(128)
+    B, T, KVH, G, hd = 1, 517, 8, 4, 128
+    q = torch.randn(B, T, KVH * G, hd, generator=g, device=no_tf32)
+    k = torch.randn(B, T, KVH, hd, generator=g, device=no_tf32)
+    v = torch.randn(B, T, KVH, hd, generator=g, device=no_tf32)
+    got = TF.flash_attention(q, k, v, causal=True, window=None)
+    torch.cuda.synchronize()
+    want = TF.flash_attention_plain(q, k, v, causal=True, window=None,
+                                    q_chunk=100, kv_chunk=64)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
 @pytest.mark.parametrize("hd,G", [(64, 1), (64, 4), (128, 2), (256, 10)])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
                                            (False, None), (False, 100)],
@@ -377,6 +410,28 @@ def test_reduced_lm_on_card_matches_cpu(no_tf32):
                         TT.RunCfg())
     assert TF.LAUNCHES["flash_attention"] == n_fa + 2
     assert TL.LAUNCHES["lru_scan"] == n_ls + 6
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen3-4b"])
+def test_reduced_slice_archs_on_card_match_cpu(no_tf32, arch):
+    """Reduced falcon-mamba-7b (two mamba layers, scan width 256 * 2 * 8)
+    and qwen3-4b (two attention layers, head_dim 128) through the kernels
+    on the card against the plain versions on the CPU, same weights:
+    float32 sums in other orders on two devices, 1e-4 on the logits."""
+    cfg = reduced_config(get_config(arch), d_model=256, n_heads=2)
+    make = lambda: TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
+    cpu_model, card_model = make(), make().to(no_tf32)
+    toks = torch.randint(0, cfg.vocab, (2, 130),
+                         generator=torch.Generator().manual_seed(2))
+    n_fa, n_ls = TF.LAUNCHES["flash_attention"], TL.LAUNCHES["lru_scan"]
+    want, _ = TT.prefill(cpu_model, {"tokens": toks}, cfg, TT.RunCfg())
+    got, _ = TT.prefill(card_model, {"tokens": toks.to(no_tf32)}, cfg,
+                        TT.RunCfg())
+    mamba = arch == "falcon-mamba-7b"
+    assert TF.LAUNCHES["flash_attention"] == n_fa + (0 if mamba else 2)
+    assert TL.LAUNCHES["lru_scan"] == n_ls + (2 if mamba else 0)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
 
 

@@ -27,6 +27,7 @@ import pytest
 import repro.core  # noqa: F401  (x64)
 from repro import scenarios as JS
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch import api
 from repro_torch.convert import grid_from_columns
 

@@ -9,6 +9,7 @@ version on the same card.
 """
 import functools
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,6 +22,7 @@ from repro.core.notc import price_notc_np as j_price_notc_np
 from repro.kernels import binomial_step as JB
 from repro.kernels.ops import price_notc_kernel as j_price_notc_kernel
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.core.lattice import LatticeModel
 from repro_torch import api
 from repro_torch.core.notc import price_notc_np
@@ -55,8 +57,8 @@ def _inputs(seed, rows, P, kind):
 @pytest.mark.parametrize("levels,block", [(6, 16), (16, 16), (3, 8)])
 def test_lattice_round_param_matches_pallas(levels, block):
     v, sc = _inputs(1, 3, 4 * block, "param")
-    want = np.stack([np.asarray(JB.lattice_round_param(
-        v[i], sc[i], levels=levels, block=block)) for i in range(3)])
+    want = np.stack([np.asarray(_jax_round(block, levels)(v[i], sc[i]))
+                     for i in range(3)])
     got = TB.lattice_round_param(torch.tensor(v), torch.tensor(sc),
                                  levels=levels, block=block)
     np.testing.assert_allclose(got.numpy(), want, rtol=ROUND_RTOL, atol=ROUND_TOL)
@@ -175,14 +177,22 @@ def _premise_inputs(block, levels, short):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_round(block, levels):
+    """The JAX kernel (interpret mode) compiled once for a (block, levels):
+    the premise inputs of one shape share it (eager, each call re-ran the
+    interpreter, about 11 s at block 64 and 50 levels)."""
+    return jax.jit(functools.partial(JB.lattice_round_param, levels=levels,
+                                     block=block))
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_row0(block, levels, short, perturbed):
     """The JAX kernel (interpret mode) on row 0 of the premise inputs,
     lanes [levels, block) of block 1 perturbed or not."""
     v, sc = _premise_inputs(block, levels, short)
     if perturbed:
         v = _perturb(v, 1, block, levels)
-    return np.asarray(JB.lattice_round_param(v[0], sc[0], levels=levels,
-                                             block=block))
+    return np.asarray(_jax_round(block, levels)(v[0], sc[0]))
 
 
 def _perturb(v, nb, block, levels):

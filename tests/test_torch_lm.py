@@ -28,11 +28,10 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduced_config as j_reduced_config
 from repro.models import layers as JL
 from repro.models.transformer import RunCfg as JRunCfg
-from repro.models.transformer import decode_step as j_decode_step
 from repro.models.transformer import init_lm as j_init_lm
-from repro.models.transformer import prefill as j_prefill
 from repro.serve.engine import LMEngine as JLMEngine
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import layer_trees, lm_params_from_jax
 from repro_torch.core import device as D
@@ -62,13 +61,15 @@ def _margin(logits):
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's run: prefill of S tokens, NEW greedy decode
-    steps, and its engine's tokens."""
+    steps, and its engine's tokens.  The prefill and decode steps go
+    through the engine's own compiled ``prefill`` and ``decode_step``
+    (one compile each; run op by op they took four times as long)."""
     cfg, jcfg = _cfgs()
     params, _ = j_init_lm(jax.random.PRNGKey(0), jcfg)
     toks = np.random.default_rng(0).integers(0, jcfg.vocab, (B, S + 1))
-    logits, cache = j_prefill(params, {"tokens": jnp.asarray(toks[:, :S],
-                                                             jnp.int32)},
-                              jcfg, JRUN, max_len=S + NEW)
+    eng = JLMEngine(params, jcfg, JRUN, batch=B, max_len=S + NEW)
+    logits, cache = eng._prefill(params, {"tokens": jnp.asarray(
+        toks[:, :S], jnp.int32)})
     out = dict(params=jax.tree.map(np.asarray, params), toks=toks,
                logits=np.asarray(logits),
                cache=layer_trees(jax.tree.map(np.asarray, cache), cfg),
@@ -76,12 +77,10 @@ def ref():
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
     for i in range(NEW):
         out["fed"].append(np.asarray(tok))
-        logits, cache = j_decode_step(params, cache, tok, jnp.int32(S + i),
-                                      jcfg, JRUN)
+        logits, cache = eng._decode(params, cache, tok, jnp.int32(S + i))
         out["dec_logits"].append(np.asarray(logits))
         tok = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)[:, None]
-    out["engine"] = JLMEngine(params, jcfg, JRUN, batch=B,
-                              max_len=S + NEW).generate(toks[:, :S], NEW)
+    out["engine"] = eng.generate(toks[:, :S], NEW)
     return out
 
 
@@ -204,9 +203,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="Queue A #11"):
-        get_config("qwen3-0.6b")
-    with pytest.raises(KeyError, match="mamba"):
-        get_config("falcon-mamba-7b")
+        get_config("seamless-m4t-medium")
+    with pytest.raises(KeyError, match="MoE"):
+        get_config("dbrx-132b")
     with pytest.raises(NotImplementedError, match="Queue A #11"):
         port_serve.main(["--arch", ARCH, "--ckpt", "x", "--device", "cpu"])
 

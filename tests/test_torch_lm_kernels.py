@@ -25,6 +25,7 @@ from repro.kernels.lru_scan import lru_scan as j_lru_scan
 from repro.kernels.lru_scan import lru_scan_ref
 from repro.models.layers import _attn_naive, _mask_bias
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import lru_scan as TL
 from repro_torch.kernels import ops

@@ -13,6 +13,7 @@ import pytest
 
 from repro.core import partition as J
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.core import partition as T
 
 

@@ -15,6 +15,7 @@ import torch
 import repro.core  # noqa: F401  (x64)
 from repro.core import pwl as JP
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.convert import pwl_from_numpy, pwl_to_numpy
 from repro_torch.core import pwl as TP
 

@@ -20,6 +20,7 @@ from repro.core import pwl as JP
 from repro.core import price_ref
 from repro.kernels.rz_step import rz_round as j_rz_round
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.convert import pwl_to_numpy
 from repro_torch.core.lattice import LatticeModel
 from repro_torch.core.notc import price_notc_np

@@ -15,6 +15,7 @@ knot counts and raw piece counts included.  Small rows take a small
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.core.rz import leaf_level, rz_level_step_lanes, rz_params
 from repro_torch.kernels import rz_step as TR
 

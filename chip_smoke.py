@@ -8,8 +8,13 @@ source, started together), holds each kernel against its plain PyTorch
 version on the card at the main path's shapes (float64: the lattice
 kernel bit for bit, also on edge cases at small rows; ``rz_round`` to
 1e-9 with identical knot counts, also on edge cases of its tile
-schedule, with its widest round timed at capacities 16, 48 and 128),
-then drives the port's
+schedule, with its widest round timed at capacities 16, 48 and 128);
+the kernels' float32 instances against their float32 plain versions at
+the same shapes (``[kernel] ... float32``: the lattice kernels equal, NaN
+for NaN; ``rz_round`` within the port registry's 1e-4, knot counts
+printed); and ``flash_attention`` against its arithmetic mirror at the
+float32 contract's 2e-6 (``[kernel] flash_attention mirror``, small
+shapes); then drives the port's
 main path through ``repro_torch.api.price_grid`` with the default
 backend (the kernels):
 
@@ -24,7 +29,13 @@ backend (the kernels):
 It checks the launch counts of that run, ask >= bid, the knot counts
 against the capacity, a subset of each grid re-priced by the plain
 level walk (``backend="torch"``) and small inputs against the numpy
-oracle, and prints how a call's knot count grows with N.
+oracle, and prints how a call's knot count grows with N.  Then the
+float32 main paths, each with its launches counted from 0 (``[main]
+price_notc_kernel float32``: the appendix put at the policy's default
+dtype on the card; ``[main] float32 TC put``: the TC grid's rows through
+``rz_backward_kernel(dtype=float32)``; ``[main] node axis float32``: both
+node-axis builders on 1 x 1 and 1 x 4 of cuda:0, bit-equal), each beside
+its float64 result.
 
 Then the LSMC engine (``engine="lsmc"``, plain PyTorch: no TPU kernel
 stands behind it): the two grids of Longstaff & Schwartz (2001) Table 1
@@ -199,6 +210,9 @@ BASKET_STEPS, BASKET_ASSETS, BASKET_PATHS = 50, 5, 32_768
 # of sqrt(se_card^2 + se_host^2): 84 rows at 4 give a 0.5% chance of a
 # false alarm for independent normal gaps (3 would give 20%)
 LSMC_HOST_SE = 4.0
+# a float32 walk's prices against the float64 grid's: rz_round's float32
+# tolerance in the JAX package's registry
+RZ32_PRICE_TOL = 1e-4
 
 
 class SmokeError(RuntimeError):
@@ -327,26 +341,34 @@ def print_ptxas(source, log):
             facts.append(ln.split(":", 1)[-1].strip())
 
 
+def ops_rate(torch, dtype):
+    """The card's rate outside the tensor cores for ``dtype``."""
+    return FP64_OPS_PER_S if dtype == torch.float64 else FP32_OPS_PER_S
+
+
 def lattice_bound(torch, x, s, kind, levels):
-    """Least time for one round on these inputs: 5 float64 operations per
-    node and active level, the intrinsic once per distinct spot j (about
-    2 (P + levels) a row), against each lane read and written once."""
+    """Least time for one round on these inputs: 5 operations per node
+    and active level, the intrinsic once per distinct spot j (about
+    2 (P + levels) a row), over the rate of x's dtype (float64 or
+    float32), against each lane read and written once."""
     rows, P = x.shape
-    active = torch.clamp(torch.floor(s[:, 0]), 0, levels)
+    active = torch.clamp(torch.floor(s[:, 0].double()), 0, levels)
     ops = float((P * active * LATTICE_STEP_OPS
                  + torch.where(active > 0, 2 * (P + active) - 3, 0)
                  * LATTICE_INTRINSIC_OPS[kind]).sum())
-    t_ops = ops / FP64_OPS_PER_S
-    t_bytes = (2 * x.numel() + s.numel()) * 8 / HBM_BYTES_PER_S
+    t_ops = ops / ops_rate(torch, x.dtype)
+    t_bytes = ((2 * x.numel() + s.numel()) * x.element_size()
+               / HBM_BYTES_PER_S)
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def lattice_inputs(torch, dev, rows, P, lvl0, kind):
+def lattice_inputs(torch, dev, rows, P, lvl0, kind, dtype=None):
     """Seeded node values in [0, 30) and round scalars for ``rows`` rows
     of ``P`` lanes (puts and calls of the 4-parameter family alternating;
     the 6 put/call scalars for ``kind`` other than "param"); ``lvl0`` is
-    one level or one per row."""
+    one level or one per row.  Drawn in float64, then cast to ``dtype``
+    (float32: the same values, rounded)."""
     g = torch.Generator(device=dev).manual_seed(0)
     v = torch.rand(rows, P, generator=g, dtype=torch.float64, device=dev) * 30
     u = torch.rand(rows, generator=g, dtype=torch.float64, device=dev)
@@ -359,6 +381,8 @@ def lattice_inputs(torch, dev, rows, P, lvl0, kind):
                       *fam.T, k, k], dim=1)
     if kind != "param":
         sc = sc[:, [0, 1, 2, 9, 3, 4]]
+    if dtype is not None:
+        v, sc = v.to(dtype), sc.to(dtype)
     return v, sc.contiguous()
 
 
@@ -427,11 +451,13 @@ def lattice_phase(torch, B, paper_notc):
     return out
 
 
-def rz_state(torch, R, grid, capacity, rows, lanes):
+def rz_state(torch, R, grid, capacity, rows, lanes, dtype=None):
     """The main TC grid's leaf state over ``lanes`` lanes for its first
-    ``rows`` contracts, and their round scalars."""
+    ``rows`` contracts, and their round scalars, computed in ``dtype``
+    (default float64) from the grid's columns, as the engines do."""
     dev = torch.device("cuda")
-    col = lambda a: torch.as_tensor(a[:rows], dtype=torch.float64, device=dev)
+    col = lambda a: torch.as_tensor(a[:rows], dtype=dtype or torch.float64,
+                                    device=dev)
     alpha, zeta, w1, w2 = grid.payoff_param_arrays()
     params = R.rz_params(col(grid.s0), col(grid.sigma), col(grid.rate),
                          col(grid.maturity), col(grid.cost_rate),
@@ -544,20 +570,23 @@ def rz_bound(torch, z, got, sc, levels, K, lane0=0):
     """Least time for one rz_round on these inputs: rz_step_ops at each
     live lane-level of the owned lanes, with each lane's input counts
     (its own and its right neighbour's) and its output count, over the
-    float64 rate; against each input's valid knots read once (with its
-    sl, sr and m) and each output record written once, over the memory
-    rate.  Lane i is tree column lane0 + i.  Returns (ms, "operations"
-    or "bytes", operations, bytes)."""
+    rate of the values' dtype (float64 or float32); against each input's
+    valid knots read once (with its sl, sr and m) and each output record
+    written once, over the memory rate.  Lane i is tree column lane0 + i.
+    Returns (ms, "operations" or "bytes", operations, bytes)."""
     R, S, lanes = z.m.shape
     mi = z.m.double()
     mu = torch.cat([mi[..., 1:], mi[..., -1:]], dim=-1)
     mo = got.m.double()
     g = lane0 + torch.arange(lanes, dtype=torch.float64, device=mi.device)
-    live = torch.clamp(torch.floor(sc[:, 0, None] - g), 0, levels)[:, None]
+    live = torch.clamp(torch.floor(sc[:, 0, None].double() - g), 0,
+                       levels)[:, None]
     ops = float((live * rz_step_ops(torch, mu, mi, mo)).sum())
-    nbytes = float(16 * mi.sum() + 20 * mi.numel()
-                   + (16 * K + 20) * mo.numel() + 8 * sc.numel())
-    t_ops, t_bytes = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    e = z.xs.element_size()
+    nbytes = float(2 * e * mi.sum() + (2 * e + 4) * mi.numel()
+                   + (2 * e * K + 2 * e + 4) * mo.numel() + e * sc.numel())
+    t_ops = ops / ops_rate(torch, z.xs.dtype)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
@@ -1242,14 +1271,17 @@ def layout_phase(torch, np, api, tc_grid, notc_grid, notc_cfg, capacity,
 NODE_WIDTHS, NODE_NOTC_WIDTH = (1, 2, 4), 4
 
 
-def node_rz_state(torch, R, put, s0, lanes, lane0):
+def node_rz_state(torch, R, put, s0, lanes, lane0, dtype=None):
     """PAPER_PUT's fused leaf over a shard buffer of ``lanes`` lanes from
     tree column ``lane0``, for the spots ``s0``, and its round scalars at
-    the first round (lvl0 = N + 1)."""
+    the first round (lvl0 = N + 1), computed in ``dtype`` (default
+    float64)."""
     dev = torch.device("cuda")
     n = len(s0)
-    t = lambda x: torch.full((n,), float(x), dtype=torch.float64, device=dev)
-    params = R.rz_params(torch.as_tensor(s0, device=dev), t(put.sigma),
+    dtype = dtype or torch.float64
+    t = lambda x: torch.full((n,), float(x), dtype=dtype, device=dev)
+    params = R.rz_params(torch.as_tensor(s0, dtype=dtype, device=dev),
+                         t(put.sigma),
                          t(put.rate), t(put.maturity), t(put.cost_rate),
                          n_steps=put.n_steps)
     leaf = R.leaf_level(put.n_steps, params, put.capacity, lanes, lane0)
@@ -1438,6 +1470,276 @@ def node_axis_phase(torch, np, mod, cfgs, all_launches):
                 f"no-TC {label}", lambda: f(s0, col(notc.sigma),
                                             col(notc.rate),
                                             col(notc.maturity)))
+    return out
+
+
+# the float32 instances: the rows the plain rz version is held on at the
+# widest round (it takes tens of seconds there whatever the rows)
+RZ32_PLAIN_ROWS = 16
+# flash_attention against its arithmetic mirror (a Python tile loop, so
+# small shapes): (head_dim, causal, window) at B = 1, T = S = 150 (the
+# last q and KV tiles ragged), G = 4 query heads over one KV head
+FLASH_MIRROR_CASES = tuple((hd, c, w) for hd in (64, 128, 256)
+                           for c, w in ((True, None), (True, 40),
+                                        (False, None)))
+
+
+def same_or_both_nan(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def float32_kernel_phase(torch, np, B, RS, R, D, PW, contracts, tc_grid, notc,
+                         put):
+    """The float32 instances of the pricing kernels against their float32
+    plain versions at the float64 lines' shapes: lattice_round_param on
+    the no-TC grid's 256 rows (equal, NaN for NaN: at N=40000 the float32
+    spot overflows at the far lanes and the 4-parameter payoff's 0 * inf
+    is NaN, in the plain version and the TPU kernel alike), lattice_round
+    on the single price's row and on a node-axis shard (lane0), rz_round
+    at the widest put round (the kernel on 256 rows, the plain version on
+    RZ32_PLAIN_ROWS of them) and on a node-axis shard, the functions'
+    values at 81 holdings in [-4, 4] within the registry's float32
+    tolerance (knot counts printed, not required: float32 ties may round
+    the other way)."""
+    dev, f32 = torch.device("cuda"), torch.float32
+    out = {}
+    block, levels = 256, notc.round_depth
+    P = -(-(notc.n_steps + 1) // block) * block
+    plan = D.plan_rounds(notc.n_steps - 1, NODE_NOTC_WIDTH, notc.round_depth)
+    S, H = plan["shard_lanes"], plan["halo"]
+    PS = -(-(S + H) // block) * block
+    for label, kind, rows, p, lv, lane0 in (
+            ("lattice_round_param", "param", 256, P, levels, 0),
+            ("lattice_round", "put", 1, P, levels, 0),
+            ("lattice_round lane0", "put", 256, PS, H, S)):
+        x, sc = lattice_inputs(torch, dev, rows, p, float(notc.n_steps), kind,
+                               f32)
+        kw = {} if kind == "param" else {"kind": kind}
+        fn = B.lattice_round_param if kind == "param" else B.lattice_round
+        got = fn(x, sc, levels=lv, block=block, lane0=lane0, **kw)
+        want, plain_ms = timed_once(torch, lambda: B.lattice_round_plain(
+            x, sc, levels=lv, block=block, kind=kind, lane0=lane0))
+        fin = torch.isfinite(got) & torch.isfinite(want)
+        err = float((got - want)[fin].abs().max())
+        nan = int(want.isnan().sum())
+        check(same_or_both_nan(got, want),
+              f"{label} float32: kernel differs from plain (max abs err "
+              f"{err} on finite lanes)")
+        ms = cuda_ms(torch, lambda: fn(x, sc, levels=lv, block=block,
+                                       lane0=lane0, **kw), 20)
+        bound, bound_by = lattice_bound(torch, x, sc, kind, lv)
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=bound_by, rows=rows, P=p,
+                          levels=lv, block=block, lane0=lane0,
+                          nan_lanes=nan)
+        print(f"[kernel] {label} float32: rows={rows} P={p} levels={lv} "
+              f"block={block} lane0={lane0} equal=True (NaN for NaN: {nan} "
+              f"lanes) max_abs_err={err:.3e} ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}, float32 "
+              f"at 67 TFLOP/s)", flush=True)
+
+    tol = contracts["rz_round"].tolerance(f32)
+    n = tc_grid.n_steps
+    cases = (("rz_round", rz_state(torch, R, tc_grid, put.capacity, 256, n + 2,
+                                   f32), 64, n + 2, {}),)
+    plan = D.plan_rounds(put.n_steps, NODE_NOTC_WIDTH, put.round_depth)
+    S, H = plan["shard_lanes"], plan["halo"]
+    cases += (("rz_round lane0", node_rz_state(
+        torch, R, put, np.linspace(90.0, 110.0, put.contracts), S + H, S, f32),
+        H, S + H, dict(lane0=S, owned=S)),)
+    for label, (z, sc), lv, blk, kw in cases:
+        got, pieces = RS.rz_round(z, sc, levels=lv, block=blk, **kw)
+        rows = RZ32_PLAIN_ROWS if label == "rz_round" else z.m.shape[0]
+        zp = z.map(lambda a: a[:rows].contiguous())
+        (want, wpieces), plain_ms = timed_once(torch, lambda: RS.rz_round_plain(
+            zp, sc[:rows].contiguous(), levels=lv, block=blk, **kw))
+        ys = torch.linspace(-4.0, 4.0, 81, dtype=f32, device=dev)
+        vals = lambda f: PW._eval1(f, ys.expand(f.sl.shape + ys.shape))
+        err = float((vals(got.map(lambda a: a[:rows])) - vals(want))
+                    .abs().max())
+        same_m = bool(torch.equal(got.m[:rows], want.m))
+        same_p = bool(torch.equal(pieces[:rows], wpieces))
+        check(err <= tol, f"{label} float32: values max abs err {err} > "
+              f"{tol}")
+        ms = cuda_ms(torch, lambda: RS.rz_round(z, sc, levels=lv, block=blk,
+                                                **kw), 3)
+        bound, bound_by, ops, nbytes = rz_bound(torch, z, got, sc, lv,
+                                                put.capacity,
+                                                lane0=kw.get("lane0", 0))
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          plain_rows=rows, bound_ms=bound, bound_by=bound_by,
+                          rows=z.m.shape[0], lanes=blk, levels=lv,
+                          equal_m=same_m, equal_pieces=same_p,
+                          pieces=int(pieces.max()), K=put.capacity)
+        print(f"[kernel] {label} float32: rows={z.m.shape[0]} N={put.n_steps} "
+              f"lanes={blk} levels={lv} K={put.capacity} {kw} max_abs_err="
+              f"{err:.3e} (values, <= {tol:g} on {rows} rows) equal_m={same_m} "
+              f"equal_pieces={same_p} pieces={int(pieces.max())} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.3f} ({rows} rows) bound_ms={bound:.4f} "
+              f"({bound_by}: {ops:.4e} float32 operations, {nbytes:.4e} "
+              "bytes)", flush=True)
+    return out
+
+
+def flash_mirror_phase(torch, np, FL, contracts):
+    """flash_attention against its arithmetic mirror at the float32
+    contract's tolerance (the registry's 2e-6), at head_dim 64, 128 and
+    256, causal, windowed and bidirectional, the last tiles ragged; each
+    line also gives the distance from the mirror whose MMAs round to
+    nearest in two steps, and from the plain version (held to 2e-5 in
+    the serve phases)."""
+    tol = contracts["flash_attention"].tolerance(torch.float32)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for hd, causal, window in FLASH_MIRROR_CASES:
+        q = torch.randn(1, 150, 4, hd, generator=g, device=dev)
+        k = torch.randn(1, 150, 1, hd, generator=g, device=dev)
+        v = torch.randn(1, 150, 1, hd, generator=g, device=dev)
+        kw = dict(causal=causal, window=window)
+        got = FL.flash_attention(q, k, v, **kw)
+        mirror = FL.flash_attention_mirror(q, k, v, **kw)
+        nearest = FL.flash_attention_mirror(q, k, v, tensor_core=False, **kw)
+        plain = FL.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        d = {name: float((got - ref).abs().max()) for name, ref in
+             (("mirror", mirror), ("nearest", nearest), ("plain", plain))}
+        label = f"hd{hd} {'causal' if causal else 'bidirectional'}" + (
+            f" window {window}" if window else "")
+        out[label] = d
+        print(f"[kernel] flash_attention mirror {label}: q (1, 150, 4, {hd}) "
+              f"max_abs_err vs mirror {d['mirror']:.3e} (<= {tol:g}), vs "
+              f"round-to-nearest mirror {d['nearest']:.3e}, vs plain "
+              f"{d['plain']:.3e}", flush=True)
+        check(d["mirror"] <= tol, f"flash_attention {label}: kernel vs mirror "
+              f"{d['mirror']} > {tol}")
+    return out
+
+
+def float32_main_phase(torch, np, mod, cfgs, ops, R, tc_grid, tc,
+                       notc_price, pricing_launches):
+    """The float32 main paths, each with its launches counted from 0:
+    PAPER_NOTC's put through price_notc_kernel at the policy's default
+    (float32 on the card), the TC grid's 256 PAPER_PUT rows through
+    rz_backward_kernel(dtype=float32) at K=48 (and, where they overflow,
+    at the smallest capacity of 64 and 128 that holds), and the node axis
+    in float32, each mesh held bit for bit to its 1 x 1 run."""
+    f32 = torch.float32
+    D, pay, api = mod("core.distributed"), mod("core.payoff"), mod("api")
+    notc, put = cfgs.PAPER_NOTC, cfgs.PAPER_PUT
+    out = {}
+    model = mod("core.lattice").LatticeModel(
+        s0=notc.s0, sigma=notc.sigma, rate=notc.rate, maturity=notc.maturity,
+        n_steps=notc.n_steps)
+    zero_counts(pricing_launches)
+    p32, s32 = wall(torch, lambda: ops.price_notc_kernel(
+        model, notc.strike, levels=notc.round_depth))
+    launches = {k: v for k, v in launch_counts(pricing_launches).items() if v}
+    call32 = ops.price_notc_kernel(model, notc.strike, kind="call",
+                                   levels=notc.round_depth)
+    out["price_notc_kernel"] = dict(price=p32, price_float64=notc_price,
+                                    diff=p32 - notc_price, wall_s=s32,
+                                    launches=launches, call=call32)
+    print(f"[main] price_notc_kernel float32 N={notc.n_steps}: {p32:.10f} in "
+          f"{s32:.3f} s, launches {json.dumps(launches)}; float64 "
+          f"{notc_price:.10f}, float32 - float64 = {p32 - notc_price:.3e}; "
+          f"the call in float32: {call32} (spots past 3.4e38 are inf)",
+          flush=True)
+    check(np.isfinite(p32) and launches.get("lattice_round.float32", 0) > 0
+          and not launches.get("lattice_round"),
+          "price_notc_kernel float32: not through lattice_round's float32 "
+          "instance")
+
+    f = tc_grid.flat()
+    dev = torch.device("cuda")
+    col = lambda a: torch.as_tensor(np.ravel(a), dtype=f32, device=dev)
+    alpha, zeta, w1, w2 = f.payoff_param_arrays()
+    args = [col(a) for a in (f.s0, f.sigma, f.rate, f.maturity, f.cost_rate)]
+    payv = [col(a) for a in (alpha, zeta, w1, w2, f.strike, f.strike2)]
+    for K in (put.capacity, 64, 128):
+        zero_counts(pricing_launches)
+        (ask, bid, pc), s = wall(torch, lambda: R.rz_backward_kernel(
+            *args, payv, n_steps=tc_grid.n_steps, capacity=K, dtype=f32))
+        launches = {k: v for k, v in launch_counts(pricing_launches).items()
+                    if v}
+        top = int(pc.max())
+        d = max(float(np.abs(ask.double().cpu().numpy() - tc.ask.ravel()).max()),
+                float(np.abs(bid.double().cpu().numpy() - tc.bid.ravel()).max()))
+        fits = top <= K
+        out[f"TC put K={K}"] = dict(wall_s=s, launches=launches,
+                                    max_pieces=top, fits=fits,
+                                    max_abs_vs_float64=d)
+        print(f"[main] float32 TC put: {tc_grid.n_scenarios} contracts "
+              f"N={tc_grid.n_steps} K={K}: {s:.3f} s, launches "
+              f"{json.dumps(launches)}, max_pieces={top}, max |ask, bid - "
+              f"float64 grid| {d:.3e}" + ("" if fits else
+                                         f": OverflowError (needed {top} > "
+                                         f"K={K}; the values are truncated "
+                                         "records, not prices)"), flush=True)
+        check(launches.get("rz_round.float32", 0) > 0
+              and not launches.get("rz_round"),
+              "float32 TC put: not through rz_round's float32 instance")
+        if fits:
+            check(np.isfinite(d) and d <= RZ32_PRICE_TOL,
+                  f"float32 TC put: {d} from the float64 grid")
+            break
+
+    s0 = np.linspace(90.0, 110.0, put.contracts)
+    cnst = lambda x: np.full(put.contracts, float(x))
+    ref = api.price_flat(s0=s0, sigma=put.sigma, rate=put.rate,
+                         maturity=put.maturity, cost_rate=put.cost_rate,
+                         payoff="put", strike=put.strike, n_steps=put.n_steps,
+                         capacity=put.capacity)
+    ref_nt = api.price_flat(s0=s0, sigma=notc.sigma, rate=notc.rate,
+                            maturity=notc.maturity, cost_rate=0.0,
+                            payoff="put", strike=notc.strike,
+                            n_steps=notc.n_steps, levels=notc.round_depth,
+                            block=256)
+    cuda0 = torch.device("cuda", 0)
+    for engine in ("TC put", "no-TC"):
+        first = None
+        for width in (1, NODE_NOTC_WIDTH):
+            mesh = D.DeviceMesh([[cuda0] * width], ("data", "model"))
+            if engine == "TC put":
+                fn = D.build_rz_sharded(mesh, n_steps=put.n_steps,
+                                        payoff=pay.american_put(put.strike),
+                                        capacity=put.capacity,
+                                        round_depth=put.round_depth,
+                                        dtype=f32)
+                run = lambda: fn(s0, cnst(put.sigma), cnst(put.rate),
+                                 cnst(put.maturity), cnst(put.cost_rate))[:2]
+                want = (ref.ask, ref.bid)
+            else:
+                fn = D.build_notc_sharded(mesh, n_steps=notc.n_steps,
+                                          strike=notc.strike, kind="put",
+                                          round_depth=notc.round_depth,
+                                          dtype=f32)
+                run = lambda: (fn(s0, cnst(notc.sigma), cnst(notc.rate),
+                                  cnst(notc.maturity)),)
+                want = (ref_nt.ask,)
+            zero_counts(pricing_launches)
+            res, s = wall(torch, run)
+            launches = {k: v for k, v in launch_counts(pricing_launches).items()
+                        if v}
+            same = first is None or all(torch.equal(a, b)
+                                        for a, b in zip(res, first))
+            first = res if first is None else first
+            d = max(float(np.abs(a.double().numpy() - w).max())
+                    for a, w in zip(res, want))
+            out[f"node axis {engine} 1 x {width}"] = dict(
+                wall_s=s, launches=launches, equal_to_1x1=same,
+                max_abs_vs_float64=d)
+            print(f"[main] node axis float32 {engine}: mesh 1 x {width} on "
+                  f"cuda:0: {s:.3f} s, launches {json.dumps(launches)}, "
+                  f"bit-equal to 1 x 1 {same}; vs float64 price_flat max |d| "
+                  f"{d:.3e}", flush=True)
+            check(same, f"node axis float32 {engine} 1 x {width} differs "
+                  "from 1 x 1")
+            check(any(k.endswith(".float32") for k in launches)
+                  and not any(k in launches for k in ("rz_round",
+                                                      "lattice_round")),
+                  f"node axis float32 {engine}: not through the float32 "
+                  "instances")
     return out
 
 
@@ -1885,6 +2187,12 @@ def main() -> int:
     lat = lattice_phase(torch, B, notc_cfg)
     rz = rz_phase(torch, R, RS, mod("core.partition"), tc_grid, cb_grid,
                   capacity)
+    contracts = mod("kernels.contracts").CONTRACTS
+    k32 = float32_kernel_phase(torch, np, B, RS, R, mod("core.distributed"),
+                               mod("core.pwl"), contracts, tc_grid, notc_cfg,
+                               put_cfg)
+    fmirror = flash_mirror_phase(torch, np, mod("kernels.flash_attention"),
+                                 contracts)
 
     # 3. the main path, through the public API with the default backend
     zero_counts((B.LAUNCHES, RS.LAUNCHES))
@@ -1897,7 +2205,8 @@ def main() -> int:
         s0=notc_cfg.s0, sigma=notc_cfg.sigma, rate=notc_cfg.rate,
         maturity=notc_cfg.maturity, n_steps=notc_cfg.n_steps)
     one, one_s = wall(torch, lambda: ops.price_notc_kernel(
-        model, notc_cfg.strike, levels=notc_cfg.round_depth))
+        model, notc_cfg.strike, levels=notc_cfg.round_depth,
+        dtype=torch.float64))
     launches = {"lattice_round_param": B.LAUNCHES["lattice_round_param"],
                 "lattice_round": B.LAUNCHES["lattice_round"],
                 "rz_round": RS.LAUNCHES["rz_round"]}
@@ -1958,7 +2267,8 @@ def main() -> int:
     small = mod("core.lattice").LatticeModel(
         s0=100.0, sigma=0.3, rate=0.06, maturity=1.0, n_steps=200)
     want = notc.price_notc_np(small, pay.american_put(100.0))
-    got_k = ops.price_notc_kernel(small, 100.0, levels=50)
+    got_k = ops.price_notc_kernel(small, 100.0, levels=50,
+                                  dtype=torch.float64)
     got_rz = R.price_rz(small, pay.american_put(100.0), capacity=16)
     d_or = max(abs(got_k - want), abs(got_rz.ask - want), abs(got_rz.bid - want))
     print(f"[check] N=200 put vs numpy oracle: max |d| {d_or:.3e}", flush=True)
@@ -1983,6 +2293,9 @@ def main() -> int:
                 grown[f"{label} N={n}"] = str(exc).split(";")[0]
     print(f"[knots] max_pieces at capacity 128: {json.dumps(grown)}",
           flush=True)
+    # the float32 main paths (each with its launches counted from 0)
+    main32 = float32_main_phase(torch, np, mod, cfgs, ops, R, tc_grid, tc, one,
+                                (B.LAUNCHES, RS.LAUNCHES))
 
     # the LSMC engine's main lines, the sharded layouts and the launcher
     pricing_launches = (B.LAUNCHES, RS.LAUNCHES)
@@ -2035,6 +2348,40 @@ def main() -> int:
                         "5 float64 operations per node and active level, the "
                         "intrinsic once per distinct spot (exp as one), "
                         "over 34 TFLOP/s")))
+    # the float32 instances: lattice_round_param has no float32 main path
+    # (the grids compute in float64 in both packages), so no launches
+    tc32 = next((v for k, v in main32.items()
+                 if k.startswith("TC put K=") and v["fits"]),
+                main32[f"TC put K={capacity}"])
+    f32_paths = (
+        ("lattice_round_param", "lattice_round_param", 0, None,
+         "none: the no-TC grid computes in float64 in both packages; held "
+         "at its shape"),
+        ("lattice_round", "lattice_round",
+         main32["price_notc_kernel"]["launches"].get("lattice_round.float32",
+                                                     0),
+         "lattice_round.float32",
+         "price_notc_kernel float32 (PAPER_NOTC's put, the policy default "
+         "on the card)"),
+        ("rz_round", "rz_round",
+         tc32["launches"].get("rz_round.float32", 0), "rz_round.float32",
+         "float32 TC put (rz_backward_kernel, dtype=float32)"))
+    for name, key, n32, lkey, path in f32_paths:
+        rec = k32[key]
+        kernels.append(dict(
+            name=f"{name}.float32", route="cuda",
+            source=contracts[name].source, replaces=contracts[name].replaces,
+            launches=n32, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=None, main_path=path,
+            node_axis_launches=sum(v["launches"].get(lkey, 0)
+                                   for k, v in main32.items()
+                                   if k.startswith("node axis"))
+            if lkey else 0,
+            lane0_hold=k32.get(f"{name} lane0"),
+            tolerance=contracts[name].tolerance(torch.float32),
+            bound_note="the float64 line's count over float32's 67 TFLOP/s "
+                       "outside the tensor cores, 4-byte values"))
     notes = {
         "lru_scan": ("src/repro/kernels/lru_scan.py:31",
                      "12 bytes per element (a, b read, h written) over "
@@ -2071,7 +2418,9 @@ def main() -> int:
                    rz_call_bull_deep=rz["call-bull-deep"], rz_halo=rz["halo"],
                    rz_edges={k: v for k, v in rz.items()
                              if k.startswith("edge")},
-                   rz_capacity=rz["capacity"], lsmc=lsmc, layout=layout,
+                   rz_capacity=rz["capacity"], float32_kernels=k32,
+                   float32_main=main32, flash_mirror=fmirror,
+                   lsmc=lsmc, layout=layout,
                    node_axis=node,
                    launcher=launcher, serving=serving,
                    serve_launcher=serve_launcher, lm=lm, lm_kernels=lm_kern,

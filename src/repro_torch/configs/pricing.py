@@ -5,8 +5,9 @@ computed.  The port's backends are ``"kernel"`` (the default: the
 hand-written CUDA kernels on a card, their plain versions on the CPU)
 and ``"torch"`` (the plain PyTorch level walk, the second opinion).
 :meth:`PricingConfig.execution` maps a workload's JAX-style
-``platform``/``interpret``/``dtype`` onto it, as the API's individual
-kwargs are mapped.
+``platform``/``interpret`` onto it, as the API's individual kwargs are
+mapped; :meth:`PricingConfig.resolve_execution` resolves the three knobs
+against ``core/platform.py``'s policy, as JAX's does.
 """
 import dataclasses
 from typing import Optional
@@ -112,7 +113,23 @@ class PricingConfig:
     # default: the kernels on the card)
     platform: Optional[str] = None    # "cpu" | "gpu"
     interpret: Optional[bool] = None  # True: the kernels' plain versions
-    dtype: Optional[str] = None       # "float64" only
+    dtype: Optional[str] = None       # "float64" | "float32"
+
+    def resolve_execution(self) -> dict:
+        """The execution knobs resolved against the platform policy
+        (``core/platform.py``), as the JAX package's method returns them:
+        ``{"platform", "interpret", "dtype"}`` with each ``None`` replaced
+        by the active platform's value (``interpret`` and float64 on
+        ``"cpu"``, the kernels and float32 on ``"gpu"``; ``"tpu"`` raises
+        ``ValueError``)."""
+        from ..core import platform as plat
+        if self.dtype not in (None, "float64", "float32"):
+            raise ValueError(f"dtype {self.dtype!r}: use 'float64' or "
+                             "'float32'")
+        p = self.platform or plat.active_platform()
+        return {"platform": p,
+                "interpret": plat.resolve_interpret(self.interpret, p),
+                "dtype": self.dtype or plat.policy_dtype(p)}
 
     def execution(self) -> ExecutionConfig:
         """This workload's execution knobs as the port's resolved
@@ -120,10 +137,16 @@ class PricingConfig:
         ``device`` ``"cuda"``/``"cpu"``, ``interpret=True`` -> the
         kernels' plain versions on the CPU (``ValueError`` beside
         ``platform="gpu"``, as ``interpret=False`` beside ``"cpu"``).
-        The engines compute in float64: another ``dtype`` raises."""
-        if self.dtype not in (None, "float64"):
-            raise ValueError(f"dtype {self.dtype!r}: the port's pricing "
-                             "engines compute in float64")
+
+        ``dtype`` (``"float64"`` or ``"float32"``, else ``ValueError``)
+        does not reach the :class:`ExecutionConfig`, as in the JAX
+        package: the scenario grids it drives compute in float64 in both
+        packages, whatever the dtype says.  The float32 paths are the
+        node-axis builders and the kernel walks, which take ``dtype``
+        themselves."""
+        if self.dtype not in (None, "float64", "float32"):
+            raise ValueError(f"dtype {self.dtype!r}: use 'float64' or "
+                             "'float32'")
         device, backend = execution_device(self.platform, self.interpret)
         return ExecutionConfig(device=device, backend=backend).resolved()
 

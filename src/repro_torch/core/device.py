@@ -1,10 +1,12 @@
 """Device and dtype policy of the port.
 
-The counterpart of the JAX package's platform policy: ``cuda`` runs the
-hand-written kernels, ``cpu`` runs their plain PyTorch versions (the
-path the CPU tests take).  Every engine computes in ``float64`` by
-default.  Asking for ``cuda`` where no card is present raises: there is
-no quiet CPU fallback.
+``cuda`` runs the hand-written kernels, ``cpu`` runs their plain
+PyTorch versions (the path the CPU tests take).  The engines that the
+JAX package holds at float64 (the scenario grids, ``price_flat``, the
+service) compute in ``DEFAULT_DTYPE``; where JAX takes its dtype from
+its platform policy, the port does too (``core/platform.py``).  Asking
+for ``cuda`` where no card is present raises: there is no quiet CPU
+fallback.
 """
 from __future__ import annotations
 

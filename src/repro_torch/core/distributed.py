@@ -350,15 +350,15 @@ def _run_row(devs, cols: dict, eng: _Engine, plan: dict, n_steps: int):
 
 
 def _node_axis(mesh: DeviceMesh, data_axes, model_axis: str, eng: _Engine,
-               plan: dict, n_steps: int, names: tuple):
+               plan: dict, n_steps: int, names: tuple, dtype):
     """The sharded function: contracts over the data rows of ``mesh``
     (their count must divide evenly), each row's trees over its model
-    axis.  Returns ``(results on the host, max knot count or None)``."""
+    axis, the columns in ``dtype``.  Returns ``(results on the host, max
+    knot count or None)``."""
     rows = mesh.rows(data_axes, model_axis)
 
     def run(*args):
-        cols = [torch.as_tensor(a, dtype=torch.float64).reshape(-1)
-                for a in args]
+        cols = [torch.as_tensor(a).to(dtype).reshape(-1) for a in args]
         n = cols[0].shape[0]
         if any(c.shape[0] != n for c in cols) or n % len(rows):
             raise ValueError(f"contract columns of lengths "
@@ -385,9 +385,9 @@ def _check_build(mesh: DeviceMesh, data_axes, model_axis: str,
     if backend not in NODE_BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use one of "
                          f"{NODE_BACKENDS}")
-    if dtype != torch.float64:
-        raise ValueError(f"the node-axis engines compute in torch.float64, "
-                         f"got dtype={dtype}")
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"the node-axis engines compute in torch.float64 "
+                         f"or torch.float32, got dtype={dtype}")
     return mesh.shape[model_axis]
 
 
@@ -410,6 +410,9 @@ def build_rz_sharded(mesh: DeviceMesh, *, n_steps: int,
     takes any payoff.  ``ask`` and ``bid`` come back on the host;
     ``max_pieces`` is the largest raw knot count over the shards' owned
     live lanes and the tail (JAX's ``stat`` also counts the halo lanes).
+    ``dtype`` is torch.float64 or torch.float32, as JAX's builders take
+    it: the contract columns are cast to it and every round runs in it
+    (``rz_round``'s float32 instance).
     """
     W = _check_build(mesh, data_axes, model_axis, backend, dtype)
     plan = plan_rounds(n_steps, W, round_depth, collapse_lanes)
@@ -453,7 +456,7 @@ def build_rz_sharded(mesh: DeviceMesh, *, n_steps: int,
     eng = _Engine(prepare=prepare, leaf=leaf, step=step, finish=_root_quote,
                   axis=2, width=lambda n: n, tail_block=None)
     run = _node_axis(mesh, data_axes, model_axis, eng, plan, n_steps,
-                     ("s0", "sigma", "rate", "maturity", "k"))
+                     ("s0", "sigma", "rate", "maturity", "k"), dtype)
 
     def f(s0, sigma, rate, maturity, k):
         (ask, bid), pieces = run(s0, sigma, rate, maturity, k)
@@ -478,7 +481,9 @@ def build_notc_sharded(mesh: DeviceMesh, *, n_steps: int, strike: float,
     at most ``block`` levels; unlike JAX's level step it does not hold
     lanes beyond the level (``idx > lvl``) still, but those lanes never
     reach a live one, so the price is the same.  ``backend="torch"`` is
-    JAX's level step.  The prices come back on the host.
+    JAX's level step.  The prices come back on the host.  ``dtype`` is
+    torch.float64 or torch.float32 (``lattice_round``'s float32 instance),
+    as JAX's builders take it.
     """
     W = _check_build(mesh, data_axes, model_axis, backend, dtype)
     if kind not in ("put", "call"):
@@ -502,7 +507,7 @@ def build_notc_sharded(mesh: DeviceMesh, *, n_steps: int, strike: float,
                     p=p[:, None], sc=sc)
 
     def spots(ctx, lanes, lane0, lvl, dev):
-        idx = lane0 + torch.arange(lanes, dtype=torch.float64, device=dev)
+        idx = lane0 + torch.arange(lanes, dtype=dtype, device=dev)
         return idx, ctx["s0"] * torch.exp((2.0 * idx - lvl) * ctx["sig"])
 
     def leaf(ctx, lanes, lane0):
@@ -533,7 +538,7 @@ def build_notc_sharded(mesh: DeviceMesh, *, n_steps: int, strike: float,
                   finish=lambda st: (st.v[:, 0],), axis=1, width=width,
                   tail_block=block if backend == "kernel" else None)
     run = _node_axis(mesh, data_axes, model_axis, eng, plan, n_steps - 1,
-                     ("s0", "sigma", "rate", "maturity"))
+                     ("s0", "sigma", "rate", "maturity"), dtype)
 
     def f(s0, sigma, rate, maturity):
         (price,), _ = run(s0, sigma, rate, maturity)

@@ -55,3 +55,10 @@ class LatticeModel:
         i = np.arange(n + 1, dtype=np.float64)
         return self.s0 * np.exp((2.0 * i - n) * self.sigma
                                 * math.sqrt(self.maturity / self.n_steps))
+
+    def ask_bid_level(self, n: int) -> tuple:
+        """(S^a, S^b) for all nodes at level n; no costs at n == 0."""
+        s = self.stock_level(n)
+        if n == 0:
+            return s, s.copy()
+        return (1.0 + self.cost_rate) * s, (1.0 - self.cost_rate) * s

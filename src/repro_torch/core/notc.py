@@ -9,18 +9,21 @@
   ``_notc_one_jnp`` of the JAX package, with the row dimension written
   out where JAX used ``vmap``);
 * :func:`notc_payoff_rows` — the same walk for one payoff given by its
-  callables (a closure-only payoff has no data form).
+  callables (a closure-only payoff has no data form);
+* :func:`price_notc_torch` — one vanilla put or call through that walk,
+  the twin of the JAX package's ``price_notc_jax``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .device import DEFAULT_DTYPE, resolve_device
 from .lattice import LatticeModel
 from .payoff import PayoffProcess, family_xi_zeta
 
 __all__ = ["price_notc_np", "intrinsic_grid", "notc_rows",
-           "notc_payoff_rows"]
+           "notc_payoff_rows", "price_notc_torch"]
 
 
 def intrinsic_grid(model: LatticeModel, payoff: PayoffProcess,
@@ -83,3 +86,19 @@ def notc_payoff_rows(s0, sigma, rate, maturity, payoff: PayoffProcess, *,
     col = lambda a: a[:, None]
     return _notc_walk(col(s0), col(sigma), col(rate), col(maturity),
                       payoff.intrinsic, n_steps=n_steps)
+
+
+def price_notc_torch(model: LatticeModel, payoff: PayoffProcess, *,
+                     device="cuda") -> float:
+    """The twin of the JAX package's ``core/notc.py::price_notc_jax``: a
+    vanilla put or call (``payoff.name`` starting with "put" or "call",
+    else ``ValueError`` as JAX's) priced by the fixed-buffer level walk in
+    float64 (plain PyTorch on ``device``; no kernel)."""
+    if not payoff.name.startswith(("put", "call")):
+        raise ValueError(f"price_notc_torch supports vanilla put/call, "
+                         f"got {payoff.name}")
+    dev = resolve_device(device)
+    t = lambda x: torch.tensor([float(x)], dtype=DEFAULT_DTYPE, device=dev)
+    return float(notc_payoff_rows(t(model.s0), t(model.sigma), t(model.rate),
+                                  t(model.maturity), payoff,
+                                  n_steps=model.n_steps)[0])

@@ -15,7 +15,12 @@ merges are rank computations by binary search, compaction is a prefix
 sum — and each envelope or cone returns the **raw** knot count before
 truncation to the capacity, which the engines carry to detect overflow.
 Tolerances: relative ``_REL = 1e-9`` on slopes and crossings, widths
-guarded by ``_tiny(dtype)``.
+guarded by ``_tiny(dtype)``.  Every operation runs in the records' dtype,
+float64 or float32, as JAX's does; in float32 ``_REL`` lies below the
+float's resolution, so float noise reads as kinks and the knot counts
+grow level by level, in both packages alike.  :func:`from_ref` and
+:func:`to_ref` convert one function to and from the numpy oracle
+(``core/pwl_ref.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["PWL", "BIG", "make_affine", "expense", "eval_at", "scale",
-           "envelope2", "cone_infconv"]
+           "envelope2", "cone_infconv", "merge_sorted", "from_ref", "to_ref"]
 
 BIG = 1e30
 _REL = 1e-9
@@ -115,6 +120,12 @@ def _merge_take(a: torch.Tensor, b: torch.Tensor, *payloads):
         o.scatter_(-1, rb, pb)
         out.append(o)
     return tuple(out)
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sort-free merge of two ascending knot vectors along the last dim
+    (:func:`_merge_take` without payloads)."""
+    return _merge_take(a, b)[0]
 
 
 def _compact(xs, ys, keep):
@@ -381,3 +392,30 @@ def cone_infconv(f: PWL, a, b, out_cap: int):
     vf = _eval1(f, cands)
     return _envelope_core(f, env, cands, vf, env_v, menv, out_cap,
                           take_max=False)
+
+
+# --------------------------------------------------------------------- #
+# conversions to and from the exact oracle (testing)
+# --------------------------------------------------------------------- #
+def from_ref(ref, capacity: int, dtype=torch.float64) -> PWL:
+    """One oracle function (``pwl_ref.PWLRef``) as a record: ``xs``, ``ys``
+    of shape ``(capacity,)``, 0-dim ``sl``, ``sr`` and int32 ``m``."""
+    m = ref.m
+    if m > capacity:
+        raise ValueError(f"oracle function has {m} knots > capacity {capacity}")
+    xs = torch.full((capacity,), BIG, dtype=torch.float64)
+    ys = torch.zeros((capacity,), dtype=torch.float64)
+    xs[:m] = torch.as_tensor(ref.xs, dtype=torch.float64)
+    ys[:m] = torch.as_tensor(ref.ys, dtype=torch.float64)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64).to(dtype)
+    return PWL(t(xs), t(ys), t(ref.s_left), t(ref.s_right),
+               torch.tensor(m, dtype=torch.int32))
+
+
+def to_ref(f: PWL):
+    """One record (0-dim ``sl``) as an oracle function: its first ``m``
+    knots, in float64."""
+    from .pwl_ref import PWLRef
+    m = int(f.m)
+    host = lambda a: a.detach().cpu().to(torch.float64).numpy()
+    return PWLRef(host(f.xs[:m]), host(f.ys[:m]), float(f.sl), float(f.sr))

@@ -16,6 +16,15 @@ walks follow the re-balanced round plan of ``core/partition.py``:
   round (``backend="kernel"``: the CUDA kernel on a card, its plain
   version on the CPU).
 
+Both walks take ``dtype`` (float64 by default, or float32), as JAX's
+``rz_backward`` and ``rz_backward_pallas`` do.  In float32 the PWL
+algebra's relative 1e-9 tolerance is below the float's resolution:
+float noise reads as kinks and the knot counts grow by several a level
+(a put at N=25 needs 73 knots in JAX's float32 walk, 4 in float64), so
+float32 overflows a capacity that float64 fits.  :func:`rz_level_step` is
+the single-step form, :func:`price_rz_batch` the batch of contracts
+(JAX's vmapped ``price_rz``).
+
 Overflow is detected, never silent: the walks return each row's peak
 raw knot count and the callers raise ``OverflowError`` when it exceeds
 the capacity.
@@ -33,7 +42,8 @@ from .partition import kernel_round_plan
 from .payoff import PayoffProcess, family_xi_zeta, kernel_params
 
 __all__ = ["RZResult", "RZ_BACKENDS", "rz_params", "rz_level_step_lanes",
-           "leaf_level", "rz_backward", "rz_backward_kernel", "price_rz"]
+           "rz_level_step", "leaf_level", "rz_backward",
+           "rz_backward_kernel", "price_rz", "price_rz_batch"]
 
 RZ_BACKENDS = ("torch", "kernel")
 
@@ -119,6 +129,23 @@ def rz_level_step_lanes(z: P.PWL, lvl, params: dict, pay, *, capacity: int,
     return _select(live, z_new, z), pieces
 
 
+def rz_level_step(z: P.PWL, lvl, params: dict, pay, *, capacity: int,
+                  seller, idx_offset=0):
+    """One backward level update -> (z_new, max pieces over the batch):
+    :func:`rz_level_step_lanes` with its per-lane counts reduced, as the
+    JAX package's ``rz_level_step``."""
+    z_new, pieces = rz_level_step_lanes(z, lvl, params, pay,
+                                        capacity=capacity, seller=seller,
+                                        idx_offset=idx_offset)
+    return z_new, pieces.amax()
+
+
+def _cast(dtype, *cols):
+    """Each market column (and each payoff tensor) in ``dtype``."""
+    return tuple(c.to(dtype) if isinstance(c, torch.Tensor) else c
+                 for c in cols)
+
+
 def leaf_level(n_steps: int, params: dict, capacity: int,
                lanes: int | None = None, lane0: int = 0) -> P.PWL:
     """z at the extra instant t = N+1 (payoff (0, 0)): ``(R, lanes)``,
@@ -151,13 +178,16 @@ def _root_quote(z: P.PWL):
 
 
 def rz_backward(s0, sigma, rate, maturity, k, pay, *, n_steps: int,
-                capacity: int):
+                capacity: int, dtype=torch.float64):
     """Plain level walk over rows -> (ask (R,), bid (R,), pieces (R,)).
 
-    Every market argument is an ``(R,)`` float64 tensor; ``pay`` the six
-    payoff parameters as ``(R,)`` tensors, or one closure-only
+    Every market argument is an ``(R,)`` tensor, cast to ``dtype``; ``pay``
+    the six payoff parameters as ``(R,)`` tensors, or one closure-only
     :class:`PayoffProcess` for every row.
     """
+    s0, sigma, rate, maturity, k = _cast(dtype, s0, sigma, rate, maturity, k)
+    if not isinstance(pay, PayoffProcess):
+        pay = _cast(dtype, *pay)
     params = rz_params(s0, sigma, rate, maturity, k, n_steps=n_steps)
     col = {n: v[:, None, None] for n, v in params.items()}
     payc = (pay if isinstance(pay, PayoffProcess)
@@ -179,14 +209,17 @@ def rz_backward(s0, sigma, rate, maturity, k, pay, *, n_steps: int,
 
 def rz_backward_kernel(s0, sigma, rate, maturity, k, pay, *, n_steps: int,
                        capacity: int, levels: int | None = None,
-                       block: int | None = None):
+                       block: int | None = None, dtype=torch.float64):
     """The level walk through ``rz_round``, one call per round of
-    ``kernel_round_plan`` with the lanes shrunk to the live tree.
+    ``kernel_round_plan`` with the lanes shrunk to the live tree, in
+    ``dtype`` (the kernel's float64 or float32 instance).
 
     ``block=None`` runs one block per round (no halo); an explicit
     ``block`` gives multi-block halo rounds.
     """
     from ..kernels.rz_step import rz_round
+    s0, sigma, rate, maturity, k, *pay = _cast(dtype, s0, sigma, rate,
+                                               maturity, k, *pay)
     params = rz_params(s0, sigma, rate, maturity, k, n_steps=n_steps)
     plan = kernel_round_plan(n_steps, levels=levels, block=block)
     z = _fused_leaf(n_steps, params, capacity, plan[0].lanes)
@@ -236,3 +269,21 @@ def price_rz(model: LatticeModel, payoff: PayoffProcess, capacity: int = 48,
             f"PWL capacity overflow: needed {res.max_pieces} > K={capacity}; "
             "re-run with a larger capacity")
     return res
+
+
+def price_rz_batch(s0, sigma, rate, maturity, k, *, n_steps: int,
+                   capacity: int, payoff: PayoffProcess, device="cuda"):
+    """Ask, bid and knot count of a batch of contracts, one payoff: the
+    JAX package's ``price_rz_batch`` (a vmapped ``price_rz`` on its
+    ``jnp`` walk), here the plain walk (:func:`rz_backward`) over rows in
+    float64.  The inputs are scalars or 1-D and broadcast together;
+    returns ``(ask, bid, max_pieces)`` tensors of the batch's length on
+    ``device``.  Overflow is not raised: each row's ``max_pieces`` says
+    whether it fits ``capacity``."""
+    dev = resolve_device(device)
+    cols = torch.broadcast_tensors(*(torch.atleast_1d(torch.as_tensor(
+        v, dtype=DEFAULT_DTYPE, device=dev)) for v in (s0, sigma, rate,
+                                                         maturity, k)))
+    pay = (payoff if payoff.params is None else
+           tuple(torch.full_like(cols[0], x) for x in payoff.params))
+    return rz_backward(*cols, pay, n_steps=n_steps, capacity=capacity)

@@ -16,7 +16,15 @@
 // halo), with the intrinsic taken at tree column lane0 + p in both cases
 // (lane0 > 0 for a shard of the node axis).
 //
-// What bounds it on the H100: float64 operations.  Per node and level the
+// Float64 and float32 instances: the kernel is a template on the scalar T,
+// with separate C entry points (lattice_round_launch for double,
+// lattice_round_launch_f32 for float).  Every constant and math call is
+// written in T (mx, ex below), so the float instance runs no float64
+// instruction; the TPU kernel's float32 variant is the same program traced
+// at float32.
+//
+// What bounds it on the H100: float64 operations (float32: the same count
+// over the 67 TFLOP/s of float32 outside the tensor cores).  Per node and level the
 // function needs 5 (p*up, q*v, their sum, *inv_r, the max); the intrinsic
 // depends on j = 2i - lvl alone, so a round needs it at about 2 distinct j
 // per lane, not one per lane and level.  At the main path's 50 levels that
@@ -69,18 +77,41 @@ constexpr int R = 10;              // lanes a thread holds
 constexpr int W = 32 * R;          // lanes a warp window holds
 constexpr int WARPS = 4;           // warps a CTA
 
+template <class T>
 struct Round {
-  double p_up, q, inv_r, s0, sig;
-  double alpha, zeta, w1, w2, k1, k2, strike;
+  T p_up, q, inv_r, s0, sig;
+  T alpha, zeta, w1, w2, k1, k2, strike;
 };
 
-template <int KIND>  // 0: 4-parameter payoff, 1: put, 2: call
-__device__ __forceinline__ double intrinsic(const Round& c, double s) {
-  if (KIND == 1) return fmax(c.strike - s, 0.0);
-  if (KIND == 2) return fmax(s - c.strike, 0.0);
-  const double pay = c.alpha * c.k1 + c.w1 * fmax(s - c.k1, 0.0)
-                     + c.w2 * fmax(s - c.k2, 0.0) + c.zeta * s;
-  return fmax(pay, 0.0);
+// max and exp in the scalar's own precision.  The float max propagates
+// NaN (max.NaN.f32, sm_80 on), as torch.maximum and jnp.maximum do: a float32
+// spot past 3.4e38 is inf, and the 4-parameter payoff's w * (s - k)^+ is then
+// 0 * inf = NaN, which the plain version and the TPU kernel keep.  The
+// double path has no overflow on the engines' inputs and keeps fmax and a
+// compare and select.
+__device__ __forceinline__ double mx(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float mx(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ double pick(double pay, double cont) {
+  return pay > cont ? pay : cont;
+}
+__device__ __forceinline__ float pick(float pay, float cont) {
+  return mx(pay, cont);
+}
+__device__ __forceinline__ double ex(double a) { return exp(a); }
+__device__ __forceinline__ float ex(float a) { return expf(a); }
+
+template <int KIND, class T>  // KIND 0: 4-parameter payoff, 1: put, 2: call
+__device__ __forceinline__ T intrinsic(const Round<T>& c, T s) {
+  const T zero = T(0);
+  if (KIND == 1) return mx(c.strike - s, zero);
+  if (KIND == 2) return mx(s - c.strike, zero);
+  const T pay = c.alpha * c.k1 + c.w1 * mx(s - c.k1, zero)
+                + c.w2 * mx(s - c.k2, zero) + c.zeta * s;
+  return mx(pay, zero);
 }
 
 // Table entry k lives at k + (k >> SKEW): thread t's refill index steps by
@@ -98,28 +129,29 @@ __host__ __device__ constexpr int table_size(int entries) {
 
 // One backward step of a thread's R lanes; lane r's intrinsic sits in
 // slot (r + u) % R of the window w.
-__device__ __forceinline__ void step(double (&v)[R], const double (&w)[R],
-                                     int u, const Round& c) {
-  const double last = __shfl_down_sync(FULL, v[0], 1);
+template <class T>
+__device__ __forceinline__ void step(T (&v)[R], const T (&w)[R], int u,
+                                     const Round<T>& c) {
+  const T last = __shfl_down_sync(FULL, v[0], 1);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const double up = r + 1 < R ? v[r + 1] : last;
-    const double cont = (c.p_up * up + c.q * v[r]) * c.inv_r;
-    const double pay = w[(r + u) % R];
-    v[r] = pay > cont ? pay : cont;
+    const T up = r + 1 < R ? v[r + 1] : last;
+    const T cont = (c.p_up * up + c.q * v[r]) * c.inv_r;
+    const T pay = w[(r + u) % R];
+    v[r] = pick(pay, cont);
   }
 }
 
 // One warp advances the window of W lanes of `src` at `start` by n steps
 // (steps done+1 .. done+n) and writes its first W - n lanes, those below
 // vout, to `dst`.  g[k] is the intrinsic of lane x at step s, k = 2x + s - 1.
+template <class T>
 __device__ __forceinline__ void warp_steps(
-    const double* __restrict__ src, double* __restrict__ dst,
-    const double* __restrict__ g, int nsrc, int start, int done, int n,
-    int vout, const Round& c) {
+    const T* __restrict__ src, T* __restrict__ dst, const T* __restrict__ g,
+    int nsrc, int start, int done, int n, int vout, const Round<T>& c) {
   const int base = start + (threadIdx.x & 31) * R;
   const int kmax = 2 * nsrc - 1;
-  double v[R], e[R], o[R];
+  T v[R], e[R], o[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) v[r] = src[min(base + r, nsrc - 1)];
   int k = 2 * base + done;
@@ -148,24 +180,24 @@ __device__ __forceinline__ void warp_steps(
   }
 }
 
-template <int KIND>
+template <int KIND, class T>
 __global__ void __launch_bounds__(WARPS * 32)
-lattice_round_kernel(const double* __restrict__ v,
-                     const double* __restrict__ scalars,
-                     double* __restrict__ out, int P, int block, int levels,
+lattice_round_kernel(const T* __restrict__ v, const T* __restrict__ scalars,
+                     T* __restrict__ out, int P, int block, int levels,
                      int n_scalars, int tile, int lane0) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int nsrc = tile + levels;          // lanes the owned ones depend on
-  double* src = smem;
-  double* dst = smem + nsrc;
-  double* g = smem + 2 * nsrc;             // 2 * nsrc entries, skewed
+  T* src = smem;
+  T* dst = smem + nsrc;
+  T* g = smem + 2 * nsrc;                  // 2 * nsrc entries, skewed
   const int row = blockIdx.y;
   const long long t0 = (long long)blockIdx.x * tile;
-  const double* vr = v + (size_t)row * P;
-  const double* sc = scalars + (size_t)row * n_scalars;
+  const T* vr = v + (size_t)row * P;
+  const T* sc = scalars + (size_t)row * n_scalars;
 
-  Round c{};
-  const double lvl0 = sc[0];
+  Round<T> c{};
+  const T lvl0 = sc[0];
   c.p_up = sc[1];
   c.inv_r = sc[2];
   if (KIND == 0) {
@@ -175,24 +207,25 @@ lattice_round_kernel(const double* __restrict__ v,
   } else {
     c.strike = sc[3]; c.s0 = sc[4]; c.sig = sc[5];
   }
-  c.q = 1.0 - c.p_up;
+  c.q = T(1) - c.p_up;
   // steps whose level lvl0 - s is >= 0; the rest of the round is no-ops
-  const int active = lvl0 >= levels ? levels : (lvl0 >= 1.0 ? (int)lvl0 : 0);
+  const int active =
+      lvl0 >= T(levels) ? levels : (lvl0 >= T(1) ? (int)lvl0 : 0);
 
   for (int x = threadIdx.x; x < nsrc; x += blockDim.x) {
     const long long p = t0 + x;
-    double val = 0.0;
+    T val = T(0);
     if (p < P) val = vr[p];
     else if (p < (long long)P + block) val = vr[p - block];
     src[x] = val;
-    dst[x] = 0.0;
+    dst[x] = T(0);
   }
   if (active > 0) {
     // j = 2(lane0 + p) - (lvl0 - s) for local lane x = p - t0 at step s
     // is jbase + 2x + s - 1
     const long long jbase = 2 * (lane0 + t0) - (long long)lvl0 + 1;
     for (int k = threadIdx.x; k < 2 * nsrc; k += blockDim.x)
-      g[tab(k)] = intrinsic<KIND>(c, c.s0 * exp((double)(jbase + k) * c.sig));
+      g[tab(k)] = intrinsic<KIND>(c, c.s0 * ex((T)(jbase + k) * c.sig));
   }
   __syncthreads();
 
@@ -204,24 +237,24 @@ lattice_round_kernel(const double* __restrict__ v,
     for (int start = warp * keep; start < vout; start += WARPS * keep)
       warp_steps(src, dst, g, nsrc, start, done, n, vout, c);
     __syncthreads();
-    double* t = src; src = dst; dst = t;
+    T* t = src; src = dst; dst = t;
     done += n;
   }
-  double* outr = out + (size_t)row * P;
+  T* outr = out + (size_t)row * P;
   for (int x = threadIdx.x; x < tile; x += blockDim.x) {
     const long long p = t0 + x;
     if (p < P) outr[p] = src[x];
   }
 }
 
-template <int KIND>
-int launch(const double* v, const double* sc, double* out, int rows, int P,
-           int block, int levels, int n_scalars, int lane0, cudaStream_t st) {
+template <int KIND, class T>
+int launch(const T* v, const T* sc, T* out, int rows, int P, int block,
+           int levels, int n_scalars, int lane0, cudaStream_t st) {
   const int tile = WARPS * (W - (levels < W / 2 ? levels : W / 2));
   const int nsrc = tile + levels;
   const size_t shmem =
-      (2 * (size_t)nsrc + table_size(2 * nsrc)) * sizeof(double);
-  auto kern = lattice_round_kernel<KIND>;
+      (2 * (size_t)nsrc + table_size(2 * nsrc)) * sizeof(T);
+  auto kern = lattice_round_kernel<KIND, T>;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
@@ -233,22 +266,38 @@ int launch(const double* v, const double* sc, double* out, int rows, int P,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// kind 0: the 4-parameter payoff (11 scalars a row); 1: put, 2: call (6).
-// lane0 is the tree column of v's lane 0 (a shard's offset on the node
-// axis; 0 for a whole row).
-extern "C" int lattice_round_launch(const void* v, const void* scalars,
-                                    void* out, int rows, int P, int block,
-                                    int levels, int kind, int lane0,
-                                    void* stream) {
-  const double* vp = (const double*)v;
-  const double* sp = (const double*)scalars;
-  double* op = (double*)out;
+template <class T>
+int dispatch(const void* v, const void* scalars, void* out, int rows, int P,
+             int block, int levels, int kind, int lane0, void* stream) {
+  const T* vp = (const T*)v;
+  const T* sp = (const T*)scalars;
+  T* op = (T*)out;
   cudaStream_t st = (cudaStream_t)stream;
   if (kind == 0)
     return launch<0>(vp, sp, op, rows, P, block, levels, 11, lane0, st);
   if (kind == 1)
     return launch<1>(vp, sp, op, rows, P, block, levels, 6, lane0, st);
   return launch<2>(vp, sp, op, rows, P, block, levels, 6, lane0, st);
+}
+
+}  // namespace
+
+// kind 0: the 4-parameter payoff (11 scalars a row); 1: put, 2: call (6).
+// lane0 is the tree column of v's lane 0 (a shard's offset on the node
+// axis; 0 for a whole row).  v, scalars and out are double here, float in
+// lattice_round_launch_f32.
+extern "C" int lattice_round_launch(const void* v, const void* scalars,
+                                    void* out, int rows, int P, int block,
+                                    int levels, int kind, int lane0,
+                                    void* stream) {
+  return dispatch<double>(v, scalars, out, rows, P, block, levels, kind,
+                          lane0, stream);
+}
+
+extern "C" int lattice_round_launch_f32(const void* v, const void* scalars,
+                                        void* out, int rows, int P, int block,
+                                        int levels, int kind, int lane0,
+                                        void* stream) {
+  return dispatch<float>(v, scalars, out, rows, P, block, levels, kind,
+                         lane0, stream);
 }

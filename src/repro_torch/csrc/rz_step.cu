@@ -20,7 +20,15 @@
 // tree column counted from lane0, the column of the input's lane 0 (a shard
 // of the node axis has lane0 > 0; its pieces count owned_lanes lanes).
 //
-// What bounds it on the H100: float64 operations, and how fast each
+// Float64 and float32 instances: the kernel is a template on the scalar T,
+// with separate C entry points (rz_round_launch / rz_round_slots for double,
+// the _f32 ones for float).  Every constant and math call is written in T
+// (Lim, mx, mn, ab, ex below), so the float instance runs no float64
+// instruction, and TINY follows the JAX package's _tiny(dtype).  A float
+// record is half the bytes: the same tiles take half the shared memory.
+//
+// What bounds it on the H100: float64 operations (float32 in the float
+// instance), and how fast each
 // thread's chain of them can issue.  A lane step is a few hundred float64
 // operations (merges, crossings, divisions, binary searches) per knot of
 // its state, most waiting on the one before, on knot lists whose length
@@ -72,9 +80,29 @@
 
 namespace {
 
-constexpr double BIG = 1e30;
-constexpr double REL = 1e-9;
-constexpr double TINY = 1e-300;
+// Limits and math in the scalar's own precision: TINY is the positive-width
+// guard of the PWL algebra, 1e-300 in float64 and float32's smallest normal
+// in float32 (where 1e-300 underflows to 0), as the JAX package's _tiny.
+template <class T> struct Lim;
+template <> struct Lim<double> {
+  static __device__ __forceinline__ double big() { return 1e30; }
+  static __device__ __forceinline__ double rel() { return 1e-9; }
+  static __device__ __forceinline__ double tiny() { return 1e-300; }
+};
+template <> struct Lim<float> {
+  static __device__ __forceinline__ float big() { return 1e30f; }
+  static __device__ __forceinline__ float rel() { return 1e-9f; }
+  static __device__ __forceinline__ float tiny() { return 1.17549435e-38f; }
+};
+__device__ __forceinline__ double mx(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float mx(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double mn(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float mn(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double ab(double a) { return fabs(a); }
+__device__ __forceinline__ float ab(float a) { return fabsf(a); }
+__device__ __forceinline__ double ex(double a) { return exp(a); }
+__device__ __forceinline__ float ex(float a) { return expf(a); }
+
 constexpr int THREADS = 256;
 constexpr int EMAX = 256;       // lanes a tile holds: owned lanes and halo
 constexpr int KS = 2;           // knots a shared-memory record holds inline
@@ -82,25 +110,30 @@ constexpr int NREC = 4;         // record sets: 2 buffers x 2 sides
 
 // dynamic shared memory: xs, ys [NREC][KS][EMAX]; sl, sr [NREC][EMAX];
 // m [NREC][EMAX]; nst [EMAX]
-constexpr size_t SMEM_BYTES = sizeof(double) * (2 * NREC * KS * EMAX
-                                                + 2 * NREC * EMAX)
-                              + sizeof(int) * (NREC * EMAX + EMAX);
+template <class T>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (2 * NREC * KS * EMAX + 2 * NREC * EMAX)
+         + sizeof(int) * (NREC * EMAX + EMAX);
+}
 
+template <class T>
 struct View {          // a PWL whose first m knots are valid; knot t at [t*st]
-  const double* xs;
-  const double* ys;
+  const T* xs;
+  const T* ys;
   int st;
-  double sl, sr;
+  T sl, sr;
   int m;
 };
 
+template <class T>
 struct Pt {            // a merged-grid point and both functions' values on it
-  double x, vf, vg;
+  T x, vf, vg;
 };
 
 // count of a[i] <= v (right) or a[i] < v (left) in ascending a[0..n)
-__device__ __forceinline__ int ss_right(const double* a, int st, int n,
-                                        double v) {
+template <class T>
+__device__ __forceinline__ int ss_right(const T* a, int st, int n,
+                                        T v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -109,8 +142,9 @@ __device__ __forceinline__ int ss_right(const double* a, int st, int n,
   return lo;
 }
 
-__device__ __forceinline__ int ss_left(const double* a, int st, int n,
-                                       double v) {
+template <class T>
+__device__ __forceinline__ int ss_left(const T* a, int st, int n,
+                                       T v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -119,7 +153,8 @@ __device__ __forceinline__ int ss_left(const double* a, int st, int n,
   return lo;
 }
 
-__device__ double eval1(const View& f, double c) {
+template <class T>
+__device__ T eval1(const View<T>& f, T c) {
   const int st = f.st;
   const int cnt = ss_right(f.xs, st, f.m, c);
   if (cnt == 0) return f.ys[0] + f.sl * (c - f.xs[0]);
@@ -128,18 +163,19 @@ __device__ double eval1(const View& f, double c) {
     return f.ys[il] + f.sr * (c - f.xs[il]);
   }
   const int il = (cnt - 1) * st, ir = cnt * st;
-  const double w = f.xs[ir] - f.xs[il];
-  const bool ok = w > TINY;
-  const double slope = (ok ? f.ys[ir] - f.ys[il] : 0.0) / (ok ? w : 1.0);
+  const T w = f.xs[ir] - f.xs[il];
+  const bool ok = w > Lim<T>::tiny();
+  const T slope = (ok ? f.ys[ir] - f.ys[il] : T(0)) / (ok ? w : T(1));
   return f.ys[il] + slope * (c - f.xs[il]);
 }
 
 // Knots into a thread's array, values scaled (w = envelope / r) or not.
+template <class T>
 struct ArrOut {
-  double* xs;
-  double* ys;
-  double scale;
-  __device__ void put(int t, double x, double y) {
+  T* xs;
+  T* ys;
+  T scale;
+  __device__ void put(int t, T x, T y) {
     xs[t] = x;
     ys[t] = y * scale;
   }
@@ -147,12 +183,13 @@ struct ArrOut {
 
 // Knots into a lane record: the first KS inline in shared memory (stride
 // EMAX), all of them in the record's device-memory slot once there are more.
+template <class T>
 struct RecOut {
-  double* ix;
-  double* iy;
-  double* wx;
-  double* wy;
-  __device__ void put(int t, double x, double y) {
+  T* ix;
+  T* iy;
+  T* wx;
+  T* wy;
+  __device__ void put(int t, T x, T y) {
     if (t < KS) {
       ix[t * EMAX] = x;
       iy[t * EMAX] = y;
@@ -171,33 +208,33 @@ struct RecOut {
 // first survivor's left slope is sl, the last's right slope sr), truncate to
 // cap; the first survivor anchors a list with no kink.  Returns the raw
 // count.
-template <class O>
+template <class T, class O>
 struct Compress {
   O& out;
   int cap;
-  double sl = 0.0;           // set before the second survivor arrives
-  double prev_x = -BIG;
+  T sl = T(0);           // set before the second survivor arrives
+  T prev_x = -Lim<T>::big();
   bool prev_valid = false;
   int ns = 0;                // survivors so far
-  double fx = 0.0, fy = 0.0; // first survivor
-  double px = 0.0, py = 0.0; // last survivor, not yet decided
-  double s_left = 0.0;       // its left slope when ns >= 2
+  T fx = T(0), fy = T(0); // first survivor
+  T px = T(0), py = T(0); // last survivor, not yet decided
+  T s_left = T(0);       // its left slope when ns >= 2
   int m2 = 0;
 
   __device__ Compress(O& o, int c) : out(o), cap(c) {}
 
-  __device__ void decide(double s_l, double s_r) {
-    const double tol = REL * (1.0 + fmax(fabs(s_l), fabs(s_r)));
-    if (fabs(s_r - s_l) > tol) {
+  __device__ void decide(T s_l, T s_r) {
+    const T tol = Lim<T>::rel() * (T(1) + mx(ab(s_l), ab(s_r)));
+    if (ab(s_r - s_l) > tol) {
       if (m2 < cap) out.put(m2, px, py);
       ++m2;
     }
   }
-  __device__ void push(double x, double y0) {
-    const bool valid = x < BIG / 2;
-    const double y = valid ? y0 : 0.0;
+  __device__ void push(T x, T y0) {
+    const bool valid = x < Lim<T>::big() / 2;
+    const T y = valid ? y0 : T(0);
     const bool dup = valid && prev_valid &&
-                     (x - prev_x <= REL * (1.0 + fabs(prev_x)));
+                     (x - prev_x <= Lim<T>::rel() * (T(1) + ab(prev_x)));
     prev_x = x;
     prev_valid = valid;
     if (!valid || dup) return;
@@ -205,7 +242,7 @@ struct Compress {
       fx = x;
       fy = y;
     } else {
-      const double seg = (y - py) / fmax(x - px, TINY);
+      const T seg = (y - py) / mx(x - px, Lim<T>::tiny());
       decide(ns == 1 ? sl : s_left, seg);
       s_left = seg;
     }
@@ -213,7 +250,7 @@ struct Compress {
     py = y;
     ++ns;
   }
-  __device__ int finish(double sr) {
+  __device__ int finish(T sr) {
     if (ns > 0) decide(ns == 1 ? sl : s_left, sr);
     if (m2 == 0 && ns > 0) { out.put(0, fx, fy); m2 = 1; }
     return m2;
@@ -225,59 +262,59 @@ struct Compress {
 // values); g's end slopes are gsl, gsr and src evaluates g at the probes.
 // The candidates stream into compress; returns the raw count and the
 // envelope's end slopes.
-template <class Src, class O>
-__device__ int envelope_stream(Src& src, const View& f, double gsl, double gsr,
-                               bool take_max, O& out, int cap, double& osl,
-                               double& osr) {
-  Compress<O> cp(out, cap);
+template <class T, class Src, class O>
+__device__ int envelope_stream(Src& src, const View<T>& f, T gsl, T gsr,
+                               bool take_max, O& out, int cap, T& osl,
+                               T& osr) {
+  Compress<T, O> cp(out, cap);
   bool first = true, any_valid = false;
-  double first_x = 0.0, last_valid = 0.0;
-  auto emit = [&](double x, double y) {
+  T first_x = T(0), last_valid = T(0);
+  auto emit = [&](T x, T y) {
     if (first) {     // the left end slope, from a probe left of everything
       first = false;
       first_x = x;
-      const double pl = x - 1.0;
-      const double fl = eval1(f, pl), gl = src.g_left(pl);
-      const bool tie = fabs(fl - gl) <= REL * (1.0 + fmax(fabs(fl), fabs(gl)));
-      cp.sl = take_max ? (tie ? fmin(f.sl, gsl) : (fl > gl ? f.sl : gsl))
-                       : (tie ? fmax(f.sl, gsl) : (fl < gl ? f.sl : gsl));
+      const T pl = x - T(1);
+      const T fl = eval1(f, pl), gl = src.g_left(pl);
+      const bool tie = ab(fl - gl) <= Lim<T>::rel() * (T(1) + mx(ab(fl), ab(gl)));
+      cp.sl = take_max ? (tie ? mn(f.sl, gsl) : (fl > gl ? f.sl : gsl))
+                       : (tie ? mx(f.sl, gsl) : (fl < gl ? f.sl : gsl));
     }
-    if (x < BIG / 2) { last_valid = x; any_valid = true; }
+    if (x < Lim<T>::big() / 2) { last_valid = x; any_valid = true; }
     cp.push(x, y);
   };
   // a crossing of f and g inside (lo, hi), anchored at point a
-  auto cross = [&](double lo, double hi, double sf, double sg, const Pt& a) {
-    const double denom = sf - sg;
-    const bool parallel = fabs(denom) <= REL * (1.0 + fmax(fabs(sf), fabs(sg)));
-    const double x_cross = a.x + (a.vg - a.vf) / (parallel ? 1.0 : denom);
-    const double margin = REL * (1.0 + fabs(x_cross));
+  auto cross = [&](T lo, T hi, T sf, T sg, const Pt<T>& a) {
+    const T denom = sf - sg;
+    const bool parallel = ab(denom) <= Lim<T>::rel() * (T(1) + mx(ab(sf), ab(sg)));
+    const T x_cross = a.x + (a.vg - a.vf) / (parallel ? T(1) : denom);
+    const T margin = Lim<T>::rel() * (T(1) + ab(x_cross));
     if (!parallel && x_cross > lo + margin && x_cross < hi - margin)
       emit(x_cross, a.vf + sf * (x_cross - a.x));
   };
-  auto pick = [&](const Pt& p) {
-    return take_max ? fmax(p.vf, p.vg) : fmin(p.vf, p.vg);
+  auto pick = [&](const Pt<T>& p) {
+    return take_max ? mx(p.vf, p.vg) : mn(p.vf, p.vg);
   };
-  Pt cur = src.next();
-  cross(-BIG, cur.x, f.sl, gsl, cur);
+  Pt<T> cur = src.next();
+  cross(-Lim<T>::big(), cur.x, f.sl, gsl, cur);
   emit(cur.x, pick(cur));
   while (src.more()) {
-    const Pt nx = src.next();
-    const double dx = nx.x - cur.x;
-    const bool ok_dx = dx > TINY;
-    const double inv_dx = 1.0 / (ok_dx ? dx : 1.0);
-    const double sf = (ok_dx ? nx.vf - cur.vf : 0.0) * inv_dx;
-    const double sg = (ok_dx ? nx.vg - cur.vg : 0.0) * inv_dx;
+    const Pt<T> nx = src.next();
+    const T dx = nx.x - cur.x;
+    const bool ok_dx = dx > Lim<T>::tiny();
+    const T inv_dx = T(1) / (ok_dx ? dx : T(1));
+    const T sf = (ok_dx ? nx.vf - cur.vf : T(0)) * inv_dx;
+    const T sg = (ok_dx ? nx.vg - cur.vg : T(0)) * inv_dx;
     cross(cur.x, nx.x, sf, sg, cur);
     emit(nx.x, pick(nx));
     cur = nx;
   }
-  cross(cur.x, BIG, f.sr, gsr, cur);
+  cross(cur.x, Lim<T>::big(), f.sr, gsr, cur);
   // the right end slope, from a probe right of the last valid candidate
-  const double pr = (any_valid ? last_valid : first_x) + 1.0;
-  const double fr = eval1(f, pr), gr = src.g_right(pr);
-  const bool tie = fabs(fr - gr) <= REL * (1.0 + fmax(fabs(fr), fabs(gr)));
-  const double sr = take_max ? (tie ? fmax(f.sr, gsr) : (fr > gr ? f.sr : gsr))
-                             : (tie ? fmin(f.sr, gsr) : (fr < gr ? f.sr : gsr));
+  const T pr = (any_valid ? last_valid : first_x) + T(1);
+  const T fr = eval1(f, pr), gr = src.g_right(pr);
+  const bool tie = ab(fr - gr) <= Lim<T>::rel() * (T(1) + mx(ab(fr), ab(gr)));
+  const T sr = take_max ? (tie ? mx(f.sr, gsr) : (fr > gr ? f.sr : gsr))
+                             : (tie ? mn(f.sr, gsr) : (fr < gr ? f.sr : gsr));
   osl = cp.sl;
   osr = sr;
   return cp.finish(sr);
@@ -285,15 +322,16 @@ __device__ int envelope_stream(Src& src, const View& f, double gsl, double gsr,
 
 // The stable merge of f's and g's knots (f first on ties), each function
 // evaluated at the other's knots.
+template <class T>
 struct MergeSrc {
-  const View& f;
-  const View& g;
+  const View<T>& f;
+  const View<T>& g;
   int i = 0, j = 0;
-  __device__ MergeSrc(const View& f_, const View& g_) : f(f_), g(g_) {}
+  __device__ MergeSrc(const View<T>& f_, const View<T>& g_) : f(f_), g(g_) {}
   __device__ bool more() const { return i < f.m || j < g.m; }
-  __device__ Pt next() {
+  __device__ Pt<T> next() {
     const bool take_f = j >= g.m || (i < f.m && !(g.xs[j * g.st] < f.xs[i * f.st]));
-    Pt p;
+    Pt<T> p;
     if (take_f) {
       p.x = f.xs[i * f.st]; p.vf = f.ys[i * f.st]; p.vg = eval1(g, p.x); ++i;
     } else {
@@ -301,43 +339,44 @@ struct MergeSrc {
     }
     return p;
   }
-  __device__ double g_left(double p) const { return eval1(g, p); }
-  __device__ double g_right(double p) const { return eval1(g, p); }
+  __device__ T g_left(T p) const { return eval1(g, p); }
+  __device__ T g_right(T p) const { return eval1(g, p); }
 };
 
 // The cone's grid: f's knots and the crossings of its cost cones between
 // them, with f and the cones' lower envelope env on each.  env's knots are
 // this grid, so its values at the probes (left of the first point, right
 // of the last) are its end rays through the first and last points.
+template <class T>
 struct ConeSrc {
-  const View& f;
-  double a, b, denom;
+  const View<T>& f;
+  T a, b, denom;
   bool par;
-  const double* SA;
-  const double* PB;
+  const T* SA;
+  const T* PB;
   int j = 0;
   bool has_cross = false;
-  double cross_x = 0.0;
+  T cross_x = T(0);
   bool started = false;
-  Pt first{0.0, 0.0, 0.0}, last{0.0, 0.0, 0.0};
-  __device__ ConeSrc(const View& f_, double a_, double b_, const double* sa,
-                     const double* pb)
+  Pt<T> first{T(0), T(0), T(0)}, last{T(0), T(0), T(0)};
+  __device__ ConeSrc(const View<T>& f_, T a_, T b_, const T* sa,
+                     const T* pb)
       : f(f_), a(a_), b(b_), denom(a_ - b_),
-        par(fabs(a_ - b_) <= REL * (1.0 + fabs(a_))), SA(sa), PB(pb) {}
+        par(ab(a_ - b_) <= Lim<T>::rel() * (T(1) + ab(a_))), SA(sa), PB(pb) {}
   __device__ bool more() const { return has_cross || j < f.m; }
-  __device__ Pt next() {
+  __device__ Pt<T> next() {
     const int st = f.st, m = f.m;
-    double c;
+    T c;
     if (has_cross) {
       c = cross_x;
       has_cross = false;
     } else {
       c = f.xs[j * st];
       if (j + 1 < m) {
-        const double nxt_x = f.xs[(j + 1) * st], nxt_SA = SA[j + 1];
-        const double ystar = (nxt_SA - PB[j]) / (par ? 1.0 : denom);
-        const double margin = REL * (1.0 + fabs(ystar));
-        if (!par && nxt_SA < BIG / 2 && PB[j] < BIG / 2 &&
+        const T nxt_x = f.xs[(j + 1) * st], nxt_SA = SA[j + 1];
+        const T ystar = (nxt_SA - PB[j]) / (par ? T(1) : denom);
+        const T margin = Lim<T>::rel() * (T(1) + ab(ystar));
+        if (!par && nxt_SA < Lim<T>::big() / 2 && PB[j] < Lim<T>::big() / 2 &&
             ystar > f.xs[j * st] + margin && ystar < nxt_x - margin) {
           has_cross = true;
           cross_x = ystar;
@@ -345,66 +384,67 @@ struct ConeSrc {
       }
       ++j;
     }
-    double env = 0.0;
-    if (c < BIG / 2) {
+    T env = T(0);
+    if (c < Lim<T>::big() / 2) {
       const int ge = ss_left(f.xs, st, m, c);
       const int le = ss_right(f.xs, st, m, c);
-      const double SA_at = ge < m ? SA[ge] : BIG;
-      const double PB_at = le > 0 ? PB[le - 1] : BIG;
-      env = fmin(SA_at < BIG / 2 ? -a * c + SA_at : BIG,
-                 PB_at < BIG / 2 ? -b * c + PB_at : BIG);
+      const T SA_at = ge < m ? SA[ge] : Lim<T>::big();
+      const T PB_at = le > 0 ? PB[le - 1] : Lim<T>::big();
+      env = mn(SA_at < Lim<T>::big() / 2 ? -a * c + SA_at : Lim<T>::big(),
+                 PB_at < Lim<T>::big() / 2 ? -b * c + PB_at : Lim<T>::big());
     }
-    const Pt p{c, eval1(f, c), env};
+    const Pt<T> p{c, eval1(f, c), env};
     if (!started) { first = p; started = true; }
     last = p;
     return p;
   }
-  __device__ double g_left(double p) const { return first.vg + (-a) * (p - first.x); }
-  __device__ double g_right(double p) const { return last.vg + (-b) * (p - last.x); }
+  __device__ T g_left(T p) const { return first.vg + (-a) * (p - first.x); }
+  __device__ T g_right(T p) const { return last.vg + (-b) * (p - last.x); }
 };
 
 // Slope restriction v = min(f, lower envelope of the cost cones).
-template <class O>
-__device__ int cone(const View& f, double a, double b, O& out, int cap,
-                    double* SA, double* PB, double& osl, double& osr) {
+template <class T, class O>
+__device__ int cone(const View<T>& f, T a, T b, O& out, int cap,
+                    T* SA, T* PB, T& osl, T& osr) {
   const int m = f.m, st = f.st;
-  double run = BIG;
+  T run = Lim<T>::big();
   for (int j = m - 1; j >= 0; --j) {
-    run = fmin(run, f.ys[j * st] + a * f.xs[j * st]);
+    run = mn(run, f.ys[j * st] + a * f.xs[j * st]);
     SA[j] = run;
   }
-  run = BIG;
+  run = Lim<T>::big();
   for (int j = 0; j < m; ++j) {
-    run = fmin(run, f.ys[j * st] + b * f.xs[j * st]);
+    run = mn(run, f.ys[j * st] + b * f.xs[j * st]);
     PB[j] = run;
   }
-  ConeSrc src(f, a, b, SA, PB);
+  ConeSrc<T> src(f, a, b, SA, PB);
   return envelope_stream(src, f, -a, -b, false, out, cap, osl, osr);
 }
 
 // The tile's records in shared memory and their device-memory slots.
+template <class T>
 struct Recs {
-  double* xs;    // [NREC][KS][EMAX]
-  double* ys;
-  double* sl;    // [NREC][EMAX]
-  double* sr;
+  T* xs;    // [NREC][KS][EMAX]
+  T* ys;
+  T* sl;    // [NREC][EMAX]
+  T* sr;
   int* m;
-  double* wxs;   // this CTA's slot: [NREC][EMAX][K]
-  double* wys;
+  T* wxs;   // this CTA's slot: [NREC][EMAX][K]
+  T* wys;
   int K;
-  __device__ View view(int rec, int i) const {
+  __device__ View<T> view(int rec, int i) const {
     const int at = rec * EMAX + i;
     const int mm = m[at];
     if (mm <= KS) {
       const size_t o = (size_t)rec * KS * EMAX + i;
-      return View{xs + o, ys + o, EMAX, sl[at], sr[at], mm};
+      return View<T>{xs + o, ys + o, EMAX, sl[at], sr[at], mm};
     }
     const size_t o = (size_t)at * K;
-    return View{wxs + o, wys + o, 1, sl[at], sr[at], mm};
+    return View<T>{wxs + o, wys + o, 1, sl[at], sr[at], mm};
   }
-  __device__ RecOut out(int rec, int i) const {
+  __device__ RecOut<T> out(int rec, int i) const {
     const size_t o = (size_t)rec * KS * EMAX + i, w = (size_t)(rec * EMAX + i) * K;
-    return RecOut{xs + o, ys + o, wxs + w, wys + w};
+    return RecOut<T>{xs + o, ys + o, wxs + w, wys + w};
   }
 };
 
@@ -439,28 +479,30 @@ __device__ __forceinline__ int src_lane(int g, int lanes_in, int halo_block) {
   if (halo_block == 0) return g % lanes_in;
   return g < lanes_in ? g : g - halo_block;
 }
-__device__ __forceinline__ double lane_index(int g, int lanes_in, int halo_block,
+template <class T>
+__device__ __forceinline__ T lane_index(int g, int lanes_in, int halo_block,
                                              int lane0) {
-  return (double)(lane0 + (halo_block == 0 ? g % lanes_in : g));
+  return (T)(lane0 + (halo_block == 0 ? g % lanes_in : g));
 }
 
-template <int KM>
+template <class T, int KM>
 __global__ void __launch_bounds__(THREADS, 3)
-rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_in,
-                const double* __restrict__ sl_in, const double* __restrict__ sr_in,
-                const int* __restrict__ m_in, const double* __restrict__ scalars,
-                double* xs_out, double* ys_out, double* sl_out, double* sr_out,
-                int* m_out, int* pieces_out, double* wide, unsigned* masks,
+rz_round_kernel(const T* __restrict__ xs_in, const T* __restrict__ ys_in,
+                const T* __restrict__ sl_in, const T* __restrict__ sr_in,
+                const int* __restrict__ m_in, const T* __restrict__ scalars,
+                T* xs_out, T* ys_out, T* sl_out, T* sr_out,
+                int* m_out, int* pieces_out, T* wide, unsigned* masks,
                 int nslots, int S, int lanes_in, int lanes_out, int owned_lanes,
                 int lane0, int K, int halo_block, int levels, int tile,
                 unsigned seller_mask) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int row = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int owned = min(tile, lanes_out - t0);
   __shared__ int s_ext, s_pieces, s_slot;
 
-  Recs rec;
+  Recs<T> rec;
   rec.xs = smem;
   rec.ys = rec.xs + NREC * KS * EMAX;
   rec.sl = rec.ys + NREC * KS * EMAX;
@@ -469,11 +511,11 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
   int* nst = rec.m + NREC * EMAX;
   rec.K = K;
 
-  const double* sc = scalars + (size_t)row * 11;
-  const double lvl0 = sc[0], s0 = sc[1], sig = sc[2], r = sc[3], k = sc[4];
-  const double alpha = sc[5], zeta = sc[6], w1 = sc[7], w2 = sc[8];
-  const double k1 = sc[9], k2 = sc[10];
-  const double inv_r = 1.0 / r;
+  const T* sc = scalars + (size_t)row * 11;
+  const T lvl0 = sc[0], s0 = sc[1], sig = sc[2], r = sc[3], k = sc[4];
+  const T alpha = sc[5], zeta = sc[6], w1 = sc[7], w2 = sc[8];
+  const T k1 = sc[9], k2 = sc[10];
+  const T inv_r = T(1) / r;
 
   if (threadIdx.x == 0) {
     s_ext = owned + levels;
@@ -486,17 +528,17 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
 
   // clip the extent at the first lane that no level of the round steps
   for (int i = threadIdx.x; i < owned + levels; i += THREADS) {
-    const double idx = lane_index(t0 + i, lanes_in, halo_block, lane0);
-    if (!(idx <= lvl0 - 1.0)) atomicMin(&s_ext, i + 1);
+    const T idx = lane_index<T>(t0 + i, lanes_in, halo_block, lane0);
+    if (!(idx <= lvl0 - T(1))) atomicMin(&s_ext, i + 1);
   }
   __syncthreads();
   const int ext = s_ext;
 
   // steps of each lane: while it is live and an owned lane still needs it
   for (int i = threadIdx.x; i < ext; i += THREADS) {
-    const double idx = lane_index(t0 + i, lanes_in, halo_block, lane0);
+    const T idx = lane_index<T>(t0 + i, lanes_in, halo_block, lane0);
     int n = 0;
-    while (n < levels && i < ext - (n + 1) && idx <= lvl0 - (double)(n + 1)) ++n;
+    while (n < levels && i < ext - (n + 1) && idx <= lvl0 - (T)(n + 1)) ++n;
     nst[i] = n;
   }
   // load the extent into buffer 0
@@ -509,51 +551,51 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
     rec.m[at] = mm;
     rec.sl[at] = sl_in[src];
     rec.sr[at] = sr_in[src];
-    RecOut o = rec.out(s, i);
+    RecOut<T> o = rec.out(s, i);
     for (int t = 0; t < mm; ++t) o.put(t, xs_in[src * K + t], ys_in[src * K + t]);
   }
   __syncthreads();
 
-  double wxs[KM], wys[KM], vxs[KM], vys[KM], SA[KM], PB[KM];
+  T wxs[KM], wys[KM], vxs[KM], vys[KM], SA[KM], PB[KM];
   int my_pieces = 0;
   for (int c = 1; c <= levels; ++c) {
     const int nact = ext - c;
     if (nact <= 0) break;
-    const double lvl = lvl0 - (double)c;
+    const T lvl = lvl0 - (T)c;
     const int rin = (c - 1) & 1, rout = c & 1;
     for (int it = threadIdx.x; it < S * nact; it += THREADS) {
       const int s = it / nact, i = it - s * nact;
       if (c > nst[i]) continue;
-      const double idx = lane_index(t0 + i, lanes_in, halo_block, lane0);
-      const double sp = s0 * exp((2.0 * idx - lvl) * sig);
-      const bool no_tc = lvl == 0.0;
-      const double a = no_tc ? sp : (1.0 + k) * sp;
-      const double b = no_tc ? sp : (1.0 - k) * sp;
+      const T idx = lane_index<T>(t0 + i, lanes_in, halo_block, lane0);
+      const T sp = s0 * ex((T(2) * idx - lvl) * sig);
+      const bool no_tc = lvl == T(0);
+      const T a = no_tc ? sp : (T(1) + k) * sp;
+      const T b = no_tc ? sp : (T(1) - k) * sp;
 
       const int up_steps = min(c - 1, nst[i + 1]);
-      const View zu = rec.view(2 * (up_steps & 1) + s, i + 1);
-      const View zc = rec.view(2 * rin + s, i);
-      ArrOut wo{wxs, wys, inv_r};
-      MergeSrc m_src(zu, zc);
-      double wsl, wsr;
+      const View<T> zu = rec.view(2 * (up_steps & 1) + s, i + 1);
+      const View<T> zc = rec.view(2 * rin + s, i);
+      ArrOut<T> wo{wxs, wys, inv_r};
+      MergeSrc<T> m_src(zu, zc);
+      T wsl, wsr;
       const int m1 = envelope_stream(m_src, zu, zc.sl, zc.sr, true, wo, K,
                                      wsl, wsr);
-      const View wv{wxs, wys, 1, wsl * inv_r, wsr * inv_r, m1 < K ? m1 : K};
-      ArrOut vo{vxs, vys, 1.0};
-      double vsl, vsr;
+      const View<T> wv{wxs, wys, 1, wsl * inv_r, wsr * inv_r, m1 < K ? m1 : K};
+      ArrOut<T> vo{vxs, vys, T(1)};
+      T vsl, vsr;
       const int m2 = cone(wv, a, b, vo, K, SA, PB, vsl, vsr);
-      const View vv{vxs, vys, 1, vsl, vsr, m2 < K ? m2 : K};
+      const View<T> vv{vxs, vys, 1, vsl, vsr, m2 < K ? m2 : K};
 
       const bool seller = (seller_mask >> s) & 1u;
-      const double sign = seller ? 1.0 : -1.0;
-      const double xi = sign * (alpha * k1 + w1 * fmax(sp - k1, 0.0)
-                                + w2 * fmax(sp - k2, 0.0));
-      const double ze = sign * zeta;
-      const View u{&ze, &xi, 1, -a, -b, 1};
+      const T sign = seller ? T(1) : -T(1);
+      const T xi = sign * (alpha * k1 + w1 * mx(sp - k1, T(0))
+                                + w2 * mx(sp - k2, T(0)));
+      const T ze = sign * zeta;
+      const View<T> u{&ze, &xi, 1, -a, -b, 1};
       const int ro = 2 * rout + s;
-      RecOut zo = rec.out(ro, i);
-      MergeSrc z_src(u, vv);
-      double zsl, zsr;
+      RecOut<T> zo = rec.out(ro, i);
+      MergeSrc<T> z_src(u, vv);
+      T zsl, zsr;
       const int m3 = envelope_stream(z_src, u, vv.sl, vv.sr, seller, zo, K,
                                      zsl, zsr);
       const int at = ro * EMAX + i;
@@ -589,10 +631,10 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
     const int s = lane / owned, i = lane - s * owned;
     const size_t dst = ((row_s + s) * lanes_out + t0 + i) * K + t;
     if (i < ext && nst[i] > 0) {
-      const View v = rec.view(2 * (nst[i] & 1) + s, i);
+      const View<T> v = rec.view(2 * (nst[i] & 1) + s, i);
       const bool in = t < v.m;
-      xs_out[dst] = in ? v.xs[t * v.st] : BIG;
-      ys_out[dst] = in ? v.ys[t * v.st] : 0.0;
+      xs_out[dst] = in ? v.xs[t * v.st] : Lim<T>::big();
+      ys_out[dst] = in ? v.ys[t * v.st] : T(0);
     } else {
       const size_t src = ((row_s + s) * lanes_in
                           + src_lane(t0 + i, lanes_in, halo_block)) * K + t;
@@ -608,79 +650,68 @@ rz_round_kernel(const double* __restrict__ xs_in, const double* __restrict__ ys_
   }
 }
 
-template <int KM>
+template <class T, int KM>
 cudaError_t prepare(int* slots) {
+  const size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      rz_round_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      rz_round_kernel<T, KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, nsm = 0, occ = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev))
       != cudaSuccess) return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, rz_round_kernel<KM>, THREADS, SMEM_BYTES)) != cudaSuccess)
+           &occ, rz_round_kernel<T, KM>, THREADS, smem)) != cudaSuccess)
     return err;
   *slots = nsm * occ;
   return *slots > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-template <int KM>
+template <class T, int KM>
 cudaError_t launch(void* const* p, int nslots, int R, int S, int lanes_in,
                    int lanes_out, int owned_lanes, int lane0, int K,
                    int halo_block, int levels, int tile, int tiles, unsigned mask,
                    cudaStream_t st) {
   int slots = 0;
-  cudaError_t err = prepare<KM>(&slots);
+  cudaError_t err = prepare<T, KM>(&slots);
   if (err != cudaSuccess) return err;
   if (slots > nslots) return cudaErrorInvalidValue;
   err = cudaMemsetAsync(p[13], 0, sizeof(unsigned) * ((nslots + 31) / 32), st);
   if (err != cudaSuccess) return err;
   dim3 grid(tiles, R);
-  rz_round_kernel<KM><<<grid, THREADS, SMEM_BYTES, st>>>(
-      (const double*)p[0], (const double*)p[1], (const double*)p[2],
-      (const double*)p[3], (const int*)p[4], (const double*)p[5],
-      (double*)p[6], (double*)p[7], (double*)p[8], (double*)p[9], (int*)p[10],
-      (int*)p[11], (double*)p[12], (unsigned*)p[13], nslots, S, lanes_in,
+  rz_round_kernel<T, KM><<<grid, THREADS, smem_bytes<T>(), st>>>(
+      (const T*)p[0], (const T*)p[1], (const T*)p[2],
+      (const T*)p[3], (const int*)p[4], (const T*)p[5],
+      (T*)p[6], (T*)p[7], (T*)p[8], (T*)p[9], (int*)p[10],
+      (int*)p[11], (T*)p[12], (unsigned*)p[13], nslots, S, lanes_in,
       lanes_out, owned_lanes, lane0, K, halo_block, levels, tile, mask);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// The number of wide-record slots (resident CTAs on this card) the launch
-// at capacity K needs; the wrapper sizes the slot pool with it.
-extern "C" int rz_round_slots(int K, int* slots) {
+template <class T>
+int slots_for(int K, int* slots) {
   cudaError_t err;
-  if (K <= 16) err = prepare<16>(slots);
-  else if (K <= 32) err = prepare<32>(slots);
-  else if (K <= 48) err = prepare<48>(slots);
-  else if (K <= 64) err = prepare<64>(slots);
-  else if (K <= 128) err = prepare<128>(slots);
+  if (K <= 16) err = prepare<T, 16>(slots);
+  else if (K <= 32) err = prepare<T, 32>(slots);
+  else if (K <= 48) err = prepare<T, 48>(slots);
+  else if (K <= 64) err = prepare<T, 64>(slots);
+  else if (K <= 128) err = prepare<T, 128>(slots);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }
 
-// One launch: lanes [0, lanes_out) of the virtual row over the input's
-// lanes_in lanes (halo_block 0: the row wraps; else the last halo_block
-// lanes repeat past the end), advanced `levels` levels, in tiles of `tile`
-// owned lanes; pieces over owned live lanes below owned_lanes, one int per
-// (row, tile).  lane0 is the tree column of the input's lane 0 (a shard's
-// offset on the node axis; 0 for a whole row).
-extern "C" int rz_round_launch(
-    void* xs, void* ys, void* sl, void* sr, void* m, void* scalars,
-    void* xs_o, void* ys_o, void* sl_o, void* sr_o, void* m_o, void* pieces,
-    void* wide, void* masks, int nslots, int R, int S, int lanes_in,
-    int lanes_out, int owned_lanes, int lane0, int K, int halo_block,
-    int levels, int tile, int tiles, int seller_mask, void* stream) {
-  void* p[14] = {xs, ys, sl, sr, m, scalars, xs_o, ys_o, sl_o, sr_o, m_o,
-                 pieces, wide, masks};
+template <class T>
+int dispatch(void* const* p, int nslots, int R, int S, int lanes_in,
+             int lanes_out, int owned_lanes, int lane0, int K, int halo_block,
+             int levels, int tile, int tiles, int seller_mask, void* stream) {
   if (S < 1 || S > 2 || tile + levels > EMAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned mask = (unsigned)seller_mask;
   cudaError_t err;
-#define RZ_LAUNCH(KM) launch<KM>(p, nslots, R, S, lanes_in, lanes_out, owned_lanes, \
-                                 lane0, K, halo_block, levels, tile, tiles, mask, st)
+#define RZ_LAUNCH(KM) launch<T, KM>(p, nslots, R, S, lanes_in, lanes_out, \
+                                    owned_lanes, lane0, K, halo_block, levels, \
+                                    tile, tiles, mask, st)
   if (K <= 16) err = RZ_LAUNCH(16);
   else if (K <= 32) err = RZ_LAUNCH(32);
   else if (K <= 48) err = RZ_LAUNCH(48);
@@ -690,3 +721,42 @@ extern "C" int rz_round_launch(
 #undef RZ_LAUNCH
   return (int)err;
 }
+
+}  // namespace
+
+// The number of wide-record slots (resident CTAs on this card) the launch
+// at capacity K needs; the wrapper sizes the slot pool with it.  The _f32
+// entries are the float instances (half the shared memory a CTA).
+extern "C" int rz_round_slots(int K, int* slots) {
+  return slots_for<double>(K, slots);
+}
+
+extern "C" int rz_round_slots_f32(int K, int* slots) {
+  return slots_for<float>(K, slots);
+}
+
+// One launch: lanes [0, lanes_out) of the virtual row over the input's
+// lanes_in lanes (halo_block 0: the row wraps; else the last halo_block
+// lanes repeat past the end), advanced `levels` levels, in tiles of `tile`
+// owned lanes; pieces over owned live lanes below owned_lanes, one int per
+// (row, tile).  lane0 is the tree column of the input's lane 0 (a shard's
+// offset on the node axis; 0 for a whole row).  Values, scalars and the
+// wide-record pool are double here and float in rz_round_launch_f32; m and
+// pieces are int in both.
+#define RZ_ENTRY(NAME, T)                                                     \
+  extern "C" int NAME(                                                        \
+      void* xs, void* ys, void* sl, void* sr, void* m, void* scalars,         \
+      void* xs_o, void* ys_o, void* sl_o, void* sr_o, void* m_o,              \
+      void* pieces, void* wide, void* masks, int nslots, int R, int S,        \
+      int lanes_in, int lanes_out, int owned_lanes, int lane0, int K,         \
+      int halo_block, int levels, int tile, int tiles, int seller_mask,       \
+      void* stream) {                                                         \
+    void* p[14] = {xs, ys, sl, sr, m, scalars, xs_o, ys_o, sl_o, sr_o, m_o,   \
+                   pieces, wide, masks};                                      \
+    return dispatch<T>(p, nslots, R, S, lanes_in, lanes_out, owned_lanes,     \
+                       lane0, K, halo_block, levels, tile, tiles,             \
+                       seller_mask, stream);                                  \
+  }
+RZ_ENTRY(rz_round_launch, double)
+RZ_ENTRY(rz_round_launch_f32, float)
+#undef RZ_ENTRY

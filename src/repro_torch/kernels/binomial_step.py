@@ -13,7 +13,10 @@ owned lanes.  Steps whose level is below 0 are no-ops.
 ``lattice_round_param`` carries the payoff as data (the 11-slot
 ``PARAM_SCALARS`` layout); ``lattice_round`` bakes put/call in as
 ``kind`` with 6 scalars.  Both take a row dimension: ``v (R, P)`` and
-``scalars (R, n)``, where JAX vmapped over contracts.
+``scalars (R, n)``, where JAX vmapped over contracts.  ``v`` and
+``scalars`` share one dtype, float64 or float32 (the TPU kernel's two
+dtypes; the CUDA source has an instance of each), and the plain version
+computes in it.
 
 On a CUDA tensor the wrapper launches ``csrc/binomial_step.cu``; on a
 CPU tensor it runs the plain version below, which repeats the TPU
@@ -42,13 +45,19 @@ PARAM_SCALARS = 11
 KIND_SCALARS = 6
 _KINDS = {"param": 0, "put": 1, "call": 2}
 
-# kernel launches per entry point (never bumped by the plain version)
-LAUNCHES = {"lattice_round_param": 0, "lattice_round": 0}
+# kernel launches per entry point and dtype, the float32 instance's under
+# "<name>.float32" (never bumped by the plain version)
+LAUNCHES = {"lattice_round_param": 0, "lattice_round": 0,
+            "lattice_round_param.float32": 0, "lattice_round.float32": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"lattice_round_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                        _P]}
+_ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_SIGNATURES = {"lattice_round_launch": _ARGS,
+               "lattice_round_launch_f32": _ARGS}
+# the C entry point of each dtype's instance
+_ENTRY = {torch.float64: "lattice_round_launch",
+          torch.float32: "lattice_round_launch_f32"}
 
 
 def _intrinsic(s, sc, kind: str):
@@ -101,8 +110,10 @@ def _check(v, scalars, levels: int, block: int, n_scalars: int, lane0: int):
     if scalars.shape != (R, n_scalars):
         raise ValueError(f"scalars must have shape ({R}, {n_scalars}), "
                          f"got {tuple(scalars.shape)}")
-    if v.dtype != torch.float64 or scalars.dtype != torch.float64:
-        raise TypeError("the lattice kernel takes float64 tensors")
+    if v.dtype not in _ENTRY or scalars.dtype != v.dtype:
+        raise TypeError(f"the lattice kernel takes v and scalars of one "
+                        f"dtype, float64 or float32, got {v.dtype} and "
+                        f"{scalars.dtype}")
     if v.device != scalars.device:
         raise ValueError("v and scalars must be on one device")
     if not (1 <= block <= MAX_BLOCK) or P % block != 0:
@@ -119,10 +130,11 @@ def _launch(v, scalars, levels: int, block: int, kind: str, lane0: int):
     R, P = v.shape
     out = torch.empty_like(v)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = lib.lattice_round_launch(v.data_ptr(), scalars.data_ptr(),
-                                   out.data_ptr(), R, P, block, levels,
-                                   _KINDS[kind], lane0, stream)
-    _build.check(err, "lattice_round_launch")
+    entry = _ENTRY[v.dtype]
+    err = getattr(lib, entry)(v.data_ptr(), scalars.data_ptr(),
+                              out.data_ptr(), R, P, block, levels,
+                              _KINDS[kind], lane0, stream)
+    _build.check(err, entry)
     return out
 
 
@@ -134,7 +146,7 @@ def _round(v, scalars, levels, block, kind, name, n_scalars, lane0):
     _check(v, scalars, levels, block, n_scalars, lane0)
     if v.device.type == "cuda":
         out = _launch(v, scalars, levels, block, kind, lane0)
-        LAUNCHES[name] += 1
+        LAUNCHES[name if v.dtype == torch.float64 else f"{name}.float32"] += 1
     elif v.device.type == "cpu":
         out = lattice_round_plain(v, scalars, levels=levels, block=block,
                                   kind=kind, lane0=lane0)

@@ -16,6 +16,16 @@ that the CPU tests can hold its schedule.  On a CPU tensor the wrapper
 runs the plain version below: the online-softmax loop of the JAX
 package's ``models/layers.py::_attn_flash`` written out in PyTorch
 (float32 ``m``, ``l``, ``acc``, masks built per chunk).
+
+Two plain versions, two bounds.  ``flash_attention_plain`` sums in
+another order than the kernel and reads every operand in full float32:
+the kernel is held to it at 2e-5, the bound of the JAX package's own
+kernel test.  ``flash_attention_mirror`` repeats the kernel's arithmetic
+(split TF32 with the MMA's truncated small part and no small*small term,
+each MMA's alignment and truncation as the tensor cores do them, its
+tile walk, its k-step order, the base-2 softmax): the kernel is held to it at the float32 contract's
+2e-6 (``kernels/contracts.py``), the bound between two lowerings of one
+algorithm.
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "mask_bias",
-           "kv_tile_range", "LAUNCHES", "KERNEL_HEAD_DIMS", "KERNEL_TILES"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_mirror", "mask_bias", "kv_tile_range", "tf32",
+           "split_tf32", "mma3_steps", "qk_steps", "LAUNCHES",
+           "KERNEL_HEAD_DIMS", "KERNEL_TILES"]
 
 # kernel launches (never bumped by the plain version)
 LAUNCHES = {"flash_attention": 0}
@@ -103,6 +115,143 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
         l = torch.clamp_min(l, 1e-30)
         out[:, q0:q0 + cq] = acc / l.permute(0, 3, 1, 2)[..., None]
     return out.reshape(B, T, H, hd)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round float32 to 10 stored mantissa bits,
+    to nearest with ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """The kernel's ``split``: ``big`` rounded to TF32, the remainder
+    ``small`` truncated to TF32 (the MMA ignores the low 13 bits of an
+    operand)."""
+    big = tf32(x)
+    return big, ((x - big).contiguous().view(torch.int32)
+                 & ~0x1FFF).view(torch.float32)
+
+
+# bits below the leading bit of an MMA's largest addend that its sum keeps
+MMA_ALIGN_BITS = 26
+
+
+def _toward_zero32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` rounded toward zero to float32's 24 significant bits,
+    kept in float64 (exact for normal float32 magnitudes)."""
+    return (x.view(torch.int64) & ~0x1FFFFFFF).view(torch.float64)
+
+
+def _mma(acc, a, b):
+    """One ``mma.sync`` k-step as the tensor cores round it, on float64
+    ``acc (..., M, N)`` holding float32 values: the 8 products of TF32
+    operands (exact in float64) and the accumulator are aligned to the
+    largest one's exponent, each cut toward zero to ``MMA_ALIGN_BITS``
+    bits below that one's leading bit, summed, and the sum cut toward
+    zero to float32."""
+    prods = a.double()[..., :, :, None] * b.double()[..., None, :, :]
+    e = torch.maximum(torch.frexp(acc)[1], torch.frexp(prods)[1].amax(-2))
+    ulp = torch.ldexp(torch.ones_like(acc), e - MMA_ALIGN_BITS)
+    cut = lambda x, u: torch.trunc(x / u) * u
+    return _toward_zero32(cut(acc, ulp)
+                          + cut(prods, ulp[..., None, :]).sum(-2))
+
+
+def mma3_steps(acc, a, b, steps, *, split=True, tensor_core=True):
+    """``acc + a @ b`` in split TF32, one k-step (a list of 8 indices of
+    the reduction axis) at a time, small terms first as in ``mma3``;
+    ``split=False``: single-pass TF32 (big*big only).
+
+    ``tensor_core=True`` rounds each ``mma.sync`` as the H100's tensor
+    cores do (:func:`_mma`); ``False`` forms the 8-term product in
+    float32 and adds it to the accumulator, each to nearest.  The
+    kernel's distance from the second follows that rounding term, not
+    the dropped small*small product, the small part's 11-bit read or
+    ``exp2`` (``chip_smoke.py`` prints its distance from both)."""
+    if tensor_core:
+        acc = acc.double()
+    for idx in steps:
+        ab, as_ = split_tf32(a[..., idx])
+        bb, bs = split_tf32(b[..., idx, :])
+        terms = ((as_, bb), (ab, bs), (ab, bb)) if split else ((ab, bb),)
+        for x, y in terms:
+            acc = _mma(acc, x, y) if tensor_core else acc + x @ y
+    return acc.float()
+
+
+def qk_steps(hd: int):
+    """The kernel's k-steps of S = Q K^T for each half of hd: in each
+    16-wide block, step 0 takes dims 4t and 4t+1, step 1 dims 4t+2 and
+    4t+3."""
+    return [[[d0 + 4 * t + 2 * s + e for t in range(4) for e in (0, 1)]
+             for d0 in range(h0, h0 + hd // 2, 16) for s in (0, 1)]
+            for h0 in (0, hd // 2)]
+
+
+def flash_attention_mirror(q, k, v, *, causal: bool = True, window=None,
+                           split: bool = True, tensor_core: bool = True):
+    """The kernel's arithmetic, tile by tile, in plain PyTorch on the
+    device of ``q``: q tiles of ``KERNEL_TILES[hd][0]`` rows, the KV tiles
+    of :func:`kv_tile_range` only, ragged last q and KV tiles zero-filled
+    and masked, masked scores ``-1e30`` and ``m`` starting at ``-1e30``,
+    the online softmax in base 2 on scores scaled by ``scale * log2(e)``,
+    every product in split TF32 (:func:`mma3_steps`; ``split=False``:
+    single-pass TF32; ``tensor_core=False``: each MMA rounded to nearest
+    in two steps, the term the kernel's distance follows), each half of
+    hd summed apart and then added, as the kernel's warp pairs do.  A Python loop over tiles: slow, for
+    small shapes."""
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    bq, bkv = KERNEL_TILES[hd]
+    dev = q.device
+    neg = _MASK_NEG
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+                  * torch.tensor(math.log2(math.e), dtype=torch.float32)
+                  ).to(dev)
+    steps_qk = qk_steps(hd)
+    steps_pv = [list(range(n, n + 8)) for n in range(0, bkv, 8)]
+    qg = q.reshape(B, T, KVH, G, hd).permute(0, 2, 3, 1, 4)  # B KVH G T hd
+    kg, vg = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)     # B KVH S hd
+
+    def pad(x, n):      # zero-fill axis -2 to n rows
+        return torch.cat([x, x.new_zeros(x.shape[:-2] + (n - x.shape[-2],)
+                                         + x.shape[-1:])], dim=-2)
+
+    out = torch.empty_like(qg)
+    for q0 in range(0, T, bq):
+        qt = pad(qg[..., q0:q0 + bq, :], bq)
+        pq = torch.arange(q0, q0 + bq, device=dev)[:, None]
+        m = torch.full((B, KVH, G, bq), neg, device=dev)
+        l = torch.zeros(B, KVH, G, bq, device=dev)
+        acc = torch.zeros(B, KVH, G, bq, hd, device=dev)
+        for j in kv_tile_range(q0, T, S, hd, causal=causal, window=window):
+            k0 = j * bkv
+            kt = pad(kg[..., k0:k0 + bkv, :], bkv)[:, :, None]
+            vt = pad(vg[..., k0:k0 + bkv, :], bkv)[:, :, None]
+            s = sum(mma3_steps(torch.zeros(B, KVH, G, bq, bkv, device=dev),
+                               qt, kt.transpose(-1, -2), st, split=split,
+                               tensor_core=tensor_core)
+                    for st in steps_qk)
+            pk = torch.arange(k0, k0 + bkv, device=dev)[None, :]
+            live = pk < S
+            if causal:
+                live = live & (pq >= pk)
+            if window is not None:
+                live = live & (pq - pk < window)
+            s = torch.where(live, s * scale_log2, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = mma3_steps(acc * corr[..., None], p, vt, steps_pv,
+                             split=split, tensor_core=tensor_core)
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        rows = min(bq, T - q0)
+        out[..., q0:q0 + rows, :] = o[..., :rows, :]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 
 def _check(q, k, v, window):

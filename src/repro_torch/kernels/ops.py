@@ -14,7 +14,8 @@ import math
 
 import torch
 
-from ..core.device import DEFAULT_DTYPE, resolve_device
+from ..core import platform as plat
+from ..core.device import resolve_device
 from ..core.lattice import LatticeModel
 from . import flash_attention as _fa
 from . import lru_scan as _ls
@@ -25,25 +26,37 @@ __all__ = ["price_notc_kernel", "flash_attention", "lru_scan"]
 
 def price_notc_kernel(model: LatticeModel, strike: float, *,
                       kind: str = "put", levels: int = 64,
-                      block: int = DEFAULT_BLOCK, device="cuda") -> float:
-    """Price through the blocked lattice kernel (plain version on CPU)."""
+                      block: int = DEFAULT_BLOCK, device="cuda",
+                      dtype=None) -> float:
+    """Price through the blocked lattice kernel (plain version on CPU).
+
+    ``dtype=None`` resolves from the platform policy of the device
+    (``core/platform.py``), as the JAX package's ``price_notc_kernel``
+    resolves it from its platform: float32 on ``cuda``, float64 on
+    ``cpu``.  ``u``, ``r``, ``p_up``, the leaves and the scalars are
+    computed in that dtype, as JAX's ``_price_notc_impl`` computes them.
+    In float32 the spots overflow where ``sigma sqrt(dt) N`` passes 88.7
+    (``PAPER_NOTC``: 103.9): a put stays finite there, a call is inf in
+    both packages."""
     dev = resolve_device(device)
-    f64 = lambda x: torch.tensor(float(x), dtype=DEFAULT_DTYPE, device=dev)
+    if dtype is None:
+        dtype = plat.default_dtype("gpu" if dev.type == "cuda" else "cpu")
+    t = lambda x: torch.tensor(float(x), dtype=dtype, device=dev)
     n = model.n_steps
-    s0, sigma, rate, mat, k = (f64(x) for x in (model.s0, model.sigma,
-                                                model.rate, model.maturity,
-                                                strike))
+    s0, sigma, rate, mat, k = (t(x) for x in (model.s0, model.sigma,
+                                              model.rate, model.maturity,
+                                              strike))
     dt = mat / n
     u = torch.exp(sigma * torch.sqrt(dt))
     r = torch.exp(rate * dt)
     p_up = (r - 1.0 / u) / (u - 1.0 / u)
     sig = sigma * torch.sqrt(dt)
     P = -(-(n + 1) // block) * block
-    idx = torch.arange(P, dtype=DEFAULT_DTYPE, device=dev)
+    idx = torch.arange(P, dtype=dtype, device=dev)
     s_leaf = s0 * torch.exp((2.0 * idx - n) * sig)
     pay = k - s_leaf if kind == "put" else s_leaf - k
     v = torch.clamp_min(pay, 0.0)[None]
-    scalars = torch.stack([f64(n), p_up, 1.0 / r, k, s0, sig])[None]
+    scalars = torch.stack([t(n), p_up, 1.0 / r, k, s0, sig])[None]
     for rr in range(math.ceil(n / levels)):
         scalars[0, 0] = float(n - rr * levels)
         v = lattice_round(v, scalars, levels=levels, block=block, kind=kind)

@@ -23,6 +23,14 @@ virtual row (:func:`virtual_row`) that wraps for a single-block round
 and repeats the last block past the end (the clamped halo) otherwise.
 One launch runs up to ``LEVELS_PER_LAUNCH`` levels, so a round is one
 launch at the engines' depths (64 levels at most).
+
+The values and scalars share one dtype, float64 or float32 (the TPU
+kernel's two dtypes; the CUDA source has an instance of each, with
+separate entry points), and the plain version computes in it.  In
+float32 the knot counts are not stable against the kernel's: a tie of
+the envelopes that rounds the other way adds or drops a knot, so the
+float32 kernel is held to its plain version in values only (1e-4, the
+TPU kernel's float32 tolerance).
 """
 from __future__ import annotations
 
@@ -56,13 +64,21 @@ LEVELS_PER_LAUNCH = TILE_LANES - MIN_OWNED
 # full-capacity slot for knots past the inline ones: the wide-record pool
 _RECORDS_PER_CTA = 4 * TILE_LANES
 
-# kernel launches (never bumped by the plain version)
-LAUNCHES = {"rz_round": 0}
+# kernel launches per dtype, the float32 instance's under "rz_round.float32"
+# (never bumped by the plain version)
+LAUNCHES = {"rz_round": 0, "rz_round.float32": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"rz_round_launch": [_P] * 14 + [_I] * 13 + [_P],
-               "rz_round_slots": [_I, ctypes.POINTER(_I)]}
+_LAUNCH_ARGS = [_P] * 14 + [_I] * 13 + [_P]
+_SLOTS_ARGS = [_I, ctypes.POINTER(_I)]
+_SIGNATURES = {"rz_round_launch": _LAUNCH_ARGS,
+               "rz_round_slots": _SLOTS_ARGS,
+               "rz_round_launch_f32": _LAUNCH_ARGS,
+               "rz_round_slots_f32": _SLOTS_ARGS}
+# the C entry points (launch, slots) of each dtype's instance
+_ENTRY = {torch.float64: ("rz_round_launch", "rz_round_slots"),
+          torch.float32: ("rz_round_launch_f32", "rz_round_slots_f32")}
 _SLOTS: dict = {}
 
 
@@ -179,12 +195,15 @@ def _check(z: P.PWL, scalars, levels: int, block: int, sellers, lane0: int,
                          f"> block={block}")
     if levels < 1:
         raise ValueError(f"need levels >= 1, got {levels}")
-    for name, a, dt, shape in (("xs", z.xs, torch.float64, (R, S, lanes, K)),
-                               ("ys", z.ys, torch.float64, (R, S, lanes, K)),
-                               ("sl", z.sl, torch.float64, (R, S, lanes)),
-                               ("sr", z.sr, torch.float64, (R, S, lanes)),
+    vt = z.xs.dtype
+    if vt not in _ENTRY:
+        raise TypeError(f"rz_round takes float64 or float32 values, got {vt}")
+    for name, a, dt, shape in (("xs", z.xs, vt, (R, S, lanes, K)),
+                               ("ys", z.ys, vt, (R, S, lanes, K)),
+                               ("sl", z.sl, vt, (R, S, lanes)),
+                               ("sr", z.sr, vt, (R, S, lanes)),
                                ("m", z.m, torch.int32, (R, S, lanes)),
-                               ("scalars", scalars, torch.float64, None)):
+                               ("scalars", scalars, vt, None)):
         if a.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {a.dtype}")
         if shape is not None and tuple(a.shape) != shape:
@@ -194,28 +213,31 @@ def _check(z: P.PWL, scalars, levels: int, block: int, sellers, lane0: int,
             raise ValueError(f"{name} is on {a.device}, xs on {z.xs.device}")
 
 
-def _slots(lib, K: int, device) -> int:
-    """Wide-record slots the kernel at capacity K needs on ``device``: one
-    per CTA the card holds at once."""
-    key = (device.index, K)
+def _slots(lib, K: int, device, dtype=torch.float64) -> int:
+    """Wide-record slots the kernel of ``dtype`` at capacity K needs on
+    ``device``: one per CTA the card holds at once (a float32 CTA takes
+    half the shared memory, so the card may hold more)."""
+    key = (device.index, K, dtype)
     if key not in _SLOTS:
         n = ctypes.c_int(0)
-        _build.check(lib.rz_round_slots(K, ctypes.byref(n)), "rz_round_slots")
+        entry = _ENTRY[dtype][1]
+        _build.check(getattr(lib, entry)(K, ctypes.byref(n)), entry)
         _SLOTS[key] = n.value
     return _SLOTS[key]
 
 
-def wide_pool_bytes(K: int, device="cuda") -> int:
-    """Bytes of the wide-record pool a launch at capacity K allocates on
-    ``device``: a full-capacity knot slot for each lane record of each
-    CTA the card holds at once."""
+def wide_pool_bytes(K: int, device="cuda", dtype=torch.float64) -> int:
+    """Bytes of the wide-record pool a launch of ``dtype`` at capacity K
+    allocates on ``device``: a full-capacity knot slot for each lane
+    record of each CTA the card holds at once."""
     lib = _build.load("rz_step", _SIGNATURES)
-    return 8 * _pool_len(_slots(lib, K, torch.device(device)), K)
+    size = torch.empty((), dtype=dtype).element_size()
+    return size * _pool_len(_slots(lib, K, torch.device(device), dtype), K)
 
 
 def _pool_len(nslots: int, K: int) -> int:
-    """float64 values of the wide-record pool: xs and ys of K knots for
-    every record of every slot."""
+    """Values of the wide-record pool: xs and ys of K knots for every
+    record of every slot."""
     return nslots * _RECORDS_PER_CTA * 2 * K
 
 
@@ -239,8 +261,9 @@ def _launch(z: P.PWL, scalars, levels: int, block: int, sellers,
                 sum(p[2] for p in parts))
     dev = z.xs.device
     lib = _build.load("rz_step", _SIGNATURES)
-    nslots = _slots(lib, K, dev)
-    wide = torch.empty(_pool_len(nslots, K), dtype=torch.float64, device=dev)
+    dt = z.xs.dtype
+    nslots = _slots(lib, K, dev, dt)
+    wide = torch.empty(_pool_len(nslots, K), dtype=dt, device=dev)
     masks = torch.empty(-(-nslots // 32), dtype=torch.int32, device=dev)
     # a multi-block round's later launches continue on the virtual row:
     # the first writes lanes + (levels still to go) of it
@@ -259,10 +282,11 @@ def _launch(z: P.PWL, scalars, levels: int, block: int, sellers,
                                   dtype=a.dtype, device=dev) for a in z))
         pc = torch.empty((R, len(plan)), dtype=torch.int32, device=dev)
         ptrs = [a.data_ptr() for a in (*z, sc, *out, pc, wide, masks)]
-        err = lib.rz_round_launch(*ptrs, nslots, R, S, lanes_in, lanes_out,
+        entry = _ENTRY[dt][0]
+        err = getattr(lib, entry)(*ptrs, nslots, R, S, lanes_in, lanes_out,
                                   owned, lane0, K, halo, lv, plan[0].owned,
                                   len(plan), mask, stream)
-        _build.check(err, "rz_round_launch")
+        _build.check(err, entry)
         pc = pc.amax(dim=1)
         pieces = pc if pieces is None else torch.maximum(pieces, pc)
         z, done, n = out, done + lv, n + 1
@@ -300,7 +324,9 @@ def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
     if z.xs.device.type == "cuda":
         out, pieces, launches = _launch(z, scalars, levels, block, sellers,
                                         lane0, owned)
-        LAUNCHES["rz_round"] += launches
+        key = ("rz_round" if z.xs.dtype == torch.float64
+               else "rz_round.float32")
+        LAUNCHES[key] += launches
     elif z.xs.device.type == "cpu":
         out, pieces = rz_round_plain(z, scalars, levels=levels, block=block,
                                      sellers=sellers, lane0=lane0, owned=owned)

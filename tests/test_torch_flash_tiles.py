@@ -1,8 +1,9 @@
 """The arithmetic and tile walk of the ``flash_attention`` kernel, on the CPU.
 
 ``csrc/flash_attention.cu`` cannot run here, so its numerical scheme is
-mirrored in plain PyTorch and held to the float32 contract before any
-card time is spent:
+mirrored in plain PyTorch (``flash_attention_mirror`` in the port, which
+the card holds the kernel to at the contract's 2e-6) and held here
+before any card time is spent:
 
 * split TF32: each operand is ``big + small``, ``big`` rounded to TF32
   as ``cvt.rna.tf32.f32`` does (to nearest, ties away from zero, 10
@@ -25,7 +26,6 @@ head, causal, windowed and bidirectional, with T not a multiple of the
 tile.  The tile plan itself must visit exactly the KV tiles that hold a
 live key for some row of the q tile.
 """
-import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,97 +39,18 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.kernels import flash_attention as TF
 
 FLASH_TOL = 2e-5
-NEG = -1e30
 
 
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: round float32 to 10 stored mantissa bits,
-    to nearest with ties away from zero."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    """``split``: big rounded to TF32, the remainder truncated to TF32 (the
-    MMA ignores the low 13 bits of an operand)."""
-    big = tf32(x)
-    return big, ((x - big).contiguous().view(torch.int32)
-                 & ~0x1FFF).view(torch.float32)
-
-
-def mma3_steps(acc, a, b, steps, *, split_tf32=True):
-    """``acc + a @ b`` in split TF32, one k-step (a list of 8 indices of
-    the reduction axis) at a time, small terms first as in ``mma3``;
-    ``split_tf32=False``: single-pass TF32 (big*big only)."""
-    for idx in steps:
-        ab, as_ = split(a[..., idx])
-        bb, bs = split(b[..., idx, :])
-        if split_tf32:
-            acc = acc + as_ @ bb
-            acc = acc + ab @ bs
-        acc = acc + ab @ bb
-    return acc
-
-
-def qk_steps(hd: int):
-    """The kernel's k-steps of S = Q K^T for each half of hd: in each
-    16-wide block, step 0 takes dims 4t and 4t+1, step 1 dims 4t+2 and
-    4t+3."""
-    return [[[d0 + 4 * t + 2 * s + e for t in range(4) for e in (0, 1)]
-             for d0 in range(h0, h0 + hd // 2, 16) for s in (0, 1)]
-            for h0 in (0, hd // 2)]
+# the kernel's arithmetic mirror lives in the port beside the plain version
+tf32, split = TF.tf32, TF.split_tf32
 
 
 def kernel_mirror(q, k, v, *, causal, window, split_tf32=True):
-    """What the kernel computes, tile by tile, in plain PyTorch."""
-    B, T, H, hd = q.shape
-    S, KVH = k.shape[1], k.shape[2]
-    G = H // KVH
-    bq, bkv = TF.KERNEL_TILES[hd]
-    # the softmax runs in base 2 on scores scaled by scale * log2(e)
-    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
-                  * torch.tensor(math.log2(math.e), dtype=torch.float32))
-    steps_qk = qk_steps(hd)
-    steps_pv = [list(range(n, n + 8)) for n in range(0, bkv, 8)]
-    out = torch.empty_like(q)
-    pad = lambda x, n: torch.cat([x, x.new_zeros((n - x.shape[0],)
-                                                 + x.shape[1:])])
-    for b in range(B):
-        for kvh in range(KVH):
-            heads = slice(kvh * G, (kvh + 1) * G)
-            for q0 in range(0, T, bq):
-                qt = pad(q[b, q0:q0 + bq, heads], bq).transpose(0, 1)
-                pq = torch.arange(q0, q0 + bq)[:, None]
-                m = torch.full((G, bq), NEG)
-                l = torch.zeros(G, bq)
-                acc = torch.zeros(G, bq, hd)
-                for j in TF.kv_tile_range(q0, T, S, hd, causal=causal,
-                                          window=window):
-                    k0 = j * bkv
-                    kt = pad(k[b, k0:k0 + bkv, kvh], bkv)
-                    vt = pad(v[b, k0:k0 + bkv, kvh], bkv)
-                    # each warp of a pair sums half of hd; then the two
-                    s = sum(mma3_steps(torch.zeros(G, bq, bkv), qt, kt.T,
-                                       steps, split_tf32=split_tf32)
-                            for steps in steps_qk)
-                    pk = torch.arange(k0, k0 + bkv)[None, :]
-                    live = pk < S
-                    if causal:
-                        live = live & (pq >= pk)
-                    if window is not None:
-                        live = live & (pq - pk < window)
-                    s = torch.where(live, s * scale_log2, NEG)
-                    m_new = torch.maximum(m, s.amax(-1))
-                    corr = torch.exp2(m - m_new)
-                    p = torch.exp2(s - m_new[..., None])
-                    l = l * corr + p.sum(-1)
-                    acc = mma3_steps(acc * corr[..., None], p, vt, steps_pv,
-                                     split_tf32=split_tf32)
-                    m = m_new
-                o = acc / torch.clamp_min(l, 1e-30)[..., None]
-                rows = min(bq, T - q0)
-                out[b, q0:q0 + rows, heads] = o[:, :rows].transpose(0, 1)
-    return out
+    """The mirror with each MMA rounded to nearest in float32: the same
+    walk and splits as the tensor-core rounding, at a fraction of its
+    cost on the CPU (the two differ by a few 1e-7)."""
+    return TF.flash_attention_mirror(q, k, v, causal=causal, window=window,
+                                     split=split_tf32, tensor_core=False)
 
 
 def _qkv(B, T, H, KVH, hd, seed):
@@ -224,3 +145,45 @@ def test_single_pass_tf32_misses_the_contract():
     three = kernel_mirror(*args, causal=True, window=None)
     assert (one - plain).abs().max().item() > 10 * FLASH_TOL
     assert (three - plain).abs().max().item() <= FLASH_TOL
+
+
+def _mma_reference(acc, a, b, bits):
+    """One MMA output element in exact rational arithmetic: the
+    accumulator and the 8 products aligned to the largest one's exponent,
+    each cut toward zero to ``bits`` bits below its leading bit, summed,
+    and the sum cut toward zero to float32."""
+    import math
+    import struct
+    from fractions import Fraction
+    terms = [Fraction(acc)] + [Fraction(x) * Fraction(y) for x, y in zip(a, b)]
+    emax = max(math.frexp(float(t))[1] for t in terms)
+    ulp = Fraction(2) ** (emax - bits)
+    s = sum(math.trunc(t / ulp) * ulp for t in terms)
+    f = struct.unpack("f", struct.pack("f", float(s)))[0]
+    if abs(Fraction(f)) > abs(s):       # rounded away from zero: step back
+        f = float(np.nextafter(np.float32(f), np.float32(0.0)))
+    return f
+
+
+def test_tensor_core_rounding_of_one_mma():
+    """The mirror's MMA (``_mma``) against an exact rational model of the
+    same rule, element by element, on TF32 operands of mixed magnitudes
+    and signs."""
+    rng = np.random.default_rng(11)
+    scale = np.exp2(rng.integers(-6, 7, (4, 8))).astype(np.float32)
+    a = TF.tf32(torch.tensor(rng.standard_normal((4, 8)).astype(np.float32)
+                             * scale))
+    b = TF.tf32(torch.tensor(rng.standard_normal((8, 3)).astype(np.float32)))
+    acc = torch.tensor(rng.standard_normal((4, 3)), dtype=torch.float32)
+    got = TF._mma(acc.double(), a, b).float()
+    for i in range(4):
+        for j in range(3):
+            want = _mma_reference(float(acc[i, j]), a[i].tolist(),
+                                  b[:, j].tolist(), TF.MMA_ALIGN_BITS)
+            assert float(got[i, j]) == want, (i, j)
+    # the mirror with the tensor cores' rounding still holds JAX's bound
+    q, k, v = _qkv(1, 150, 4, 1, 64, seed=12)
+    tc = TF.flash_attention_mirror(torch.tensor(q), torch.tensor(k),
+                                   torch.tensor(v), causal=True, window=None)
+    np.testing.assert_allclose(tc.numpy(), _jax_reference(q, k, v, True, None),
+                               rtol=0, atol=FLASH_TOL)

@@ -14,7 +14,12 @@ exactly.  ``lru_scan`` rounds as its plain
 version does and agrees bit for bit; ``flash_attention`` multiplies in
 split TF32 on the tensor cores and sums in another order than its plain
 version's matrix products, and is held to 2e-5, the bound JAX's own
-flash attention is held to.  TF32 is off for the
+flash attention is held to; against its arithmetic mirror
+(``flash_attention_mirror``) it is held to the float32 contract's 2e-6.
+The pricing kernels' float32 instances are held to their float32 plain
+versions: the lattice kernels bit for bit (NaN for NaN), ``rz_round``
+in function values within the registry's 1e-4 (``kernels/contracts.py``;
+float32 knot counts are not required to match).  TF32 is off for the
 comparisons (and restored after them).
 """
 import numpy as np
@@ -24,7 +29,9 @@ import torch
 from repro_torch import api
 from repro_torch.core.rz import leaf_level, rz_level_step_lanes, rz_params
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import pwl as P
 from repro_torch.kernels import binomial_step as TB
+from repro_torch.kernels.contracts import CONTRACTS
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import lru_scan as TL
 from repro_torch.kernels import rz_step as TR
@@ -104,8 +111,9 @@ CALL = (-1.0, 1.0, 0.0, 0.0, 100.0, 110.0)
 BULL = (0.0, 0.0, 1.0, -1.0, 95.0, 105.0)
 
 
-def _rz_state(n_steps, capacity, lanes, walk, device, pay=BULL):
-    t = lambda *x: torch.tensor(x, dtype=torch.float64, device=device)
+def _rz_state(n_steps, capacity, lanes, walk, device, pay=BULL,
+              dtype=torch.float64):
+    t = lambda *x: torch.tensor(x, dtype=dtype, device=device)
     params = rz_params(t(100.0, 96.0), t(0.2, 0.25), t(0.1, 0.1),
                        t(0.25, 0.25), t(0.01, 0.005), n_steps=n_steps)
     z = leaf_level(n_steps, params, capacity, lanes).map(
@@ -524,3 +532,113 @@ def test_process_replica_on_card_answers_jax_wire(cuda, backend):
         assert rep.memory()["peak_allocated"] > 0
     finally:
         rep.close()
+
+
+# ---------------------------------------------------------------------- #
+# the float32 instances of the pricing kernels, and flash_attention
+# against its arithmetic mirror
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("case", ["main-param", "main-put", "main-call",
+                                  "final-short-round", "block32"])
+def test_lattice_kernel_float32_matches_plain(cuda, case):
+    """Bit for bit, NaN for NaN: at P = 40192 the float32 spots overflow
+    at the far lanes, and the 4-parameter payoff's 0 * inf is NaN in the
+    plain version and the kernel alike."""
+    kind, rows, P_, levels, block, lvl0 = LATTICE_CASES[case]
+    v, sc = _lattice_inputs(kind, rows, P_, cuda, lvl0)
+    v, sc = v.to(F32), sc.to(F32)
+    fn = TB.lattice_round_param if kind == "param" else TB.lattice_round
+    key = ("lattice_round_param" if kind == "param" else "lattice_round") \
+        + ".float32"
+    kw = {} if kind == "param" else {"kind": kind}
+    n0 = TB.LAUNCHES[key]
+    got = fn(v, sc, levels=levels, block=block, **kw)
+    torch.cuda.synchronize()
+    assert TB.LAUNCHES[key] == n0 + 1 and got.dtype == F32
+    want = TB.lattice_round_plain(v, sc, levels=levels, block=block, kind=kind)
+    assert bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+def _values(z, ys):
+    return P._eval1(z, ys.expand(z.sl.shape + ys.shape))
+
+
+@pytest.mark.parametrize("case", ["single-block", "halo",
+                                  "levels-eq-lvl0-two-launches",
+                                  "capacity-16", "call-wide-lanes"])
+def test_rz_kernel_float32_matches_plain(cuda, case):
+    n, K, lanes, block, levels, walk, pay = RZ_CASES[case]
+    z, sc = _rz_state(n, K, lanes, walk, cuda, pay, dtype=F32)
+    n0 = TR.LAUNCHES["rz_round.float32"]
+    got, pieces = TR.rz_round(z, sc, levels=levels, block=block)
+    torch.cuda.synchronize()
+    assert TR.LAUNCHES["rz_round.float32"] > n0 and got.xs.dtype == F32
+    want, _ = TR.rz_round_plain(z, sc, levels=levels, block=block)
+    ys = torch.linspace(-4.0, 4.0, 81, dtype=F32, device=cuda)
+    err = (_values(got, ys) - _values(want, ys)).abs().max().item()
+    assert err <= CONTRACTS["rz_round"].tolerance(F32)
+
+
+@pytest.mark.parametrize("engine", ["rz", "notc"])
+def test_node_axis_float32_on_card_equals_one_shard(cuda, engine):
+    from repro_torch.core.distributed import (DeviceMesh, build_notc_sharded,
+                                              build_rz_sharded)
+    from repro_torch.core.payoff import american_put
+    s0 = np.linspace(90.0, 110.0, 8)
+    col = lambda x: np.full(8, x)
+    key = "rz_round.float32" if engine == "rz" else "lattice_round.float32"
+    launches = (TR if engine == "rz" else TB).LAUNCHES
+
+    def run(devs):
+        mesh = DeviceMesh([devs], ("data", "model"))
+        if engine == "rz":
+            f = build_rz_sharded(mesh, n_steps=300, payoff=american_put(100.0),
+                                 round_depth=5, collapse_lanes=40, dtype=F32)
+            return f(s0, col(0.2), col(0.1), col(0.25), col(0.005))[:2]
+        f = build_notc_sharded(mesh, n_steps=3000, strike=100.0,
+                               round_depth=50, collapse_lanes=200, dtype=F32)
+        return (f(s0, col(0.3), col(0.06), col(3.0)),)
+
+    n0 = launches[key]
+    one = run([cuda])
+    got = run([cuda] * 4)
+    assert launches[key] > n0
+    assert all(a.dtype == F32 and torch.equal(a, b) for a, b in zip(one, got))
+
+
+def test_price_notc_kernel_defaults_to_float32_on_card(cuda):
+    from repro_torch.core.lattice import LatticeModel
+    from repro_torch.kernels.ops import price_notc_kernel
+    m = LatticeModel(s0=100.0, sigma=0.3, rate=0.06, maturity=1.0,
+                     n_steps=300)
+    n0 = dict(TB.LAUNCHES)
+    p = price_notc_kernel(m, 100.0, levels=50)
+    assert TB.LAUNCHES["lattice_round.float32"] == \
+        n0["lattice_round.float32"] + 6
+    assert TB.LAUNCHES["lattice_round"] == n0["lattice_round"]
+    assert p == price_notc_kernel(m, 100.0, levels=50, dtype=F32)
+    p64 = price_notc_kernel(m, 100.0, levels=50, dtype=torch.float64)
+    assert p != p64 and abs(p - p64) < 1e-3
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)],
+                         ids=["causal", "window", "bidirectional"])
+def test_flash_kernel_matches_its_mirror_to_the_contract(no_tf32, hd, causal,
+                                                         window):
+    """The kernel's own arithmetic (split TF32, each MMA aligned and
+    truncated as the tensor cores do it, its tile walk) at T = S = 150
+    (ragged last tiles), four query heads over one KV head: within the
+    float32 contract's 2e-6."""
+    g = torch.Generator(device=no_tf32).manual_seed(hd + int(causal))
+    q = torch.randn(1, 150, 4, hd, generator=g, device=no_tf32)
+    k = torch.randn(1, 150, 1, hd, generator=g, device=no_tf32)
+    v = torch.randn(1, 150, 1, hd, generator=g, device=no_tf32)
+    got = TF.flash_attention(q, k, v, causal=causal, window=window)
+    want = TF.flash_attention_mirror(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= \
+        CONTRACTS["flash_attention"].tolerance(F32)

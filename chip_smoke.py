@@ -42,9 +42,12 @@ stands behind it): the two grids of Longstaff & Schwartz (2001) Table 1
 (American puts, 100,000 antithetic paths, Laguerre degree 3, T=1 at N=50
 and T=2 at N=100) and 64 Bermudan basket puts of 5 assets, each timed
 after a warm-up with its peak device memory, and each held against the
-same rows priced on the host (``[check] LSMC ... card vs host``: the
-host's generator draws other normals, so within 4 combined standard
-errors); the estimator within 3
+same rows priced on the host (``[check] LSMC ... card vs host``: both
+draw JAX's threefry normals, so ask and bid within 1e-9, the gap also
+given in combined standard errors); the sampler's uniforms bit-equal on
+the card and the host at the T=1 grid's shape, its normals within
+1e-12 relative (``[check] LSMC normals card vs host``); the estimator
+within 3
 standard errors of the lattice kernel's price (``[check] LSMC vs
 lattice``); the TC put, no-TC and LSMC grids (and the LSMC grid padded)
 under ``devices=1``, ``devices=4`` (simulated on one card) and
@@ -120,8 +123,22 @@ qk-norm; batch 4, prompt 4096, 32 tokens), its causal
 ``flash_attention`` held to 2e-5 on the first layer's captured inputs
 beside ``scaled_dot_product_attention(is_causal=True)`` on the same
 tensors, 36 launches a prefill.  Neither launches a kernel in decode.
-TF32 is switched off for matrix products and cuDNN before the LMs run,
-so every product compared is full float32.
+Then the mixture-of-experts archs at their published width, their depth
+cut to fit float32 weights in the card's 80 GB (named in their lines):
+dbrx-132b (3 of 40 layers; 48 query heads over 8 KV heads, 16 experts,
+top-4) and llama4-scout-17b-a16e (4 of 48; 40 over 8, 16 experts,
+top-1 plus the shared expert), batch 1, prompt 4096, 32 tokens, each
+with its causal ``flash_attention`` held on its prefill's inputs (G = 6
+and 5), one launch a layer, and the ``[check]`` line counting the
+(layer, token) pairs whose top-k expert set differs between prefill(T)
++ decode and prefill(T + 1), and ``moe_dense``'s device time in that
+prefill; and seamless-m4t-medium at its full width and depth (12
+encoder + 12 decoder layers, 16 heads, head_dim 64): batch 4, 4000
+encoder frames drawn on the card, a 1000-token prompt, 32 tokens, its
+encoder's bidirectional, the decoder's causal and the cross attention
+(T = 1000 over S = 4000) each held on its prefill's inputs, 36 launches
+a prefill (12 of each).  TF32 is switched off for matrix products and
+cuDNN before the LMs run, so every product compared is full float32.
 
 Each launcher runs in a session of its own and fails the script if any
 process of that session outlives it; at the end the script stops the
@@ -170,6 +187,17 @@ CB_STEPS = 120    # depth of the call/bull-spread grid
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "recurrentgemma-2b", 4, 4096, 32
 MAMBA_SERVE = ("falcon-mamba-7b", 2, 4096, 32)
 GQA_SERVE = ("qwen3-4b", 4, 4096, 32)
+# the MoE archs at their published width, depth cut to fit the card's 80
+# GB in float32 (JAX's param_count: dbrx 13.04 GB a layer + 4.93 GB of
+# embeddings, llama4-scout 8.81 + 8.28; moe_dense's (E, B, S, f)
+# intermediates 2.1-2.8 GB each): (arch, batch, prompt, new tokens,
+# layers kept); and the encoder-decoder arch at its full width and depth
+# (12 + 12 layers) on 4000 encoder frames, so that cross attention has
+# T != S, neither a multiple of the kernel's 64-row tile:
+# (arch, batch, prompt, new tokens, encoder frames)
+MOE_SERVES = (("dbrx-132b", 1, 4096, 32, 3),
+              ("llama4-scout-17b-a16e", 1, 4096, 32, 4))
+ENCDEC_SERVE = ("seamless-m4t-medium", 4, 1000, 32, 4000)
 # flash against its plain version: the bound JAX's own flash is held to.
 # lru_scan rounds as its plain version does (no fused multiply-add) and
 # is held to equality, within the float32 contract's 2e-6.
@@ -708,17 +736,31 @@ def live_pairs(np, T, S, causal, window):
     return int(np.clip(hi - lo, 0, None).sum())
 
 
-def capture_kernel_inputs(ops, fn):
-    """Run ``fn()`` and keep copies of the first inputs that
-    ``ops.flash_attention`` and ``ops.lru_scan`` receive in it."""
-    seen = {}
+def kernel_kind(name, args, kw):
+    """What a kernel call computes: ``lru_scan``; ``flash_attention``
+    (causal self attention), ``flash_attention.bidirectional`` (T = S:
+    an encoder) or ``flash_attention.cross`` (T != S)."""
+    if name != "flash_attention" or kw.get("causal", True):
+        return name
+    q, k = args[0], args[1]
+    return name + (".cross" if q.shape[1] != k.shape[1] else ".bidirectional")
+
+
+def capture_kernel_inputs(ops, fn, keep=True):
+    """Run ``fn()``, count the calls of ``ops.flash_attention`` and
+    ``ops.lru_scan`` in it by :func:`kernel_kind`, and (``keep``) keep
+    copies of the first inputs of each kind.  Returns ``(fn(), seen,
+    calls)``."""
+    seen, calls = {}, {}
     orig = {name: getattr(ops, name) for name in ("flash_attention",
                                                    "lru_scan")}
 
     def wrap(name):
         def call(*args, **kw):
-            if name not in seen:
-                seen[name] = ([a.clone() for a in args], dict(kw))
+            kind = kernel_kind(name, args, kw)
+            calls[kind] = calls.get(kind, 0) + 1
+            if keep and kind not in seen:
+                seen[kind] = ([a.clone() for a in args], dict(kw))
             return orig[name](*args, **kw)
         return call
     for name in orig:
@@ -728,7 +770,25 @@ def capture_kernel_inputs(ops, fn):
     finally:
         for name, f in orig.items():
             setattr(ops, name, f)
-    return out, seen
+    return out, seen, calls
+
+
+def capture_routes(L, fn):
+    """Run ``fn()`` and keep each MoE layer call's top-k expert sets
+    (``layers.moe_route``'s indices, sorted), in call order."""
+    routes = []
+    orig = L.moe_route
+
+    def call(*args, **kw):
+        out = orig(*args, **kw)
+        routes.append(out[2].sort(dim=-1).values)
+        return out
+    L.moe_route = call
+    try:
+        out = fn()
+    finally:
+        L.moe_route = orig
+    return out, routes
 
 
 def lru_hold(torch, LS, seen, label):
@@ -781,13 +841,14 @@ def lru_hold(torch, LS, seen, label):
     return rec
 
 
-def flash_hold(torch, np, FL, seen, label):
+def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
     """``flash_attention`` against its plain version on the inputs the
-    first attention layer of a full-width prefill gave it (taken out of
-    ``seen``), timed there beside ``scaled_dot_product_attention`` on the
-    same tensors with the same mask.  Returns the kernel's record."""
+    first attention call of ``kind`` (:func:`kernel_kind`) in a
+    full-width prefill gave it (taken out of ``seen``), timed there
+    beside ``scaled_dot_product_attention`` on the same tensors with the
+    same mask.  Returns the kernel's record."""
     import torch.nn.functional as F
-    (q, k, v), kw = seen.pop("flash_attention")
+    (q, k, v), kw = seen.pop(kind)
     B, T, H, hd = q.shape
     S = k.shape[1]
     got = FL.flash_attention(q, k, v, **kw)
@@ -805,9 +866,9 @@ def flash_hold(torch, np, FL, seen, label):
     qs = q.transpose(1, 2)
     ks = k.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
     vs = v.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
-    if kw["causal"] and kw["window"] is None:
-        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                      is_causal=True)
+    if kw["window"] is None:
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=kw["causal"])
     else:
         pos_q = torch.arange(T, device=q.device)[:, None]
         pos_k = torch.arange(S, device=q.device)[None, :]
@@ -910,7 +971,7 @@ def profile_window(torch, fn):
     return wall_s, n_kernels, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
-def lm_profile(torch, T_, model, cfg, run, prompt, prompt_len, timings,
+def lm_profile(torch, T_, model, cfg, run, feed, prompt_len, timings,
                n_dec=4):
     """Where a full-width prefill and ``n_dec`` decode steps spend device
     time, and the device's idle share: 1 - device busy time over the
@@ -921,8 +982,7 @@ def lm_profile(torch, T_, model, cfg, run, prompt, prompt_len, timings,
 
     def do_prefill():
         state["last"], state["cache"] = T_.prefill(
-            model, {"tokens": prompt[:, :prompt_len]}, cfg, run,
-            max_len=prompt_len + n_dec)
+            model, feed(prompt_len), cfg, run, max_len=prompt_len + n_dec)
 
     def do_decode():
         tok = torch.argmax(state["last"], dim=-1)[:, None]
@@ -956,53 +1016,121 @@ def lm_profile(torch, T_, model, cfg, run, prompt, prompt_len, timings,
     return out
 
 
+def moe_timer(torch, L):
+    """A ``layers.moe_dense`` that brackets each call with CUDA events;
+    ``done()`` restores it and gives the calls' summed device-clock
+    seconds."""
+    orig, marks = L.moe_dense, []
+
+    def call(*args, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = orig(*args, **kw)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    def done():
+        L.moe_dense = orig
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in marks) / 1e3
+    L.moe_dense = call
+    return done
+
+
+def route_flips(torch, pre, dec, full):
+    """(layer, token) pairs whose top-k expert set differs between
+    prefill(T) + decode(T) and prefill(T + 1), and their number."""
+    flips = 0
+    for a, b, c in zip(pre, dec, full):
+        flips += int((torch.cat([a, b], dim=1) != c).any(-1).sum())
+    return flips, sum(int(c.shape[0] * c.shape[1]) for c in full)
+
+
 def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
-             holds):
-    """One architecture at its published width and depth: the
-    prefill/decode consistency check (capturing the kernels' inputs),
-    ``holds(seen)`` holding each kernel against its plain version on
-    them, then the serve through ``LMEngine.generate`` with its launch
-    counts, and a profiled prefill and four decode steps.  Returns
-    ``(kernel records, launches, serve record)``; the model is freed
-    before it returns."""
+             holds, n_layers=None, enc_frames=None):
+    """One architecture at its published width (and depth, or the first
+    ``n_layers`` layers): the prefill/decode consistency check (capturing
+    the kernels' inputs; for an MoE arch also each layer's top-k expert
+    sets, and ``moe_dense``'s device time in prefill), ``holds(seen)``
+    holding each kernel against its plain version on them, then the
+    serve through ``LMEngine.generate`` with its launch counts, and a
+    profiled prefill and four decode steps.  An encoder-decoder arch
+    reads ``enc_frames`` frame embeddings drawn on the card.  Returns
+    ``(kernel records, launches by kind, serve record)``; the model is
+    freed before it returns."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     T_, cfgs, ops = mod("models.transformer"), mod("configs"), \
         mod("kernels.ops")
+    L = mod("models.layers")
     FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
-    cfg = cfgs.get_config(arch)
+    full_cfg = cfgs.get_config(arch)
+    cfg = (dataclasses.replace(full_cfg, n_layers=n_layers) if n_layers
+           else full_cfg)
+    depth = (f"{cfg.n_layers} of {full_cfg.n_layers} layers" if n_layers
+             else f"{cfg.n_layers} layers")
+    if cfg.n_encoder_layers:
+        depth += f" + {cfg.n_encoder_layers} encoder layers"
     run = T_.RunCfg(impl="flash")
     gen = torch.Generator(device=dev).manual_seed(0)
     model, init_s = wall(torch, lambda: T_.init_lm(cfg, gen, device=dev))
     n_params = sum(p.numel() for p in model.parameters())
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len + 1),
                            generator=gen, device=dev)
-    print(f"[lm] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params} parameters ({n_params * 4 / 1e9:.3f} GB float32), "
-          f"initialised on the card in {init_s:.2f} s", flush=True)
+    enc = (torch.randn(batch, enc_frames, cfg.d_model, generator=gen,
+                       device=dev) if cfg.n_encoder_layers else None)
+
+    def feed(n):
+        out = {"tokens": prompt[:, :n]}
+        if enc is not None:
+            out["enc_embeds"] = enc
+        return out
+    print(f"[lm] {arch}: {depth}, d_model {cfg.d_model}, {n_params} "
+          f"parameters ({n_params * 4 / 1e9:.3f} GB float32), initialised "
+          f"on the card in {init_s:.2f} s"
+          + (f"; {enc_frames} encoder frames a sequence" if enc is not None
+             else ""), flush=True)
 
     # prefill(T) + decode(T) against prefill(T + 1): T + 1 rows leave the
     # kernels' last tile (attention) and ring chunk (scan) ragged
-    ((last, cache), seen), pre_s = wall(torch, lambda: capture_kernel_inputs(
-        ops, lambda: T_.prefill(model, {"tokens": prompt[:, :prompt_len]},
-                                cfg, run, max_len=prompt_len + 1)))
-    dec, _ = T_.decode_step(model, cache, prompt[:, prompt_len:], prompt_len,
-                            cfg, run)
+    routes = {}
+
+    def routed(label, fn):
+        if cfg.moe is None:
+            return fn()
+        out, routes[label] = capture_routes(L, fn)
+        return out
+    ((last, cache), seen, _), pre_s = wall(torch, lambda: routed(
+        "pre", lambda: capture_kernel_inputs(ops, lambda: T_.prefill(
+            model, feed(prompt_len), cfg, run, max_len=prompt_len + 1))))
+    dec, _ = routed("dec", lambda: T_.decode_step(
+        model, cache, prompt[:, prompt_len:], prompt_len, cfg, run))
     del cache
-    full, full_s = wall(torch, lambda: T_.prefill(model, {"tokens": prompt},
-                                                  cfg, run)[0])
+    timer = moe_timer(torch, L) if cfg.moe is not None else None
+    full, full_s = wall(torch, lambda: routed("full", lambda: T_.prefill(
+        model, feed(prompt_len + 1), cfg, run)[0]))
+    moe_s = timer() if timer else None
     d = float((dec[:, 0] - full).abs().max())
     finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
+    flips = (route_flips(torch, routes["pre"], routes["dec"], routes["full"])
+             if routes else None)
+    routes.clear()
     print(f"[check] {arch} prefill {prompt_len} ({pre_s:.3f} s) + decode "
           f"of token {prompt_len} vs prefill {prompt_len + 1} ({full_s:.3f} "
           f"s): max |d| logits {d:.3e} (tol {CONSIST_TOL}), logits "
           f"{tuple(full.shape)} finite {finite}, max |logit| "
-          f"{float(full.abs().max()):.3f}", flush=True)
+          f"{float(full.abs().max()):.3f}"
+          + (f"; top-{cfg.moe.top_k} expert sets differing between the two "
+             f"runs: {flips[0]} of {flips[1]} (layer, token) pairs; "
+             f"moe_dense {moe_s:.3f} s of the prefill ({moe_s / full_s:.3f})"
+             if flips else ""), flush=True)
     check(finite and tuple(full.shape) == (batch, cfg.vocab),
           f"{arch} logits finite and of shape (B, V)")
-    check(d <= CONSIST_TOL, f"{arch} prefill/decode consistency {d}")
+    check(d <= CONSIST_TOL, f"{arch} prefill/decode consistency {d}"
+          + (f" ({flips[0]} routing flips)" if flips else ""))
     del dec, full
 
     kern = holds(seen)
@@ -1015,25 +1143,33 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(all_launches)
-    out, gen_s = wall(torch, lambda: eng.generate(prompt_np, n_new))
+    (out, _, calls), gen_s = wall(torch, lambda: capture_kernel_inputs(
+        ops, lambda: eng.generate(prompt_np, n_new, enc_embeds=enc),
+        keep=False))
     launches = {"flash_attention": FL.LAUNCHES["flash_attention"],
                 "lru_scan": LS.LAUNCHES["lru_scan"]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tm = eng.timings
-    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)]
-    want = {"flash_attention": sum(k in ("attn", "local") for k in kinds),
+    kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)] + [
+        cfg.block_kind(i) for i in range(cfg.n_encoder_layers)]
+    cross = cfg.n_layers if cfg.n_encoder_layers else 0
+    want = {"flash_attention": sum(k in ("attn", "local") for k in kinds)
+            + cross,
             "lru_scan": sum(k in ("rglru", "mamba") for k in kinds)}
     decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
     tok_s = batch * n_new / gen_s
-    print(f"[main] {arch} serve: batch {batch}, prompt {prompt_len}, "
-          f"{n_new} new tokens in {gen_s:.3f} s: prefill "
+    print(f"[main] {arch} serve ({depth}): batch {batch}, prompt "
+          f"{prompt_len}, {n_new} new tokens in {gen_s:.3f} s: prefill "
           f"{tm['prefill_s']:.3f} s, decode {decode_ms:.3f} ms/token, "
           f"{tok_s:.2f} tokens/s ({batch * n_new} generated), "
           f"{batch * (prompt_len + n_new) / gen_s:.1f} prompt+generated "
-          f"tokens/s; launches {json.dumps(launches)}; peak device memory "
-          f"{peak_gb:.3f} GB", flush=True)
+          f"tokens/s; launches {json.dumps(launches)} by kind "
+          f"{json.dumps(calls)}; peak device memory {peak_gb:.3f} GB",
+          flush=True)
     check(launches == want, f"{arch} launches {launches}, want {want} (one "
           "prefill, none in decode)")
+    check(sum(n for k, n in calls.items() if k.startswith("flash")) ==
+          launches["flash_attention"], f"{arch} calls by kind {calls}")
     check(out.shape == (batch, n_new) and (out >= 0).all()
           and (out < cfg.vocab).all(), f"{arch} generated tokens")
     top2 = torch.topk(last, 2, dim=-1).values
@@ -1041,16 +1177,19 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
     first = torch.argmax(last, dim=-1).cpu().numpy()
     check((out[sure, 0] == first[sure]).all(),
           f"{arch} first served token vs the checked prefill's argmax")
-    prof = lm_profile(torch, T_, model, cfg, run, prompt, prompt_len, tm)
-    del model, eng, last
+    prof = lm_profile(torch, T_, model, cfg, run, feed, prompt_len, tm)
+    del model, eng, last, enc
     torch.cuda.empty_cache()
-    return kern, launches, dict(
-        profile=prof, layers=cfg.n_layers, batch=batch, prompt=prompt_len,
-        new_tokens=n_new, params=n_params, init_s=init_s,
-        prefill_s=tm["prefill_s"], decode_ms_per_token=decode_ms,
-        tokens_per_s=tok_s, generate_s=gen_s, peak_device_gb=peak_gb,
-        consistency_max_abs=d, check_prefill_s=pre_s,
-        check_prefill_plus_one_s=full_s)
+    return kern, calls, dict(
+        profile=prof, layers=cfg.n_layers, published_layers=full_cfg.n_layers,
+        encoder_layers=cfg.n_encoder_layers, encoder_frames=enc_frames,
+        batch=batch, prompt=prompt_len, new_tokens=n_new, params=n_params,
+        init_s=init_s, prefill_s=tm["prefill_s"],
+        decode_ms_per_token=decode_ms, tokens_per_s=tok_s, generate_s=gen_s,
+        peak_device_gb=peak_gb, consistency_max_abs=d, check_prefill_s=pre_s,
+        check_prefill_plus_one_s=full_s, launches=launches,
+        routing_flips=None if flips is None else list(flips),
+        moe_dense_s=moe_s)
 
 
 def pricing_grids(api, cfgs, np):
@@ -1095,6 +1234,33 @@ def zero_counts(all_launches):
 
 def launch_counts(all_launches):
     return {k: v for counts in all_launches for k, v in counts.items()}
+
+
+def lsmc_normals_check(torch, np, grid, n_paths, rows=2):
+    """The sampler on the card against the host at a grid's full shape
+    (its first ``rows`` rows): the keys and uniforms are integer
+    arithmetic and must be equal bit for bit; the normals differ by the
+    two devices' ``erfinv``."""
+    import repro_torch.core.lsmc as LSM
+    n_sim = sum(1 for t in (grid.exercise_steps or range(grid.n_steps + 1))
+                if t > 0)
+    shape = (n_paths // 2, n_sim, grid.n_assets)
+    keys = LSM.path_keys(0, grid.n_scenarios)[:rows]
+    dev = torch.device("cuda")
+    (u_card, z_card), card_s = wall(torch, lambda: (
+        LSM.uniforms(keys.to(dev), shape), LSM.normals(keys.to(dev), shape)))
+    u_host, z_host = LSM.uniforms(keys, shape), LSM.normals(keys, shape)
+    same_u = bool(torch.equal(u_card.cpu(), u_host))
+    d = float((z_card.cpu() - z_host).abs().max())
+    print(f"[check] LSMC normals card vs host: keys of seed 0, {rows} rows "
+          f"of {shape} (the Longstaff-Schwartz T=1 grid's): uniforms equal "
+          f"{same_u}, normals max |d| {d:.3e} (card {card_s * 1e3:.2f} ms "
+          "for both)", flush=True)
+    check(same_u, "LSMC uniforms: card differs from host")
+    check(d <= 1e-12 * float(z_host.abs().max()),
+          f"LSMC normals card vs host {d}")
+    return dict(rows=rows, shape=list(shape), uniforms_equal=same_u,
+                normals_max_abs=d, card_s=card_s)
 
 
 def lsmc_phase(torch, np, api, all_launches):
@@ -1168,20 +1334,26 @@ def lsmc_phase(torch, np, api, all_launches):
         check(res.ask.shape == grid.shape and res.engine == "lsmc",
               f"LSMC {label} shape and engine")
         # the card's sampler and chunks at full size against the same rows
-        # priced on the host (independent draws, so the gap has mean 0 and
-        # the two SEs' quadrature sum as its spread)
+        # priced on the host: both draw JAX's threefry paths, so the prices
+        # agree to the float64 tolerance (erfinv and the Gram products
+        # round apart by ulps); the gap in combined SEs is kept beside it
         host = api.price_grid(grid, execution=dataclasses.replace(
             cfg, device="cpu"))
         spread = np.sqrt(res.stderr ** 2 + host.stderr ** 2)
         gap = np.abs(res.ask - host.ask) / spread
+        d_host = float(max(np.abs(res.ask - host.ask).max(),
+                           np.abs(res.bid - host.bid).max()))
         rec["vs_host_gap_se"] = gap.ravel().tolist()
+        rec["vs_host_max_abs"] = d_host
         print(f"[check] LSMC {label} card vs host: {n} contracts, "
-              f"{cfg.n_paths} paths each, max |card - host| = "
-              f"{gap.max():.2f} combined SE (limit {LSMC_HOST_SE:g})",
-              flush=True)
+              f"{cfg.n_paths} paths each, max |card - host| ask, bid "
+              f"{d_host:.3e} (tol {TOL:g}) = {gap.max():.2e} combined SE "
+              f"(limit {LSMC_HOST_SE:g})", flush=True)
         check(np.isfinite(host.ask).all() and (gap <= LSMC_HOST_SE).all(),
               f"LSMC {label} card within {LSMC_HOST_SE:g} combined SE of "
               "the host")
+        check(d_host <= TOL, f"LSMC {label} card vs host ask/bid {d_host}")
+    out["normals"] = lsmc_normals_check(torch, np, jobs[0][1], LS_PATHS)
     # the estimator against the lattice at the bar of tests/test_lsmc.py
     one = dict(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25, payoff="put",
                strike=100.0, n_steps=200)
@@ -1477,11 +1649,14 @@ def node_axis_phase(torch, np, mod, cfgs, all_launches):
 # widest round (it takes tens of seconds there whatever the rows)
 RZ32_PLAIN_ROWS = 16
 # flash_attention against its arithmetic mirror (a Python tile loop, so
-# small shapes): (head_dim, causal, window) at B = 1, T = S = 150 (the
-# last q and KV tiles ragged), G = 4 query heads over one KV head
-FLASH_MIRROR_CASES = tuple((hd, c, w) for hd in (64, 128, 256)
+# small shapes): (head_dim, T, S, causal, window) at B = 1, G = 4 query
+# heads over one KV head: T = S = 150 (the last q and KV tiles ragged),
+# and cross attention's T != S both ways, bidirectional
+FLASH_MIRROR_CASES = tuple((hd, 150, 150, c, w) for hd in (64, 128, 256)
                            for c, w in ((True, None), (True, 40),
-                                        (False, None)))
+                                        (False, None))) + tuple(
+    (hd, t, s, False, None) for hd in (64, 128)
+    for t, s in ((100, 230), (230, 100)))
 
 
 def same_or_both_nan(a, b):
@@ -1584,7 +1759,8 @@ def float32_kernel_phase(torch, np, B, RS, R, D, PW, contracts, tc_grid, notc,
 def flash_mirror_phase(torch, np, FL, contracts):
     """flash_attention against its arithmetic mirror at the float32
     contract's tolerance (the registry's 2e-6), at head_dim 64, 128 and
-    256, causal, windowed and bidirectional, the last tiles ragged; each
+    256, causal, windowed and bidirectional, the last tiles ragged, and
+    bidirectional with T != S both ways (cross attention); each
     line also gives the distance from the mirror whose MMAs round to
     nearest in two steps, and from the plain version (held to 2e-5 in
     the serve phases)."""
@@ -1592,10 +1768,10 @@ def flash_mirror_phase(torch, np, FL, contracts):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     out = {}
-    for hd, causal, window in FLASH_MIRROR_CASES:
-        q = torch.randn(1, 150, 4, hd, generator=g, device=dev)
-        k = torch.randn(1, 150, 1, hd, generator=g, device=dev)
-        v = torch.randn(1, 150, 1, hd, generator=g, device=dev)
+    for hd, T, S, causal, window in FLASH_MIRROR_CASES:
+        q = torch.randn(1, T, 4, hd, generator=g, device=dev)
+        k = torch.randn(1, S, 1, hd, generator=g, device=dev)
+        v = torch.randn(1, S, 1, hd, generator=g, device=dev)
         kw = dict(causal=causal, window=window)
         got = FL.flash_attention(q, k, v, **kw)
         mirror = FL.flash_attention_mirror(q, k, v, **kw)
@@ -1605,10 +1781,11 @@ def flash_mirror_phase(torch, np, FL, contracts):
         d = {name: float((got - ref).abs().max()) for name, ref in
              (("mirror", mirror), ("nearest", nearest), ("plain", plain))}
         label = f"hd{hd} {'causal' if causal else 'bidirectional'}" + (
-            f" window {window}" if window else "")
+            f" window {window}" if window else "") + (
+            f" T={T} S={S}" if T != S else "")
         out[label] = d
-        print(f"[kernel] flash_attention mirror {label}: q (1, 150, 4, {hd}) "
-              f"max_abs_err vs mirror {d['mirror']:.3e} (<= {tol:g}), vs "
+        print(f"[kernel] flash_attention mirror {label}: q (1, {T}, 4, {hd}) "
+              f"k,v (1, {S}, 1, {hd}) max_abs_err vs mirror {d['mirror']:.3e} (<= {tol:g}), vs "
               f"round-to-nearest mirror {d['nearest']:.3e}, vs plain "
               f"{d['plain']:.3e}", flush=True)
         check(d["mirror"] <= tol, f"flash_attention {label}: kernel vs mirror "
@@ -2322,6 +2499,25 @@ def main() -> int:
         torch, np, mod, all_launches, *GQA_SERVE,
         lambda seen: {"flash_attention": flash_hold(torch, np, FL, seen,
                                                     GQA_SERVE[0] + " ")})
+    # the MoE archs (causal attention at G = 6 and G = 5) and the
+    # encoder-decoder arch (its encoder's bidirectional attention, the
+    # decoder's causal self attention and its cross attention, T != S)
+    more = []
+    for arch, b, p, n, layers in MOE_SERVES:
+        more.append((arch,) + lm_phase(
+            torch, np, mod, all_launches, arch, b, p, n,
+            lambda seen, arch=arch: {"flash_attention": flash_hold(
+                torch, np, FL, seen, arch + " ")}, n_layers=layers))
+    arch, b, p, n, frames = ENCDEC_SERVE
+    more.append((arch,) + lm_phase(
+        torch, np, mod, all_launches, arch, b, p, n,
+        lambda seen: {kind: flash_hold(torch, np, FL, seen,
+                                       f"{arch} {label} ", kind)
+                      for kind, label in (
+                          ("flash_attention.bidirectional", "encoder"),
+                          ("flash_attention", "self"),
+                          ("flash_attention.cross", "cross"))},
+        enc_frames=frames))
 
     src = "src/repro_torch/csrc/"
     kernels = []
@@ -2393,15 +2589,20 @@ def main() -> int:
                             "operations over 67 TFLOP/s)")}
     # one entry a kernel and a main path that runs it: the earlier entries
     # keep their names, this slice's carry the arch's
+    # (an encoder-decoder path's entries carry the call's kind after the
+    # arch: flash_attention.<arch>.bidirectional, ....cross)
     for path, recs, path_launches in (
             (LM_ARCH, lm_kern, lm_launches),
             (MAMBA_SERVE[0], mamba_kern, mamba_launches),
-            (GQA_SERVE[0], gqa_kern, gqa_launches)):
+            (GQA_SERVE[0], gqa_kern, gqa_launches)) + tuple(
+                (arch, recs, calls) for arch, recs, calls, _ in more):
         for name, rec in recs.items():
-            replaces, note = notes[name]
+            base, _, kind = name.partition(".")
+            replaces, note = notes[base]
             kernels.append(dict(
-                name=name if path == LM_ARCH else f"{name}.{path}",
-                route="cuda", source=src + name + ".cu", replaces=replaces,
+                name=name if path == LM_ARCH else
+                f"{base}.{path}" + (f".{kind}" if kind else ""),
+                route="cuda", source=src + base + ".cu", replaces=replaces,
                 launches=path_launches[name], max_abs_err=rec["max_abs_err"],
                 ms=rec["ms"], plain_ms=rec["plain_ms"],
                 bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
@@ -2425,7 +2626,9 @@ def main() -> int:
                    launcher=launcher, serving=serving,
                    serve_launcher=serve_launcher, lm=lm, lm_kernels=lm_kern,
                    lm_mamba=mamba, lm_mamba_kernels=mamba_kern, lm_gqa=gqa,
-                   lm_gqa_kernels=gqa_kern)
+                   lm_gqa_kernels=gqa_kern,
+                   lm_more={arch: dict(serve=rec, kernels=recs)
+                            for arch, recs, _, rec in more})
     # 5. no process the script started outlives it: the gateways closed
     # their workers; the helper process spawning them started goes too
     mod("serve.procpool").stop_spawn_helper()

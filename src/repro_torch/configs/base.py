@@ -3,11 +3,8 @@
 
 ``ModelConfig`` describes one architecture; ``reduced_config`` shrinks
 one for the CPU tests while keeping its family (block pattern, kinds,
-flags).  The registry maps ``--arch`` ids to config factories.  Only the
-architectures whose every block the port can run are registered; asking
-for another raises ``KeyError`` naming the ROADMAP item that ports it.
-``MoEConfig`` and ``SSMConfig`` are kept as data so that configurations
-read alike in both packages.
+flags).  The registry maps ``--arch`` ids to config factories: the
+JAX package's ten architectures, every one of which the port serves.
 """
 from __future__ import annotations
 
@@ -16,7 +13,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 __all__ = [
     "MoEConfig", "SSMConfig", "RecurrentConfig", "ModelConfig",
-    "register", "get_config", "list_archs", "reduced_config", "NOT_PORTED",
+    "register", "get_config", "list_archs", "reduced_config",
 ]
 
 
@@ -123,15 +120,6 @@ class ModelConfig:
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
-# architectures of the JAX package that the port cannot run yet, with the
-# ROADMAP item that ports the blocks they need
-NOT_PORTED = {
-    "dbrx-132b": "ROADMAP Queue A #11 (MoE)",
-    "llama4-scout-17b-a16e": "ROADMAP Queue A #11 (MoE)",
-    "seamless-m4t-medium": "ROADMAP Queue A #11 (enc-dec)",
-}
-
-
 def register(arch_id: str):
     def deco(fn):
         _REGISTRY[arch_id] = fn
@@ -141,15 +129,13 @@ def register(arch_id: str):
 
 def _load_all() -> None:
     from . import (  # noqa: F401
-        chameleon_34b, falcon_mamba_7b, internlm2_1_8b, qwen2_5_14b,
-        qwen3_0_6b, qwen3_4b, recurrentgemma_2b)
+        chameleon_34b, dbrx_132b, falcon_mamba_7b, internlm2_1_8b,
+        llama4_scout_17b_a16e, qwen2_5_14b, qwen3_0_6b, qwen3_4b,
+        recurrentgemma_2b, seamless_m4t_medium)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     _load_all()
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: "
-                       f"{NOT_PORTED[arch_id]}")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()

@@ -6,9 +6,10 @@ imports the other:
 * a PWL as ``(xs, ys, sl, sr, m)`` arrays <-> :class:`core.pwl.PWL`;
 * a scenario grid's numpy columns -> :class:`scenarios.ScenarioGrid`;
 * the numpy leaves of the JAX ``init_lm`` tree -> the port's
-  :class:`models.transformer.LM` (``lm_params_from_jax``), and any tree
-  grouped as the JAX stack groups its layers (params or a decode
-  cache) -> one dict a layer (``layer_trees``).
+  :class:`models.transformer.LM` (``lm_params_from_jax``: decoder,
+  encoder, MoE and cross-attention leaves), and any tree grouped as the
+  JAX stack groups its layers (params or a decode cache, the decoder's
+  stack or the encoder's) -> one dict a layer (``layer_trees``).
 """
 from __future__ import annotations
 
@@ -54,21 +55,26 @@ def grid_from_columns(grid) -> ScenarioGrid:
     return ScenarioGrid(**kw)
 
 
-def layer_trees(tree, cfg) -> list:
+def layer_trees(tree, cfg, prefix: str = "", n_layers=None) -> list:
     """One nested dict a layer, in layer order, from a tree grouped as the
-    JAX stack groups its layers: ``tree["scan"]["b{j}"]`` holds pattern
-    position ``j`` of every repetition (its leaves with a leading ``reps``
-    axis when there are several), ``tree["rem{r}"]`` the remainder."""
+    JAX stack groups its layers: ``tree[prefix + "scan"]["b{j}"]`` holds
+    pattern position ``j`` of every repetition (its leaves with a
+    leading ``reps`` axis when there are several), ``tree[prefix +
+    "rem{r}"]`` the remainder.  ``prefix`` is ``""`` for the decoder
+    (params or a decode cache) and ``"enc_"`` for the encoder;
+    ``n_layers`` defaults to the stack's count in ``cfg``."""
     pat = cfg.block_pattern
-    reps, rem = divmod(cfg.n_layers, len(pat))
+    if n_layers is None:
+        n_layers = cfg.n_encoder_layers if prefix == "enc_" else cfg.n_layers
+    reps, rem = divmod(n_layers, len(pat))
 
     def pick(node, r):
         if isinstance(node, dict):
             return {key: pick(val, r) for key, val in node.items()}
         return np.asarray(node) if r is None else np.asarray(node)[r]
-    out = [pick(tree["scan"][f"b{j}"], r if reps > 1 else None)
+    out = [pick(tree[prefix + "scan"][f"b{j}"], r if reps > 1 else None)
            for r in range(reps) for j in range(len(pat))]
-    return out + [pick(tree[f"rem{r}"], None) for r in range(rem)]
+    return out + [pick(tree[f"{prefix}rem{r}"], None) for r in range(rem)]
 
 
 def _copy_tree(module, tree, where: str) -> None:
@@ -91,13 +97,21 @@ def _copy_tree(module, tree, where: str) -> None:
 
 def lm_params_from_jax(params_np, cfg, *, device="cpu") -> LM:
     """The port's model holding the weights of a JAX ``init_lm`` tree
-    (its leaves as numpy arrays): every leaf is copied, and a leaf that
-    is missing or left over raises."""
+    (its leaves as numpy arrays): the decoder's stack (``scan``,
+    ``rem{r}``) and the encoder's (``enc_scan``), every block's ``moe``
+    (with ``shared``), ``norm_x`` and ``cross`` leaves, ``enc_norm`` and
+    the embeddings.  Every leaf is copied, and a leaf that is missing or
+    left over raises."""
     model = LM(cfg, device=device)
-    reps, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
-    stack = {f"rem{r}" for r in range(rem)} | ({"scan"} if reps else set())
-    tree = {k: v for k, v in params_np.items() if k not in stack}
-    tree["blocks"] = {str(i): t for i, t in
-                      enumerate(layer_trees(params_np, cfg))}
+    tree, stacks = dict(params_np), {"blocks": ("", cfg.n_layers)}
+    if cfg.n_encoder_layers:
+        stacks["enc_blocks"] = ("enc_", cfg.n_encoder_layers)
+    for name, (prefix, n) in stacks.items():
+        reps, rem = divmod(n, len(cfg.block_pattern))
+        for key in [f"{prefix}rem{r}" for r in range(rem)] + (
+                [prefix + "scan"] if reps else []):
+            tree.pop(key, None)
+        tree[name] = {str(i): t for i, t in
+                      enumerate(layer_trees(params_np, cfg, prefix, n))}
     _copy_tree(model, tree, "model")
     return model

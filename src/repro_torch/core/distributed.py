@@ -145,10 +145,9 @@ def sharded_rows(fn: Callable, mesh: Mesh) -> Callable:
     ``fn`` maps equal-length row tensors (and non-tensor extras passed
     through unchanged) to a tuple of equal-length row tensors.  The
     returned function splits every row tensor into ``len(mesh)`` equal
-    slices, runs ``fn`` on slice ``d`` with its floating-point tensors on
-    ``mesh[d]``, and gathers each output on the host in mesh order.  An
-    integer column (LSMC's per-row generator seeds, which the host reads)
-    stays where it is, as on the single-device path.  Shards are
+    slices, runs ``fn`` on slice ``d`` with its tensors on
+    ``mesh[d]`` (a 2-D column, as LSMC's ``(rows, 2)`` keys, split by
+    rows), and gathers each output on the host in mesh order.  Shards are
     dispatched one after another from the calling thread; whether shards
     on distinct cards overlap is not measured.  There are no
     collectives: per-row reductions (``max_pieces``) reduce on the host
@@ -167,8 +166,7 @@ def sharded_rows(fn: Callable, mesh: Mesh) -> Callable:
             part = []
             for r in rows:
                 if isinstance(r, torch.Tensor):
-                    r = r[d * lanes:(d + 1) * lanes]
-                    r = r.to(dev) if r.is_floating_point() else r
+                    r = r[d * lanes:(d + 1) * lanes].to(dev)
                 part.append(r)
             with _on(dev):
                 outs.append(fn(*part))

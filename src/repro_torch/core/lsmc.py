@@ -18,17 +18,21 @@ where JAX vmapped.
 
 Random numbers
 --------------
-PyTorch cannot reproduce JAX's threefry draws.  What the port keeps is
-the property that makes results independent of the layout: row ``i``'s
-normals depend only on ``(seed, i)`` and the static shape.
-:func:`path_seeds` (the counterpart of JAX's ``path_keys``) mixes
-``seed`` and the row index with SplitMix64 on the host into one integer
-a row; that integer seeds a ``torch.Generator`` on the row's device and
-travels as row data through the shard layout, so a padded or sharded
-row draws exactly what it draws alone.  CPU and CUDA generators give
-different normals for one seed, so the CPU tests hold the estimator on
-JAX's own normals (``z=``) and the sampler statistically, and the card
-holds the layout bit-equality.
+The port draws the JAX package's own normals.  :func:`path_keys` gives
+row ``i`` the key ``fold_in(PRNGKey(seed), i)``, as JAX's ``path_keys``
+does, and :func:`normals` computes ``jax.random.normal(key, (m, n_sim,
+n_assets), float64)`` for every row of a chunk at once, in plain
+PyTorch on the rows' device: threefry2x32 (20 rounds) over the flat
+element index (JAX's default ``jax_threefry_partitionable``
+counters), the 64 bits' top 52 as a float64 mantissa in ``[1, 2)``,
+shifted to a uniform in ``(-1, 1)``, then ``sqrt(2) * erfinv``.  The
+32-bit words live in int64 tensors, masked after every add and shift.
+The keys, ``uint32`` bits bit-equal to JAX's, and the uniforms are
+exact; ``torch.erfinv`` differs from XLA's ``erf_inv`` by up to 2.4e-13
+of the value (1.1e-12 at ``|z|`` of about 4.7), so the prices agree
+with JAX's within the tests' 1e-9.  A key is row data: it travels with its row through the
+gather/pad shard layout, so a padded or sharded row draws exactly what
+it draws alone, on the host and on the card alike.
 
 Rows run in chunks of a fixed size that depends only on the static shape
 (:func:`chunk_rows`), the last chunk padded: every row meets the same
@@ -45,8 +49,9 @@ import torch
 
 from .device import DEFAULT_DTYPE
 
-__all__ = ["LSMC_BASES", "exercise_schedule", "path_seeds", "chunk_rows",
-           "basis_matrix", "simulate_basket", "lsmc_rows"]
+__all__ = ["LSMC_BASES", "exercise_schedule", "path_keys", "threefry2x32",
+           "uniforms", "normals", "chunk_rows", "basis_matrix",
+           "simulate_basket", "lsmc_rows"]
 
 LSMC_BASES = ("poly", "laguerre")
 
@@ -58,7 +63,17 @@ _RIDGE = 1e-10
 _CHUNK_BYTES = 1 << 28
 _MAX_CHUNK = 8
 
-_MASK64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
+# threefry2x32's rotations, alternating by group of four rounds, and its
+# key-schedule parity constant
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# float64: 52 mantissa bits; the bits of 1.0; the uniform's lower end,
+# nextafter(-1, 0), as JAX's normal takes it
+_MANT_SHIFT = 12
+_ONE_BITS = 0x3FF0000000000000
+_U_LO = math.nextafter(-1.0, 0.0)
 
 
 def exercise_schedule(n_steps: int, exercise_steps: Optional[Sequence[int]]
@@ -83,25 +98,65 @@ def exercise_schedule(n_steps: int, exercise_steps: Optional[Sequence[int]]
     return steps
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under
+    the key ``(k0, k1)``: int64 tensors (or ints) holding values in
+    ``[0, 2^32)``, broadcast together.  Returns the two output words."""
+    k0, k1, x0, x1 = (torch.as_tensor(a, dtype=torch.int64)
+                      for a in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    # fresh tensors of the broadcast shape, updated in place from here
+    x0, x1 = (a & _M32 for a in torch.broadcast_tensors(x0 + k0, x1 + k1))
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_M32)
+            high = x1 << r
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(high)
+            x1.bitwise_and_(_M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_M32)
+    return x0, x1
 
 
-def path_seeds(seed: int, n_rows: int) -> torch.Tensor:
-    """Per-row generator seeds, derived from ``seed`` by **row index**.
+def path_keys(seed: int, n_rows: int) -> torch.Tensor:
+    """Per-row PRNG keys, derived from ``seed`` by **row index**: JAX's
+    ``vmap(fold_in)(PRNGKey(seed), arange(n_rows))``.
 
-    An ``(n_rows,)`` int64 tensor on the CPU: row ``i`` gets
-    ``SplitMix64(SplitMix64(seed) ^ i)`` (63 bits), whatever the batch.
-    The seeds travel as row data through the gather/pad shard layout,
-    which is why sharded and padded results are bit-equal to the
-    single-device call.
+    An ``(n_rows, 2)`` int64 tensor on the CPU holding the keys' uint32
+    words.  ``PRNGKey(s)`` is ``(s >> 32, s & 0xFFFFFFFF)`` (of ``s``
+    taken modulo 2^64) and ``fold_in(k, i)`` is ``threefry2x32(k, (0,
+    i))``.  Row ``i`` gets the same key whatever the batch; the keys
+    travel as row data through the gather/pad shard layout, which is why
+    sharded and padded results are bit-equal to the single-device call.
     """
-    base = _splitmix64(int(seed) & _MASK64)
-    return torch.tensor([_splitmix64(base ^ i) >> 1 for i in range(n_rows)],
-                        dtype=torch.int64)
+    s = int(seed) & _M64
+    rows = torch.arange(int(n_rows), dtype=torch.int64)
+    return torch.stack(threefry2x32(s >> 32, s & _M32, 0, rows), dim=1)
+
+
+def uniforms(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``(rows,) + shape`` float64 uniforms in ``[nextafter(-1, 0), 1)``,
+    row ``r`` those of ``jax.random.uniform(keys[r], shape, float64,
+    nextafter(-1, 0), 1)`` bit for bit, all rows in one pass on the
+    device of ``keys``: element ``c`` (its row-major index) takes the 64
+    bits ``threefry2x32(key, (c >> 32, c & 0xFFFFFFFF))``."""
+    n = math.prod(shape)
+    c = torch.arange(n, dtype=torch.int64, device=keys.device)
+    hi, lo = threefry2x32(keys[:, :1], keys[:, 1:], c >> 32, c & _M32)
+    mant = (hi << (32 - _MANT_SHIFT)) | (lo >> _MANT_SHIFT)
+    del hi, lo
+    f = (mant | _ONE_BITS).view(torch.float64) - 1.0
+    lo_t = torch.tensor(_U_LO, dtype=torch.float64, device=keys.device)
+    f = torch.maximum(lo_t, f * (1.0 - lo_t) + lo_t)
+    return f.reshape((keys.shape[0],) + tuple(shape))
+
+
+def normals(keys: torch.Tensor, shape) -> torch.Tensor:
+    """``(rows,) + shape`` standard normals, row ``r`` those of
+    ``jax.random.normal(keys[r], shape, float64)``: ``sqrt(2) *
+    erfinv(u)`` of :func:`uniforms` (``torch.erfinv`` against XLA's
+    ``erf_inv``: within 2.4e-13 of the value)."""
+    return math.sqrt(2.0) * torch.erfinv(uniforms(keys, shape))
 
 
 def chunk_rows(n_paths: int, n_sim: int, n_assets: int) -> int:
@@ -137,21 +192,9 @@ def basis_matrix(x: torch.Tensor, degree: int, kind: str) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def _normals(seeds: torch.Tensor, shape, device) -> torch.Tensor:
-    """``(rows,) + shape`` standard normals, row ``i`` drawn by a
-    generator on ``device`` seeded with ``seeds[i]``."""
-    out = []
-    for s in seeds.tolist():
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s))
-        out.append(torch.randn(shape, generator=g, dtype=DEFAULT_DTYPE,
-                               device=device))
-    return torch.stack(out)
-
-
 def simulate_basket(s0, sigma, rate, maturity, *, n_steps: int,
                     steps: Tuple[int, ...], n_paths: int, n_assets: int,
-                    antithetic: bool, seeds: Optional[torch.Tensor] = None,
+                    antithetic: bool, keys: Optional[torch.Tensor] = None,
                     z: Optional[torch.Tensor] = None):
     """Antithetic GBM basket paths of ``(rows,)`` contracts at the
     schedule's positive steps.
@@ -160,7 +203,7 @@ def simulate_basket(s0, sigma, rate, maturity, *, n_steps: int,
     n_paths, n_sim)``, ``t`` the year fractions ``(rows, n_sim)``.  The
     normals are ``z`` ``(rows, m, n_sim, n_assets)`` when given (``m =
     n_paths // 2`` with ``antithetic``, else ``n_paths``), else drawn from
-    ``seeds``.  With ``antithetic`` the first ``m`` paths use ``+Z`` and
+    ``keys`` (:func:`normals`).  With ``antithetic`` the first ``m`` paths use ``+Z`` and
     the second ``m`` use ``-Z``.
     """
     sim = tuple(s for s in steps if s > 0)
@@ -171,7 +214,7 @@ def simulate_basket(s0, sigma, rate, maturity, *, n_steps: int,
     m = n_paths // 2 if antithetic else n_paths
     shape = (m, len(sim), n_assets)
     if z is None:
-        z = _normals(seeds, shape, s0.device)
+        z = normals(keys.to(s0.device), shape)
     elif tuple(z.shape[1:]) != shape:
         raise ValueError(f"z has shape {tuple(z.shape)}, need (rows,) + "
                          f"{shape}")
@@ -196,14 +239,14 @@ def _payoff_pos(b, alpha, zeta, w1, w2, k1, k2):
 
 
 def _lsmc_chunk(s0, sigma, rate, maturity, k, alpha, zeta, w1, w2, k1, k2,
-                *, seeds, z, n_steps: int, steps: Tuple[int, ...],
+                *, keys, z, n_steps: int, steps: Tuple[int, ...],
                 n_paths: int, n_assets: int, degree: int, basis: str,
                 antithetic: bool):
     """One chunk of rows -> (ask, bid, stderr), each ``(rows,)``: the
     backward regression of JAX's ``_lsmc_row``, batched over rows."""
     b, t = simulate_basket(s0, sigma, rate, maturity, n_steps=n_steps,
                            steps=steps, n_paths=n_paths, n_assets=n_assets,
-                           antithetic=antithetic, seeds=seeds, z=z)
+                           antithetic=antithetic, keys=keys, z=z)
     P = b.shape[1]
     c = lambda a: a[:, None, None]
     h = _payoff_pos(b, c(alpha), c(zeta), c(w1), c(w2), c(k1), c(k2))
@@ -248,14 +291,14 @@ def _lsmc_chunk(s0, sigma, rate, maturity, k, alpha, zeta, w1, w2, k1, k2,
 
 
 def lsmc_rows(s0, sigma, rate, maturity, k, alpha, zeta, w1, w2, k1, k2,
-              seeds, *, n_steps: int, steps: Tuple[int, ...], n_paths: int,
+              keys, *, n_steps: int, steps: Tuple[int, ...], n_paths: int,
               n_assets: int, degree: int, basis: str, antithetic: bool,
               z: Optional[torch.Tensor] = None):
     """Flat-batch LSMC: equal-length row tensors in, ``(ask, bid,
     stderr)`` rows out.
 
-    The shardable unit, like ``scenarios._rz_rows``.  ``seeds`` is the
-    per-row seed column (:func:`path_seeds`); ``z`` (``(rows, m, n_sim,
+    The shardable unit, like ``scenarios._rz_rows``.  ``keys`` is the
+    ``(rows, 2)`` per-row key column (:func:`path_keys`); ``z`` (``(rows, m, n_sim,
     n_assets)``) replaces the draws, as the tests feed in JAX's normals.
     Rows run in chunks of :func:`chunk_rows`, the last padded by
     repeating its last row.
@@ -283,6 +326,6 @@ def lsmc_rows(s0, sigma, rate, maturity, k, alpha, zeta, w1, w2, k1, k2,
 
     for lo in range(0, R, C):
         outs.append(_lsmc_chunk(*(take(a, lo) for a in cols),
-                                seeds=take(seeds, lo), z=take(z, lo),
+                                keys=take(keys, lo), z=take(z, lo),
                                 **static))
     return tuple(torch.cat([o[i] for o in outs])[:R] for i in range(3))

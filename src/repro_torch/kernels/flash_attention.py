@@ -44,7 +44,7 @@ __all__ = ["flash_attention", "flash_attention_plain",
 # kernel launches (never bumped by the plain version)
 LAUNCHES = {"flash_attention": 0}
 # (q rows, keys) of a tile of the kernel, per head_dim
-KERNEL_TILES = {64: (64, 64), 128: (64, 32), 256: (64, 32)}
+KERNEL_TILES = {64: (64, 32), 128: (64, 32), 256: (64, 32)}
 KERNEL_HEAD_DIMS = tuple(KERNEL_TILES)
 _MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
 

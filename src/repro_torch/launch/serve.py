@@ -6,7 +6,10 @@
 The port of the JAX package's ``launch/serve.py``, with the same flags
 and ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions).  It serves from random weights drawn from a seeded generator
-on the device; loading a checkpoint (``--ckpt``) is not ported yet.
+on the device; for an encoder-decoder arch (``seamless-m4t-medium``,
+whose audio frontend is a stub) it also draws ``(batch, prompt_len,
+d_model)`` frame embeddings from that generator, as JAX's launcher
+does.  Loading a checkpoint (``--ckpt``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -46,9 +49,14 @@ def main(argv=None):
     eng = LMEngine(model, cfg, RunCfg(), batch=args.batch, max_len=max_len)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev).cpu().numpy()
+    enc = None
+    if cfg.n_encoder_layers and cfg.frontend == "audio_stub":
+        # the stub frontend's frame embeddings, as many as prompt tokens
+        enc = torch.randn(args.batch, args.prompt_len, cfg.d_model,
+                          generator=gen, device=dev)
 
     t0 = time.perf_counter()
-    out = eng.generate(prompt, args.new_tokens)
+    out = eng.generate(prompt, args.new_tokens, enc_embeds=enc)
     dt = time.perf_counter() - t0
     for b in range(args.batch):
         print(f"seq {b}: {out[b].tolist()}")

@@ -1,25 +1,28 @@
-"""Model layers: norms, rotary, GQA attention, gated MLP, RG-LRU, mamba.
+"""Model layers: norms, rotary, GQA attention, gated MLP, MoE, RG-LRU,
+mamba.
 
-The port of the JAX package's ``models/layers.py`` for the blocks of the
-dense, recurrent and state-space architectures (MoE waits: ROADMAP
-Queue A #11).  The weights live in ``nn.Module`` containers in the JAX
-layout (``(in, out)`` matrices, used as ``x @ w``), under the JAX leaf
-names, so that converting a JAX tree is a copy; the apply functions take
-a container and read its leaves, as the JAX functions read a params
-dict.
+The port of the JAX package's ``models/layers.py``.  The weights live
+in ``nn.Module`` containers in the JAX layout (``(in, out)`` matrices,
+used as ``x @ w``), under the JAX leaf names, so that converting a JAX
+tree is a copy; the apply functions take a container and read its
+leaves, as the JAX functions read a params dict.
 
 Compute is float32, the type of the port's kernels.  Two calls go to
 the kernels where the JAX model calls their references:
 
-* ``attention(impl="flash")`` with ``T > 1`` calls ``ops.flash_attention``
-  (JAX: ``_attn_flash``); its positions are ``0..T-1``, a prefill;
+* ``attention(impl="flash")`` with ``T > 1`` and no cached K/V calls
+  ``ops.flash_attention`` (JAX: ``_attn_flash``): causal self attention
+  of a prefill, the bidirectional encoder and cross attention to an
+  encoder's output (``x_kv``, ``S != T``), positions from 0;
 * ``rglru_block`` and ``mamba_block`` with ``T > 1`` call
   ``ops.lru_scan`` (JAX: ``_linear_scan_chunked``); mamba's state
   ``(B, di, ds)`` is one scan width of ``di * ds`` channels.
 
-The short convolutions stay sums of shifted products, as in the JAX
-package, and do not go through ``conv1d`` (cuDNN would run them in TF32
-by default).
+The mixture of experts is JAX's ``moe_dense``: every expert on every
+token, then the top-k gate mix.  Its products are batched matrix
+products, as JAX computes them outside any Pallas kernel.  The short
+convolutions stay sums of shifted products, as in the JAX package, and
+do not go through ``conv1d`` (cuDNN would run them in TF32 by default).
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import mask_bias as _mask_bias
 
-__all__ = ["RMSNorm", "Attention", "MLP", "RGLRU", "Mamba", "dense_init_",
-           "rmsnorm", "apply_rope", "attention", "mlp", "rglru_block",
+__all__ = ["RMSNorm", "Attention", "MLP", "MoE", "RGLRU", "Mamba",
+           "dense_init_", "rmsnorm", "apply_rope", "attention", "mlp",
+           "moe_route", "moe_dense", "router_aux", "rglru_block",
            "mamba_block"]
 
 _RGLRU_C = 8.0
@@ -47,15 +51,16 @@ def _leaf(*shape, device) -> nn.Parameter:
 
 
 def dense_init_(w: torch.Tensor, generator: torch.Generator,
-                scale: float = 1.0) -> None:
+                scale: float = 1.0, in_axis: int = 0) -> None:
     """Fill ``w`` as the JAX package's ``_dense_init``: a normal truncated
-    to [-2, 2], times ``scale / sqrt(fan_in)`` with ``fan_in = w.shape[0]``
-    (the inverse normal CDF of a uniform draw, as ``trunc_normal_`` does)."""
+    to [-2, 2], times ``scale / sqrt(fan_in)`` with ``fan_in =
+    w.shape[in_axis]`` (the inverse normal CDF of a uniform draw, as
+    ``trunc_normal_`` does)."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    std = scale / math.sqrt(w.shape[in_axis])
     w.uniform_(2.0 * lo - 1.0, 1.0 - 2.0 * lo, generator=generator)
-    w.erfinv_().mul_(math.sqrt(2.0) * scale / math.sqrt(w.shape[0]))
-    w.clamp_(-2.0 * scale / math.sqrt(w.shape[0]),
-             2.0 * scale / math.sqrt(w.shape[0]))
+    w.erfinv_().mul_(math.sqrt(2.0) * std)
+    w.clamp_(-2.0 * std, 2.0 * std)
 
 
 # --------------------------------------------------------------------- #
@@ -108,6 +113,27 @@ class MLP(nn.Module):
     def init_(self, generator) -> None:
         for w in (self.wi, self.wg, self.wo):
             dense_init_(w, generator)
+
+
+class MoE(nn.Module):
+    """JAX's ``init_moe`` leaves: ``router (d, E)``, the experts' ``wi``,
+    ``wg (E, d, f)`` and ``wo (E, f, d)``, and where the config has one,
+    a ``shared`` gated MLP of ``cfg.d_ff``."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        d, e = cfg.d_model, cfg.moe
+        self.router = _leaf(d, e.num_experts, device=device)
+        self.wi = _leaf(e.num_experts, d, e.d_ff_expert, device=device)
+        self.wg = _leaf(e.num_experts, d, e.d_ff_expert, device=device)
+        self.wo = _leaf(e.num_experts, e.d_ff_expert, d, device=device)
+        if e.shared_expert:
+            self.shared = MLP(d, cfg.d_ff, device=device)
+
+    def init_(self, generator) -> None:
+        dense_init_(self.router, generator)
+        for w in (self.wi, self.wg, self.wo):
+            dense_init_(w, generator, in_axis=1)
 
 
 class RGLRU(nn.Module):
@@ -201,44 +227,84 @@ def _attn_naive(q, k, v, bias):
     return torch.einsum("bkgts,bskh->btkgh", w, v)
 
 
-def _project_qkv(p: Attention, x, cfg: ModelConfig):
+def _project_q(p: Attention, x, cfg: ModelConfig):
+    """Q of ``x (B, T, D)`` as ``(B, T, KVH, G, hd)``, with bias and
+    qk-norm as the config has them."""
     B, T, _ = x.shape
-    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
-    g = cfg.n_heads // kvh
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    kvh = cfg.n_kv_heads
+    q = x @ p.wq
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, T, kvh, g, hd)
-    k = k.reshape(B, T, kvh, hd)
-    v = v.reshape(B, T, kvh, hd)
+        q = q + p.bq
+    q = q.reshape(B, T, kvh, cfg.n_heads // kvh, cfg.resolved_head_dim)
     if cfg.qk_norm:
         q = _qk_head_norm(q, p.q_norm, cfg.norm_eps)
+    return q
+
+
+def _project_kv(p: Attention, src, cfg: ModelConfig):
+    """K and V of ``src (B, S, D)`` as ``(B, S, KVH, hd)`` each."""
+    B, S, _ = src.shape
+    k, v = src @ p.wk, src @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
         k = _qk_head_norm(k, p.k_norm, cfg.norm_eps)
-    return q, k, v
+    return k, v
 
 
-def attention(p: Attention, x, cfg: ModelConfig, *,
-              window: Optional[int] = None, impl: str = "flash"):
-    """Causal self attention of ``x (B, T, D)`` at positions ``0..T-1``
-    (a prefill).  Returns ``(out, (k, v))`` so callers can build a KV
-    cache.  ``impl="flash"`` with ``T > 1`` runs the flash kernel;
-    ``"naive"`` materialises the scores."""
+def _project_qkv(p: Attention, x, cfg: ModelConfig):
+    return (_project_q(p, x, cfg),) + _project_kv(p, x, cfg)
+
+
+def attention(p: Attention, x, cfg: ModelConfig, *, kv=None, x_kv=None,
+              positions=None, causal: bool = True,
+              window: Optional[int] = None, impl: str = "flash",
+              use_rope: Optional[bool] = None):
+    """Self or cross attention of ``x (B, T, D)``, JAX's ``attention``.
+
+    ``x_kv`` (B, S, D): K and V are projected from it (cross attention
+    to an encoder's output, keys at positions ``0..S-1``); ``kv``: a
+    cached ``(k, v)`` pair to attend to (decode), the queries at
+    ``positions``.  ``positions`` defaults to ``0..T-1``.  Rotary
+    embedding applies to self attention only (``use_rope`` overrides:
+    ``kv`` alone cannot tell a cached cross K/V from a self one, so
+    cross attention against its cache passes False), and never to a
+    cached K.  Returns ``(out, (k, v))`` so callers can build caches.
+    ``impl="flash"`` with ``T > 1`` and no ``kv`` runs the flash kernel
+    over positions from 0; ``"naive"`` materialises the scores."""
+    if impl not in ("flash", "naive"):
+        raise ValueError(f"impl must be 'flash' or 'naive', got {impl!r}")
     B, T, _ = x.shape
     hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
     g = cfg.n_heads // kvh
-    q, k, v = _project_qkv(p, x, cfg)
-    positions = torch.arange(T, device=x.device)
-    q = apply_rope(q.reshape(B, T, kvh * g, hd), positions,
-                   cfg.rope_theta).reshape(B, T, kvh, g, hd)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if impl == "flash" and T > 1:
-        out = ops.flash_attention(q.reshape(B, T, kvh * g, hd), k, v,
-                                  causal=True, window=window)
-    elif impl in ("flash", "naive"):
-        bias = _mask_bias(positions, positions, causal=True, window=window)
+    q = _project_q(p, x, cfg)
+    # a cached K/V is attended to as it is; JAX projects x and drops it
+    k, v = kv if kv is not None else _project_kv(
+        p, x if x_kv is None else x_kv, cfg)
+    if positions is None:
+        positions = torch.arange(T, device=x.device)
+    if use_rope is None:
+        use_rope = x_kv is None
+    if use_rope:
+        q = apply_rope(q.reshape(B, T, kvh * g, hd), positions,
+                       cfg.rope_theta).reshape(B, T, kvh, g, hd)
+        if kv is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
+    if kv is not None:
+        bias = _mask_bias(positions.reshape(-1),
+                          torch.arange(k.shape[1], device=x.device),
+                          causal=causal, window=window)
         out = _attn_naive(q, k, v, bias)
+    elif impl == "flash" and T > 1:
+        out = ops.flash_attention(q.reshape(B, T, kvh * g, hd), k, v,
+                                  causal=causal, window=window)
     else:
-        raise ValueError(f"impl must be 'flash' or 'naive', got {impl!r}")
+        pos_k = (torch.arange(k.shape[1], device=x.device)
+                 if x_kv is not None else positions)
+        bias = _mask_bias(positions, pos_k, causal=causal, window=window)
+        out = _attn_naive(q, k, v, bias)
     return out.reshape(B, T, cfg.n_heads * hd) @ p.wo, (k, v)
 
 
@@ -249,6 +315,57 @@ def mlp(p: MLP, x, kind: str):
     gate = x @ p.wg
     act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
     return (act * (x @ p.wi)) @ p.wo
+
+
+def moe_route(p: MoE, x, cfg: ModelConfig):
+    """The router: float32 softmax over ``x @ router`` and its top-k.
+    Returns ``(probs (..., E), top_v, top_i (..., k))``."""
+    probs = torch.softmax((x @ p.router).float(), dim=-1)
+    top_v, top_i = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, top_v, top_i
+
+
+def moe_dense(p: MoE, x, cfg: ModelConfig):
+    """JAX's ``moe_dense``: every expert on every token of ``x (B, S,
+    D)``, mixed by the top-k gates normalised by ``max(sum, 1e-9)``,
+    plus the shared expert.  Returns ``(out, aux)``, ``aux`` the
+    router's load-balancing loss.
+
+    The expert products are batched matrix products over the experts
+    with the tokens broadcast, so each expert's weights are read where
+    they lie (``einsum("bsd,edf->ebsf")`` would copy every expert's
+    ``wi`` and ``wg`` into another layout on each call).  Holds two
+    ``(E, B * S, f)`` tensors at a time: the gate's activation is formed
+    in place."""
+    e = cfg.moe
+    B, S, d = x.shape
+    probs, top_v, top_i = moe_route(p, x, cfg)
+    gates = torch.zeros_like(probs).scatter_(-1, top_i, top_v)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    xs = x.reshape(1, B * S, d)
+    up = torch.matmul(xs, p.wi)                         # (E, B * S, f)
+    act = torch.matmul(xs, p.wg)
+    act = (F.silu(act, inplace=True) if cfg.mlp_kind == "swiglu"
+           else F.gelu(act, approximate="tanh"))
+    act.mul_(up)
+    del up
+    y = torch.matmul(act, p.wo)                         # (E, B * S, d)
+    del act
+    out = torch.einsum("end,ne->nd", y, gates.reshape(B * S, e.num_experts)
+                       .to(x.dtype)).reshape(B, S, d)
+    if e.shared_expert:
+        out = out + mlp(p.shared, x, cfg.mlp_kind)
+    return out, router_aux(probs, top_i, e.num_experts)
+
+
+def router_aux(probs, top_i, n_exp: int):
+    """Switch-style load-balancing loss (JAX's ``_router_aux``): ``E`` times
+    the sum over experts of (share of tokens whose first choice it is) x
+    (mean router probability)."""
+    onehot = F.one_hot(top_i[..., 0], n_exp).float()
+    frac = onehot.reshape(-1, n_exp).mean(0)
+    mean_probs = probs.reshape(-1, n_exp).mean(0)
+    return n_exp * torch.sum(frac * mean_probs)
 
 
 # --------------------------------------------------------------------- #

@@ -1,20 +1,28 @@
-"""Model assembly for decoder-only LMs: init, prefill and decode.
+"""Model assembly: decoder-only LMs, hybrid stacks and encoder-decoder
+backbones; init, prefill and decode.
 
-The port of the JAX package's ``models/transformer.py`` for decoder-only
-stacks of ``attn``, ``local``, ``rglru`` and ``mamba`` blocks (cross
-attention, encoders and MoE wait: ROADMAP Queue A #11).  Every block is
-pre-norm with a residual; every kind but ``mamba`` also carries a gated
-MLP behind a second norm (JAX: ``if kind != "mamba"``).
+The port of the JAX package's ``models/transformer.py``.  Every block is
+pre-norm with a residual: a mixer (``attn``, ``local``, ``rglru`` or
+``mamba``); in the decoder of an encoder-decoder model, cross attention
+to the encoder's output behind its own norm (``norm_x``, ``cross``); and
+every kind but ``mamba`` a gated MLP, or the mixture of experts where
+the config has one, behind a second norm (JAX: ``if kind != "mamba"``).
 
 The JAX package groups the layers into a scanned stack of pattern
 repetitions plus remainder layers; the port holds one flat list,
 ``LM.blocks``, in layer order (repetition ``r``, sub-block ``j`` is
-layer ``r * len(pattern) + j``; remainder ``r`` follows them).  Its
-cache is the same list: one dict a layer, ``{"k", "v"}`` of shape
-``(B, max_len, KVH, hd)`` for attention and ``{"conv", "h"}`` for
-RG-LRU and mamba: a recurrent state whose size does not grow with
-``max_len``.  ``decode_step`` updates the cache in place (JAX returns a new
+layer ``r * len(pattern) + j``; remainder ``r`` follows them), and the
+encoder's layers as ``LM.enc_blocks`` with ``LM.enc_norm`` after them.
+Its cache is one dict a decoder layer: ``{"k", "v"}`` of shape ``(B,
+max_len, KVH, hd)`` for attention, ``{"conv", "h"}`` for RG-LRU and
+mamba (a recurrent state whose size does not grow with ``max_len``),
+and in an encoder-decoder model ``{"xk", "xv"}`` of shape ``(B, S_enc,
+KVH, hd)``: the cross K/V, filled once at prefill from the encoder's
+output.  ``decode_step`` updates the cache in place (JAX returns a new
 one): that saves a copy of every KV cache per token.
+
+The MoE runs JAX's ``moe_dense`` (every expert on every token), as JAX
+does without mesh rules; the port has no mesh, so no expert dispatch.
 """
 from __future__ import annotations
 
@@ -28,8 +36,8 @@ from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import layers as L
 
-__all__ = ["RunCfg", "Block", "LM", "init_lm", "embed_tokens", "prefill",
-           "init_cache", "decode_step"]
+__all__ = ["RunCfg", "Block", "LM", "init_lm", "embed_tokens", "encode",
+           "prefill", "init_cache", "decode_step"]
 
 _KINDS = ("attn", "local", "rglru", "mamba")
 # the recurrent kinds: the block function of each, whose state is
@@ -47,18 +55,15 @@ class RunCfg:
 
 
 class Block(nn.Module):
-    """One pre-norm block: a mixer (attention, RG-LRU or mamba) and, but
-    for mamba, a gated MLP."""
+    """One pre-norm block: a mixer (attention, RG-LRU or mamba), with
+    ``cross`` a cross attention sub-layer, and, but for mamba, a gated
+    MLP or the mixture of experts (JAX's ``_init_block``)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device):
+    def __init__(self, cfg: ModelConfig, kind: str, *, cross: bool = False,
+                 device):
         super().__init__()
         if kind not in _KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP Queue A #11)")
-        if cfg.moe is not None or cfg.n_encoder_layers:
-            raise NotImplementedError(
-                "MoE and encoder-decoder models are not ported yet "
-                "(ROADMAP Queue A #11)")
+            raise ValueError(f"unknown block kind {kind!r}")
         self.kind = kind
         self.norm1 = L.RMSNorm(cfg.d_model, device=device)
         if kind == "rglru":
@@ -67,25 +72,38 @@ class Block(nn.Module):
             self.mamba = L.Mamba(cfg, device=device)
         else:
             self.attn = L.Attention(cfg, device=device)
+        if cross:
+            self.norm_x = L.RMSNorm(cfg.d_model, device=device)
+            self.cross = L.Attention(cfg, device=device)
         if kind != "mamba":
             self.norm2 = L.RMSNorm(cfg.d_model, device=device)
-            if cfg.d_ff:
+            if cfg.moe is not None:
+                self.moe = L.MoE(cfg, device=device)
+            elif cfg.d_ff:
                 self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device)
 
 
 class LM(nn.Module):
-    """The weights of a decoder-only LM (uninitialised until ``init_lm`` or
-    ``convert.lm_params_from_jax`` fills them)."""
+    """The weights of an LM (uninitialised until ``init_lm`` or
+    ``convert.lm_params_from_jax`` fills them): the decoder's blocks and,
+    for an encoder-decoder config, the encoder's (``enc_blocks``,
+    ``enc_norm``; JAX's ``init_lm``)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cpu"):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
+        cross = cfg.n_encoder_layers > 0
         self.embed = nn.Parameter(torch.empty(cfg.vocab, d, device=device),
                                   requires_grad=False)
         self.blocks = nn.ModuleList(
-            Block(cfg, cfg.block_kind(i), device=device)
+            Block(cfg, cfg.block_kind(i), cross=cross, device=device)
             for i in range(cfg.n_layers))
+        if cross:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, cfg.block_kind(i), device=device)
+                for i in range(cfg.n_encoder_layers))
+            self.enc_norm = L.RMSNorm(d, device=device)
         self.final_norm = L.RMSNorm(d, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(d, cfg.vocab, device=device),
@@ -115,75 +133,117 @@ def embed_tokens(model: LM, tokens):
     return model.embed[tokens]
 
 
-def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg):
-    """Pre-norm block over a whole sequence from position 0.
-    Returns ``(x, cache entry)``."""
+def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
+                 causal: bool = True, enc_out=None):
+    """Pre-norm block over a whole sequence from position 0 (causal, or
+    bidirectional in the encoder), with cross attention to ``enc_out``
+    where it is given.  Returns ``(x, cache entry)``: ``k``, ``v``
+    (attention) or ``conv``, ``h`` (recurrent), and ``xk``, ``xv``."""
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
     if blk.kind in _RECURRENT:
         out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg)
         entry = {"conv": conv, "h": hh}
     else:
         window = cfg.local_window if blk.kind == "local" else None
-        out, (k, v) = L.attention(blk.attn, h, cfg, window=window,
-                                  impl=run.impl)
+        out, (k, v) = L.attention(blk.attn, h, cfg, causal=causal,
+                                  window=window, impl=run.impl)
         entry = {"k": k, "v": v}
-    return _ffn(blk, x + out, cfg), entry
+    x = x + out
+    if enc_out is not None:
+        hx = L.rmsnorm(blk.norm_x, x, cfg.norm_eps)
+        out, (entry["xk"], entry["xv"]) = L.attention(
+            blk.cross, hx, cfg, x_kv=enc_out, causal=False, impl=run.impl)
+        x = x + out
+    return _ffn(blk, x, cfg), entry
 
 
 def _ffn(blk: Block, x, cfg: ModelConfig):
-    """The block's MLP sub-layer with its residual (none for mamba)."""
-    if hasattr(blk, "mlp"):
+    """The block's MLP or MoE sub-layer with its residual (none for
+    mamba); the MoE's load-balancing loss is a training term, dropped
+    here as JAX's prefill and decode drop it."""
+    if hasattr(blk, "moe"):
+        out, _ = L.moe_dense(blk.moe, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
+                             cfg)
+        x = x + out
+    elif hasattr(blk, "mlp"):
         x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
                       cfg.mlp_kind)
     return x
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, *,
+def init_cache(cfg: ModelConfig, B: int, max_len: int, *, cross_len: int = 0,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One zeroed cache entry a layer: K and V of ``max_len`` positions
-    for attention, a recurrent state for RG-LRU (``conv (B, d_conv-1,
-    W)``, ``h (B, W)``) and mamba (``conv (B, d_conv-1, di)``, ``h (B,
-    di, ds)``)."""
+    """One zeroed cache entry a decoder layer: K and V of ``max_len``
+    positions for attention, a recurrent state for RG-LRU (``conv (B,
+    d_conv-1, W)``, ``h (B, W)``) and mamba (``conv (B, d_conv-1, di)``,
+    ``h (B, di, ds)``); with ``cross_len``, also the cross K/V ``xk``,
+    ``xv`` of ``cross_len`` encoder positions."""
     dev = resolve_device(device)
     hd, kvh, w = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.lru_width
     cache = []
     for i in range(cfg.n_layers):
         kind = cfg.block_kind(i)
         if kind == "rglru":
-            cache.append({
-                "conv": torch.zeros(B, cfg.recurrent.d_conv - 1, w, device=dev),
-                "h": torch.zeros(B, w, device=dev)})
+            c = {"conv": torch.zeros(B, cfg.recurrent.d_conv - 1, w, device=dev),
+                 "h": torch.zeros(B, w, device=dev)}
         elif kind == "mamba":
             di = cfg.ssm.expand * cfg.d_model
-            cache.append({
-                "conv": torch.zeros(B, cfg.ssm.d_conv - 1, di, device=dev),
-                "h": torch.zeros(B, di, cfg.ssm.d_state, device=dev)})
+            c = {"conv": torch.zeros(B, cfg.ssm.d_conv - 1, di, device=dev),
+                 "h": torch.zeros(B, di, cfg.ssm.d_state, device=dev)}
         else:
-            cache.append({"k": torch.zeros(B, max_len, kvh, hd, device=dev),
-                          "v": torch.zeros(B, max_len, kvh, hd, device=dev)})
+            c = {"k": torch.zeros(B, max_len, kvh, hd, device=dev),
+                 "v": torch.zeros(B, max_len, kvh, hd, device=dev)}
+        if cross_len:
+            c["xk"] = torch.zeros(B, cross_len, kvh, hd, device=dev)
+            c["xv"] = torch.zeros(B, cross_len, kvh, hd, device=dev)
+        cache.append(c)
     return cache
+
+
+@torch.inference_mode()
+def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg):
+    """The encoder of an encoder-decoder model: ``batch["enc_embeds"]``
+    (B, S_enc, D) (the ``audio_stub`` frontend's frame embeddings) or the
+    embedded ``batch["enc_tokens"]``, through the encoder's blocks
+    bidirectionally at rotary positions ``0..S_enc-1``, then
+    ``enc_norm``."""
+    if cfg.frontend == "audio_stub":
+        xe = batch["enc_embeds"].to(torch.float32)
+    else:
+        xe = embed_tokens(model, batch["enc_tokens"])
+    for blk in model.enc_blocks:
+        xe, _ = _apply_block(blk, xe, cfg, run, causal=False)
+    return L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
 
 
 @torch.inference_mode()
 def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
             max_len: Optional[int] = None):
-    """Serve-side prefill.  ``batch["tokens"]``: (B, S) int64.
+    """Serve-side prefill.  ``batch["tokens"]``: (B, S) int64, and for an
+    encoder-decoder model ``batch["enc_embeds"]`` or
+    ``batch["enc_tokens"]`` (:func:`encode`).
 
     Returns ``(last_logits (B, V), cache)`` with the KV caches filled for
-    positions ``[0, S)`` (cache length ``max_len`` or ``S``).
+    positions ``[0, S)`` (cache length ``max_len`` or ``S``) and each
+    decoder layer's cross K/V from the encoder's output.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
+    enc_out = encode(model, batch, cfg, run) if cfg.n_encoder_layers else None
     x = embed_tokens(model, tokens)
-    cache = init_cache(cfg, B, max_len, device=x.device)
+    cache = init_cache(cfg, B, max_len, device=x.device,
+                       cross_len=0 if enc_out is None else enc_out.shape[1])
     for blk, c in zip(model.blocks, cache):
-        x, entry = _apply_block(blk, x, cfg, run)
-        if "k" in entry:
-            c["k"][:, :S] = entry["k"]
-            c["v"][:, :S] = entry["v"]
-        else:
-            c.update(entry)
+        x, entry = _apply_block(blk, x, cfg, run, enc_out=enc_out)
+        for name, val in entry.items():
+            if name in ("k", "v"):
+                c[name][:, :S] = val
+            elif name in ("xk", "xv"):
+                c[name].copy_(val)
+            else:
+                c[name] = val
+        del entry
     x = L.rmsnorm(model.final_norm, x[:, -1], cfg.norm_eps)
     return x @ model.head, cache
 
@@ -211,7 +271,15 @@ def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
                             causal=True, window=window, neg=-float("inf"))
         out = L._attn_naive(q, c["k"], c["v"], bias)
         out = out.reshape(B, 1, cfg.n_heads * hd) @ blk.attn.wo
-    return _ffn(blk, x + out, cfg)
+    x = x + out
+    if hasattr(blk, "cross"):
+        # the cached cross K/V, bidirectional, no rotary embedding
+        hx = L.rmsnorm(blk.norm_x, x, cfg.norm_eps)
+        out, _ = L.attention(blk.cross, hx, cfg, kv=(c["xk"], c["xv"]),
+                             positions=torch.full((1,), pos, device=x.device),
+                             causal=False, impl="naive", use_rope=False)
+        x = x + out
+    return _ffn(blk, x, cfg)
 
 
 @torch.inference_mode()

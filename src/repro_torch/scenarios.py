@@ -38,7 +38,7 @@ import torch
 from .core.device import DEFAULT_DTYPE, resolve_device
 from .core.distributed import resolve_grid_mesh, sharded_rows
 from .core.lsmc import (LSMC_BASES, exercise_schedule, lsmc_rows,
-                        path_seeds)
+                        path_keys)
 from .core.notc import notc_rows
 from .core.partition import (ShardPlan, plan_shards, scenario_costs,
                              shard_layout)
@@ -521,13 +521,15 @@ def price_grid_lsmc(grid: ScenarioGrid, *, n_paths: int = 4096,
     Bermudan ``grid.exercise_steps``; it also prices the plain 1-D
     American grid, which is how the tests hold it to the lattice.
 
-    Deterministic for a given ``seed``: row ``i`` draws from a generator
-    seeded by ``path_seeds(seed, n)[i]`` (``core/lsmc.py``), so results
-    are bitwise reproducible on one device type and independent of
-    padding and of the ``mesh``/``devices``/``shard_plan`` layout.
-    ``GridResult.stderr`` carries each scenario's standard error.
-    ``greeks`` uses the fused central-difference bumps with **common
-    random numbers**: bumped copies of a row share that row's seed.
+    Deterministic for a given ``seed``: row ``i`` draws JAX's normals
+    under the key ``path_keys(seed, n)[i]`` (``core/lsmc.py``), so the
+    prices are JAX's for the same seed (within 1e-9: ``torch.erfinv``
+    against XLA's) and independent of padding and of the
+    ``mesh``/``devices``/``shard_plan`` layout.  ``GridResult.stderr``
+    carries each scenario's standard error.  ``greeks`` uses the fused
+    central-difference bumps with **common random numbers**: the key
+    column is tiled over the bumped copies, as JAX tiles it, so a copy
+    shares its row's key.
     """
     if basis not in LSMC_BASES:
         raise ValueError(f"unknown basis {basis!r}; use one of {LSMC_BASES}")
@@ -535,7 +537,7 @@ def price_grid_lsmc(grid: ScenarioGrid, *, n_paths: int = 4096,
     dev = resolve_device(device)
     inputs, copies = _with_bumps(_grid_inputs(grid, dev), greeks)
     n = grid.n_scenarios
-    inputs = inputs + (path_seeds(seed, n).repeat(copies),)
+    inputs = inputs + (path_keys(seed, n).to(dev).repeat(copies, 1),)
     static = dict(n_steps=grid.n_steps, steps=steps, n_paths=int(n_paths),
                   n_assets=grid.n_assets, degree=int(degree), basis=basis,
                   antithetic=bool(antithetic))

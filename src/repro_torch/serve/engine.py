@@ -162,8 +162,12 @@ class LMEngine:
         self.device = model.embed.device
         self.timings = {}
 
-    def generate(self, tokens: np.ndarray, n_new: int) -> np.ndarray:
-        """Greedy generation.  tokens: (B, S0) prompt; returns (B, n_new)."""
+    def generate(self, tokens: np.ndarray, n_new: int,
+                 enc_embeds: Optional[np.ndarray] = None) -> np.ndarray:
+        """Greedy generation.  tokens: (B, S0) prompt; ``enc_embeds`` (B,
+        S_enc, D): an encoder-decoder model's encoder input (the
+        ``audio_stub`` frontend's frames), a numpy array or a tensor;
+        returns (B, n_new)."""
         B, S0 = tokens.shape
         if B != self.batch or n_new < 1 or S0 + n_new > self.max_len:
             raise ValueError(f"prompt {tokens.shape} + {n_new} new tokens do "
@@ -171,8 +175,13 @@ class LMEngine:
                              f"{self.max_len}")
         t0 = time.perf_counter()
         toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
-        logits, cache = prefill(self.model, {"tokens": toks}, self.cfg,
-                                self.run, max_len=self.max_len)
+        batch = {"tokens": toks}
+        if enc_embeds is not None:
+            batch["enc_embeds"] = torch.as_tensor(enc_embeds,
+                                                  dtype=torch.float32,
+                                                  device=self.device)
+        logits, cache = prefill(self.model, batch, self.cfg, self.run,
+                                max_len=self.max_len)
         tok = torch.argmax(logits, dim=-1)[:, None]
         outs = [tok[:, 0].cpu().numpy()]
         t1 = time.perf_counter()

@@ -380,7 +380,8 @@ def test_scenario_grid_matches_jax_layout():
 def test_unported_paths_raise_naming_the_roadmap(capsys):
     """LSMC (Queue A #6), scenario and node-axis sharding (#7) and the
     pricing service (#8) run now; what is left unported raises naming
-    its ROADMAP item: the language models not ported yet (#11)."""
+    its ROADMAP item.  The language models are all ported now (#11): the
+    MoE and encoder-decoder archs build, and the port lists JAX's ten."""
     from repro_torch.configs import get_config
     from repro_torch.launch import price as launch
     g = ScenarioGrid.cartesian(s0=100.0, n_steps=4)
@@ -398,9 +399,11 @@ def test_unported_paths_raise_naming_the_roadmap(capsys):
                        "--contracts", "2"])
     assert "[mesh: 1 x 2 on cpu]" in capsys.readouterr().out
     assert np.isfinite(run.ask).all() and (run.ask >= run.bid).all()
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs import list_archs
+    assert list(list_archs()) == list(j_list_archs())
     for arch in ("seamless-m4t-medium", "dbrx-132b"):
-        with pytest.raises(KeyError, match="Queue A #11"):
-            get_config(arch)
+        assert get_config(arch).name == arch
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):

@@ -25,6 +25,7 @@ import torch
 
 import repro.core  # noqa: F401  (x64: the references get explicit float32)
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.configs import reduced_config as j_reduced_config
 from repro.models.transformer import RunCfg as JRunCfg
 from repro.models.transformer import init_lm as j_init_lm
@@ -195,16 +196,24 @@ def test_config_matches_jax_and_every_leaf_converts(arch):
 
 
 def test_list_archs_and_the_refusals_naming_the_roadmap():
-    assert set(SLICE) | {"recurrentgemma-2b"} == set(list_archs())
+    """The port serves every arch of the JAX package: ``list_archs()``
+    equals JAX's ten, and each builds, the MoE and encoder-decoder ones
+    too; an unknown arch still raises."""
+    assert list(list_archs()) == list(j_list_archs())
+    assert set(SLICE) | {"recurrentgemma-2b", "dbrx-132b",
+                         "llama4-scout-17b-a16e",
+                         "seamless-m4t-medium"} == set(list_archs())
     for arch in list_archs():
         assert get_config(arch).name == arch
-    for arch, step in (("dbrx-132b", "MoE"), ("llama4-scout-17b-a16e", "MoE"),
-                       ("seamless-m4t-medium", "enc-dec")):
-        with pytest.raises(KeyError, match=f"Queue A #11 \\({step}\\)"):
-            get_config(arch)
+    for arch in ("dbrx-132b", "llama4-scout-17b-a16e", "seamless-m4t-medium"):
+        model = T.LM(reduced_config(get_config(arch)), device="meta")
+        assert len(model.blocks) == 2
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "chameleon-34b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "chameleon-34b",
+                                  "seamless-m4t-medium"])
 def test_serve_launcher_prints_tokens(arch, capsys):
     out = port_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                            "--batch", "2", "--prompt-len", "8",

@@ -642,3 +642,69 @@ def test_flash_kernel_matches_its_mirror_to_the_contract(no_tf32, hd, causal,
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= \
         CONTRACTS["flash_attention"].tolerance(F32)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("T,S", [(100, 230), (230, 100)])
+def test_flash_kernel_cross_attention_t_ne_s(no_tf32, hd, T, S):
+    """Cross attention: bidirectional, T queries over S != T keys (both
+    ways), neither a multiple of the 64-row tile, five query heads a KV
+    head (llama4-scout's 40 / 8): within the contract's 2e-6 of the
+    mirror and 2e-5 of the plain version."""
+    g = torch.Generator(device=no_tf32).manual_seed(hd + T)
+    q = torch.randn(2, T, 10, hd, generator=g, device=no_tf32)
+    k = torch.randn(2, S, 2, hd, generator=g, device=no_tf32)
+    v = torch.randn(2, S, 2, hd, generator=g, device=no_tf32)
+    got = TF.flash_attention(q, k, v, causal=False)
+    mirror = TF.flash_attention_mirror(q, k, v, causal=False)
+    plain = TF.flash_attention_plain(q, k, v, causal=False, q_chunk=64,
+                                     kv_chunk=48)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    assert (got - mirror).abs().max().item() <= \
+        CONTRACTS["flash_attention"].tolerance(F32)
+    assert (got - plain).abs().max().item() <= 2e-5
+
+
+def test_lsmc_keys_and_uniforms_on_card_equal_the_host(cuda):
+    """The threefry sampler is integer arithmetic: the card's keys and
+    uniforms are the host's bit for bit; the normals differ only by the
+    two devices' ``erfinv``."""
+    from repro_torch.core import lsmc as LS
+    keys = LS.path_keys(2 ** 40 + 3, 5)
+    shape = (1000, 7, 3)
+    assert torch.equal(LS.path_keys(2 ** 40 + 3, 5).to(cuda).cpu(), keys)
+    assert torch.equal(LS.uniforms(keys.to(cuda), shape).cpu(),
+                       LS.uniforms(keys, shape))
+    z = LS.normals(keys.to(cuda), shape).cpu()
+    assert torch.allclose(z, LS.normals(keys, shape), rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("arch,flash", [("dbrx-132b", 2),
+                                        ("llama4-scout-17b-a16e", 2),
+                                        ("seamless-m4t-medium", 6)])
+def test_reduced_moe_and_encdec_archs_on_card_match_cpu(no_tf32, arch, flash):
+    """Reduced MoE archs (top-2 of 4 experts; top-1 plus the shared
+    expert) and the encoder-decoder arch (2 + 2 layers, 120 encoder
+    frames against 130 decoder tokens: bidirectional and cross attention
+    with T != S) through the kernels on the card against the plain
+    versions on the CPU, same weights: 1e-4 on the logits and the cross
+    cache."""
+    cfg = reduced_config(get_config(arch), d_model=256, n_heads=4)
+    make = lambda: TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                              device="cpu")
+    cpu_model, card_model = make(), make().to(no_tf32)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 130), generator=gen)}
+    if cfg.n_encoder_layers:
+        batch["enc_embeds"] = torch.randn(2, 120, cfg.d_model, generator=gen)
+    n_fa = TF.LAUNCHES["flash_attention"]
+    want, wcache = TT.prefill(cpu_model, batch, cfg, TT.RunCfg())
+    got, gcache = TT.prefill(card_model, {k: v.to(no_tf32) for k, v in
+                                          batch.items()}, cfg, TT.RunCfg())
+    assert TF.LAUNCHES["flash_attention"] == n_fa + flash
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    for g, w in zip(gcache, wcache):
+        assert sorted(g) == sorted(w)
+        for name in w:
+            assert (g[name].cpu() - w[name]).abs().max().item() <= 1e-4

@@ -1,17 +1,22 @@
 """Port parity: the least-squares Monte Carlo engine, on the CPU.
 
-PyTorch cannot draw JAX's threefry normals, so the port is held in two
-ways:
+The port draws JAX's own normals (``core/lsmc.py``: threefry2x32 keys
+and counters, the float64 uniform, ``sqrt(2) * erfinv``), so it is held
+to the JAX package directly:
 
-* **the estimator on JAX's own normals**: row ``i``'s draws are
-  ``jax.random.normal(path_keys(seed, n)[i], (m, n_sim, d), float64)``,
-  fed to the port's ``lsmc_rows(z=...)``; ask, bid and stderr agree with
-  JAX's ``price_grid_lsmc`` to 1e-9 (float64, at most 2048 paths, so no
-  exercise decision sits within a few ulps of its continuation value);
-* **the port's own sampler, statistically** (``tests/_stats.py``), as
-  ``tests/test_lsmc.py`` holds JAX's: within 3 standard errors of the
-  lattice oracle at N=200 with 8192 paths, and bit-equal across repeats,
-  padding, simulated and explicit meshes.
+* **the keys and the sampler**: ``path_keys`` equals JAX's bit for bit;
+  the uniforms equal ``jax.random.uniform``'s bit for bit and the
+  normals ``jax.random.normal``'s within 1e-12 relative
+  (``torch.erfinv`` against XLA's ``erf_inv``);
+* **the estimator on JAX's own normals** (``lsmc_rows(z=...)``) and
+  **``price_grid_lsmc`` with the same seed**: ask, bid and stderr agree
+  with JAX's ``price_grid_lsmc`` to 1e-9 (float64, at most 2048 paths, so
+  no exercise decision sits within a few ulps of its continuation
+  value);
+* **statistically** (``tests/_stats.py``), as ``tests/test_lsmc.py``
+  holds JAX's: within 3 standard errors of the lattice oracle at N=200
+  with 8192 paths, and bit-equal across repeats, padding, simulated and
+  explicit meshes.
 """
 import jax
 import jax.numpy as jnp
@@ -35,6 +40,9 @@ from repro_torch.core.payoff import american_put
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-9
+# torch.erfinv against XLA's erf_inv, float64, relative: the two differ
+# by up to 2.4e-13 of the value, 1.1e-12 absolute at |z| of about 4.7
+NORMAL_RTOL = 1e-12
 CPU = torch.device("cpu")
 MKT = dict(s0=100.0, sigma=0.2, rate=0.1, maturity=0.25)
 
@@ -86,6 +94,16 @@ def test_estimator_on_jax_normals_matches_jax(case):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref).ravel(),
                                    rtol=0, atol=TOL)
     assert (se.numpy() > 0).all()
+    # the port's own draws are JAX's, and so are its prices
+    tkeys = TL.path_keys(seed, tg.n_scenarios)
+    np.testing.assert_allclose(
+        TL.normals(tkeys, (m, n_sim, tg.n_assets)).numpy(), z,
+        rtol=NORMAL_RTOL)
+    own = TS.price_grid_lsmc(tg, n_paths=paths, seed=seed, basis=basis,
+                             degree=degree, antithetic=anti, device="cpu")
+    for f in ("ask", "bid", "stderr"):
+        np.testing.assert_allclose(getattr(own, f), np.asarray(
+            getattr(want, f)), rtol=0, atol=TOL, err_msg=f)
 
 
 @pytest.mark.parametrize("kind", TL.LSMC_BASES)
@@ -199,10 +217,30 @@ def test_repeat_pad_and_layouts_bit_equal():
 
 
 def test_row_seed_depends_on_seed_and_index_only():
-    a, b = TL.path_seeds(7, 4), TL.path_seeds(7, 9)
-    assert torch.equal(a, b[:4]) and a.dtype == torch.int64
-    assert len(set(b.tolist())) == 9 and (b >= 0).all()
-    assert not torch.equal(TL.path_seeds(8, 4), a)
+    """The row keys are JAX's ``path_keys`` bit for bit (a seed past 2^32
+    fills both words of ``PRNGKey``), and a function of (seed, row)
+    only; the uniforms of a key equal ``jax.random.uniform``'s bit for
+    bit, its normals ``jax.random.normal``'s within 1e-12
+    relative."""
+    for seed in (0, 7, 2 ** 40 + 3):
+        want = np.asarray(JL.path_keys(seed, 9)).astype(np.int64)
+        got = TL.path_keys(seed, 9)
+        assert got.dtype == torch.int64 and got.shape == (9, 2)
+        assert np.array_equal(got.numpy(), want), seed
+    a, b = TL.path_keys(7, 4), TL.path_keys(7, 9)
+    assert torch.equal(a, b[:4]) and not torch.equal(TL.path_keys(8, 4), a)
+    assert len({tuple(r) for r in b.tolist()}) == 9
+    shape = (40, 3, 2)
+    keys, jkeys = TL.path_keys(2 ** 40 + 3, 3), JL.path_keys(2 ** 40 + 3, 3)
+    lo = np.nextafter(-1.0, 0.0)
+    ju = np.stack([np.asarray(jax.random.uniform(
+        jkeys[i], shape, jnp.float64, lo, 1.0)) for i in range(3)])
+    jz = np.stack([np.asarray(jax.random.normal(jkeys[i], shape,
+                                                jnp.float64))
+                   for i in range(3)])
+    assert np.array_equal(TL.uniforms(keys, shape).numpy(), ju)
+    np.testing.assert_allclose(TL.normals(keys, shape).numpy(), jz,
+                               rtol=NORMAL_RTOL)
     assert TL.chunk_rows(100_000, 50, 1) == TL.chunk_rows(100_000, 50, 1)
 
 

@@ -140,6 +140,24 @@ encoder's bidirectional, the decoder's causal and the cross attention
 a prefill (12 of each).  TF32 is switched off for matrix products and
 cuDNN before the LMs run, so every product compared is full float32.
 
+Then training (``repro_torch.train``): ``lru_scan``'s backward kernel
+against ``lru_scan_backward_plain`` bit for bit at the training shape
+(2, 1024, 2560) and the forward's edge shapes, timed beside its byte
+bound, with the forward timed at that shape (``[kernel] lru_scan
+backward``); one ``make_train_step`` step of recurrentgemma-2b reduced to
+3 layers on the card and on the CPU from the same weights (``[check]
+train step card vs cpu``: the loss within 1e-5 relative, each gradient
+within 1e-4 of its leaf's largest value); ``make_train_step`` at the
+published width and depth (batch 2 x 1024 synthetic tokens, remat full,
+AdamW's defaults: one warm-up and 3 timed steps, a profiled one;
+``[main] recurrentgemma-2b train``: s/step, tokens/s, losses, peak
+memory, the scan's launches a step: 36 forward, 18 backward); and
+``python -m repro_torch.launch.train`` killed at step 21, resumed, and
+held bit for bit to an uninterrupted run, then ``python -m
+repro_torch.launch.serve --ckpt`` on its checkpoint (``[main] train
+launcher``, ``[main] serve --ckpt``).  The script prints its total time
+(``[time]``).
+
 Each launcher runs in a session of its own and fails the script if any
 process of that session outlives it; at the end the script stops the
 resource tracker that spawning the workers started and fails if a
@@ -2315,7 +2333,313 @@ def serve_launcher_phase():
     return out
 
 
+# training: the full-width step's shape (batch 2 x 1024 tokens,
+# remat full, one microbatch, AdamW's defaults, 3 timed steps after one
+# warm-up), the reduced arch held card vs CPU, and the launchers'
+# restart.  A step's gradients against the CPU's: float32 sums in other
+# orders on two devices.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "recurrentgemma-2b", 2, \
+    1024, 3
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# the scan's backward beside its forward: the training shape and the
+# forward's edge shapes (LRU_EDGES)
+LRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 2560)
+
+
+def lru_backward_phase(torch, LS):
+    """``lru_scan_backward`` against ``lru_scan_backward_plain`` bit for
+    bit at the training shape and the edge shapes, on seeded inputs of
+    slow decay with nonzero ``h0`` and ``dh_last``; timed at the training
+    shape beside its byte bound (a, dh_seq, h_seq read, da, db written,
+    and the (B, W) rows), and the forward timed at the same shape.
+    Returns ``{"lru_scan_backward": rec, "lru_scan.train": rec}``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    recs, errs = {}, {}
+    for B_, T_, W_ in (LRU_TRAIN_SHAPE,) + LRU_EDGES:
+        a = 0.9 + 0.1 * torch.rand(B_, T_, W_, generator=g, device=dev)
+        h0 = torch.randn(B_, W_, generator=g, device=dev)
+        b = torch.randn(B_, T_, W_, generator=g, device=dev)
+        h_seq, _ = LS.lru_scan_plain(a, b, h0)
+        dh_seq = torch.randn(B_, T_, W_, generator=g, device=dev)
+        dh_last = torch.randn(B_, W_, generator=g, device=dev)
+        xs = (a, h0, h_seq, dh_seq, dh_last)
+        got = LS.lru_scan_backward(*xs)
+        want = LS.lru_scan_backward_plain(*xs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, want))
+        label = f"B={B_} T={T_} W={W_}"
+        errs[label] = max(float((x - y).abs().max()) for x, y in
+                          zip(got, want))
+        print(f"[kernel] lru_scan backward {label}: da, db, dh0 equal to "
+              f"plain {same}, max abs err {errs[label]:.3e}", flush=True)
+        check(same, f"lru_scan backward {label}: kernel differs from plain "
+              f"(max abs err {errs[label]})")
+        if (B_, T_, W_) != LRU_TRAIN_SHAPE:
+            continue
+        n, n_h = a.numel(), h0.numel()
+        for name, fn, plain, nbytes in (
+                ("lru_scan_backward", lambda: LS.lru_scan_backward(*xs),
+                 lambda: LS.lru_scan_backward_plain(*xs),
+                 (5 * n + 3 * n_h) * 4),
+                ("lru_scan.train", lambda: LS.lru_scan(a, b, h0),
+                 lambda: LS.lru_scan_plain(a, b, h0), (3 * n + 2 * n_h) * 4)):
+            ms = cuda_ms(torch, fn, 20)
+            plain_ms = cuda_ms(torch, plain, 2)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = (3 if name == "lru_scan_backward" else 2) * n / \
+                FP32_OPS_PER_S
+            recs[name] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, shape=[B_, T_, W_], bytes=nbytes)
+            print(f"[kernel] {name.replace('.train', ' (training shape)')}:"
+                  f" a {(B_, T_, W_)} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={recs[name]['bound_ms']:.4f} ({nbytes / 1e6:.1f}"
+                  f" MB over 3.35 TB/s)", flush=True)
+        del xs, got, want, a, b, h0, h_seq, dh_seq, dh_last
+    recs["lru_scan_backward"]["errs"] = errs
+    recs["lru_scan_backward"]["max_abs_err"] = max(errs.values())
+    recs["lru_scan.train"]["max_abs_err"] = 0.0
+    torch.cuda.empty_cache()
+    return recs
+
+
+def train_check_phase(torch, mod):
+    """One ``make_train_step`` step of recurrentgemma-2b reduced to 3
+    layers (two RG-LRU, one local attention) on the card (the scan
+    kernels, forward and backward) and on the CPU (the plain versions),
+    from the same weights and batch (two microbatches).  The loss within
+    1e-5 relative; every gradient (the clipped one AdamW read) within 1e-4
+    of its leaf's largest value."""
+    T_, cfgs = mod("models.transformer"), mod("configs")
+    LS, data = mod("kernels.lru_scan"), mod("data.pipeline")
+    step_mod, opt = mod("train.step"), mod("optim.adamw")
+    cfg = cfgs.reduced_config(cfgs.get_config(TRAIN_ARCH), n_layers=3)
+    run = T_.RunCfg(impl="naive")
+    batch = data.SyntheticSource(cfg.vocab, 4, 100, n_micro=2).batch(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = T_.init_lm(cfg, torch.Generator().manual_seed(1),
+                           device="cpu").to(dev)
+        step = step_mod.make_train_step(cfg, run, opt.AdamWConfig())
+        before = dict(LS.LAUNCHES)
+        _, m = step(step_mod.train_state(model), data.to_device(batch, dev))
+        out[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in
+                                       model.named_parameters()},
+                    {k: LS.LAUNCHES[k] - before[k] for k in before})
+    (want, gw, _), (got, gg, n) = out["cpu"], out["cuda"]
+    rel = abs(got - want) / abs(want)
+    gaps = {k: float((gg[k] - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-12)
+            for k, w in gw.items()}
+    worst = max(gaps, key=gaps.get)
+    print(f"[check] train step card vs cpu: {TRAIN_ARCH} reduced to "
+          f"{cfg.n_layers} layers ({cfg.block_pattern}), batch 2 x 2 "
+          f"microbatches x 100 tokens: loss {got:.7f} vs {want:.7f} (rel "
+          f"{rel:.3e}, tol {TRAIN_LOSS_RTOL}); largest gradient gap "
+          f"{gaps[worst]:.3e} of its leaf's max |g| ({worst}; tol "
+          f"{TRAIN_GRAD_TOL}) over {len(gaps)} leaves; card launches "
+          f"{json.dumps(n)}", flush=True)
+    check(rel <= TRAIN_LOSS_RTOL, f"train step loss card vs cpu {rel}")
+    check(gaps[worst] <= TRAIN_GRAD_TOL, f"train step gradient {worst} "
+          f"card vs cpu {gaps[worst]}")
+    check(n["lru_scan"] == 4 and n["lru_scan_backward"] == 4,
+          f"train step launches {n}: want 4 forward, 4 backward")
+    return dict(loss_rel=rel, grad_gap=gaps[worst], grad_gap_leaf=worst,
+                launches=n)
+
+
+def train_main_phase(torch, mod, all_launches):
+    """``make_train_step`` on recurrentgemma-2b at its published width and
+    depth: batch 2 x 1024 synthetic tokens (``SyntheticSource``), remat
+    full, one microbatch, AdamW's defaults, through the scan kernels
+    forward and backward (attention naive, as JAX's trainer).  One
+    warm-up step, ``TRAIN_STEPS`` timed steps with the launches counted
+    from 0, then one profiled step for the device's idle share.  Writes
+    no checkpoint (the state is 53 GB)."""
+    import numpy as np
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T_, cfgs = mod("models.transformer"), mod("configs")
+    LS, FL = mod("kernels.lru_scan"), mod("kernels.flash_attention")
+    data, step_mod, opt = mod("data.pipeline"), mod("train.step"), \
+        mod("optim.adamw")
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfgs.get_config(TRAIN_ARCH)
+    run = T_.RunCfg(impl="naive", remat="full")
+    (state, init_s) = wall(torch, lambda: step_mod.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step_fn = step_mod.make_train_step(cfg, run, opt.AdamWConfig())
+    src = data.SyntheticSource(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"[lm] {TRAIN_ARCH} train: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters, "
+          f"params + m + v {3 * n_params * 4 / 1e9:.2f} GB float32, "
+          f"initialised in {init_s:.2f} s", flush=True)
+    holder = {"state": state}
+    del state
+
+    def one(i):
+        holder["state"], m = step_fn(holder["state"],
+                                     data.to_device(src.batch(i), dev))
+        return m
+    m, warm_s = wall(torch, lambda: one(0))
+    zero_counts(all_launches)
+    times, losses, norms = [], [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        m, s = wall(torch, lambda i=i: one(i))
+        times.append(s)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = {"lru_scan": LS.LAUNCHES["lru_scan"],
+                "lru_scan_backward": LS.LAUNCHES["lru_scan_backward"],
+                "flash_attention": FL.LAUNCHES["flash_attention"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall_s, n_kernels, kernels = profile_window(
+        torch, lambda: one(TRAIN_STEPS + 1))
+    busy = sum(t for _, t in kernels)
+    idle = 1.0 - busy / wall_s if busy else None
+    step_s = sum(times) / len(times)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    n_rec = sum(cfg.block_kind(i) in ("rglru", "mamba")
+                for i in range(cfg.n_layers))
+    per = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    top = ", ".join(f"{n[:50]} {t * 1e3:.1f} ms" for n, t in kernels[:5])
+    print(f"[main] {TRAIN_ARCH} train ({cfg.n_layers} layers, full width): "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full, AdamW "
+          f"defaults: {step_s:.3f} s/step (steps {', '.join(f'{t:.3f}' for t in times)}; "
+          f"warm-up {warm_s:.3f} s), {tok_s:.1f} tokens/s; losses "
+          f"{losses}, grad_norm {norms}; peak device memory {peak_gb:.3f} "
+          f"GB; launches a step {json.dumps(per)}", flush=True)
+    print(f"[profile] {TRAIN_ARCH} train step: {n_kernels} kernels, device "
+          f"busy {busy:.3f} s of {wall_s:.3f} s under the profiler (idle "
+          f"share {'not measured' if idle is None else f'{idle:.3f}'}); top "
+          f"kernels: {top}", flush=True)
+    check(all(np.isfinite(x) for x in losses + norms),
+          "train losses and grad norms finite")
+    check(peak_gb < 80.0, f"train peak memory {peak_gb} GB")
+    check(per == {"lru_scan": 2 * n_rec, "lru_scan_backward": n_rec,
+                  "flash_attention": 0},
+          f"train launches a step {per}: want {2 * n_rec} forward (remat "
+          f"full runs each forward twice), {n_rec} backward, no flash")
+    holder.clear()
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, steps_s=times, warmup_s=warm_s,
+                tokens_per_s=tok_s, losses=losses, grad_norms=norms,
+                peak_device_gb=peak_gb, launches=launches,
+                launches_per_step=per, idle_share=idle,
+                profiled_wall_s=wall_s, device_busy_s=busy,
+                kernels_in_step=n_kernels, params=n_params, init_s=init_s)
+
+
+def train_launcher_phase(torch, mod):
+    """``python -m repro_torch.launch.train`` as a user runs it on the
+    card: reduced recurrentgemma-2b, 24 steps (a checkpoint at step 20 and
+    at the last), killed at step 21 (``--fail-at``), then run again to
+    resume from step 20; its
+    final loss must equal an uninterrupted run's bit for bit, and the two
+    runs' checkpoints the same weights.  Then ``python -m
+    repro_torch.launch.serve --ckpt`` serves the resumed run's
+    checkpoint: its tokens must be an engine's on those weights, whose
+    logits equal the uninterrupted run's model's."""
+    import tempfile
+
+    import numpy as np
+    T_, cfgs, conv = mod("models.transformer"), mod("configs"), \
+        mod("convert")
+    ckpt, step_mod = mod("checkpoint.ckpt"), mod("train.step")
+    cfg = cfgs.reduced_config(cfgs.get_config(TRAIN_ARCH))
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                TRAIN_ARCH, "--reduced", "--steps", "24", "--device", "cuda"]
+        finals = {}
+        for key, ckdir, extra in (("killed", "a", ["--fail-at", "21"]),
+                                  ("resumed", "a", []),
+                                  ("uninterrupted", "b", [])):
+            cmd = base + ["--ckpt", os.path.join(tmp, ckdir)] + extra
+            t = time.perf_counter()
+            r = run_alone(cmd)
+            s = time.perf_counter() - t
+            lines = r.stdout.strip().splitlines()
+            final = [ln for ln in lines if ln.startswith("final loss:")]
+            said = [ln for ln in lines if ln.startswith(
+                ("[trainer] resumed", "final loss"))]
+            if key == "killed" and r.stderr.strip():
+                said.append(r.stderr.strip().splitlines()[-1])
+            print(f"[main] train launcher {key}: {' '.join(cmd[1:])}: exit "
+                  f"{r.returncode} in {s:.1f} s; " + "; ".join(said),
+                  flush=True)
+            if key == "killed":
+                check(r.returncode != 0 and "simulated node failure at step "
+                      "21" in r.stderr, f"train launcher --fail-at 21: exit "
+                      f"{r.returncode}: {r.stderr[-2000:]}")
+                check(ckpt.latest_step(os.path.join(tmp, "a")) == 20,
+                      "the killed run's newest checkpoint is step 20")
+            else:
+                check(r.returncode == 0 and len(final) == 1,
+                      f"train launcher {key} exit {r.returncode}: "
+                      f"{r.stderr[-2000:]}")
+                finals[key] = final[0].split("(")[1].rstrip(")")
+            if key == "resumed":
+                check("[trainer] resumed from step 20" in lines,
+                      "the second run resumed from step 20")
+            out[key] = dict(returncode=r.returncode, wall_s=s)
+        same = finals["resumed"] == finals["uninterrupted"]
+        print(f"[check] train launcher resume: final loss {finals['resumed']}"
+              f" vs uninterrupted {finals['uninterrupted']}: equal {same}",
+              flush=True)
+        check(same, "resumed final loss differs from the uninterrupted run's")
+
+        def restored(ckdir):
+            state = step_mod.train_state(T_.init_lm(
+                cfg, torch.Generator(device=dev).manual_seed(9), device=dev))
+            tree = ckpt.restore(os.path.join(tmp, ckdir),
+                                like=conv.train_state_to_jax(state, cfg))
+            return conv.train_state_from_jax(tree, cfg, state).params
+        resumed_model, ref_model = restored("a"), restored("b")
+        same_w = all(torch.equal(p, q) for p, q in zip(
+            resumed_model.parameters(), ref_model.parameters()))
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               TRAIN_ARCH, "--reduced", "--ckpt", os.path.join(tmp, "a"),
+               "--device", "cuda"]
+        t = time.perf_counter()
+        r = run_alone(cmd)
+        s = time.perf_counter() - t
+    check(r.returncode == 0 and "restored params from" in r.stdout,
+          f"serve --ckpt exit {r.returncode}: {r.stderr[-2000:]}")
+    served = np.array([json.loads(ln.split(":", 1)[1]) for ln in
+                       r.stdout.splitlines() if ln.startswith("seq ")])
+    # the launcher's prompt: its generator's draws after init_lm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T_.init_lm(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device=dev)
+    with torch.inference_mode():
+        want = mod("serve.engine").LMEngine(
+            resumed_model, cfg, T_.RunCfg(), batch=2, max_len=24).generate(
+                prompt.cpu().numpy(), 8)
+        la, _ = T_.prefill(resumed_model, {"tokens": prompt}, cfg, T_.RunCfg())
+        lb, _ = T_.prefill(ref_model, {"tokens": prompt}, cfg, T_.RunCfg())
+    same_logits = bool(torch.equal(la, lb))
+    same_tokens = served.shape == want.shape and bool((served == want).all())
+    print(f"[main] serve --ckpt: {' '.join(cmd[1:])}: exit {r.returncode} in "
+          f"{s:.1f} s; served tokens equal an engine's on the restored "
+          f"weights {same_tokens}; resumed and uninterrupted checkpoints: "
+          f"weights equal {same_w}, prefill logits equal {same_logits}",
+          flush=True)
+    check(same_w and same_logits and same_tokens, "serve --ckpt vs the "
+          "trained model")
+    out["serve"] = dict(returncode=r.returncode, wall_s=s,
+                        final_loss=finals["resumed"])
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2519,6 +2843,13 @@ def main() -> int:
                           ("flash_attention.cross", "cross"))},
         enc_frames=frames))
 
+    # 5. training: the scan's backward kernel, a reduced step card vs CPU,
+    # the full-width step, the launchers' restart and serve --ckpt
+    lru_train = lru_backward_phase(torch, LS)
+    train_chk = train_check_phase(torch, mod)
+    train_main = train_main_phase(torch, mod, all_launches)
+    train_launch = train_launcher_phase(torch, mod)
+
     src = "src/repro_torch/csrc/"
     kernels = []
     for name, rec, source, replaces in (
@@ -2609,6 +2940,29 @@ def main() -> int:
                 library_ms=rec["library_ms"], main_path=f"{path} serve",
                 bound_note=note, **({"ffma_bound_ms": rec["ffma_bound_ms"]}
                                     if "ffma_bound_ms" in rec else {})))
+    # the training path's entries: the backward kernel (no TPU kernel
+    # stands behind it: JAX differentiates _linear_scan_chunked) and the
+    # forward at the training shape, each with the full-width run's
+    # launches (TRAIN_STEPS steps)
+    for name, rec, n in (
+            ("lru_scan_backward", lru_train["lru_scan_backward"],
+             train_main["launches"]["lru_scan_backward"]),
+            (f"lru_scan.{TRAIN_ARCH}-train", lru_train["lru_scan.train"],
+             train_main["launches"]["lru_scan"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "lru_scan.cu",
+            replaces="src/repro/kernels/lru_scan.py:31", launches=n,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=None,
+            main_path=f"{TRAIN_ARCH} train ({TRAIN_STEPS} steps, remat full)",
+            bound_note=("20 bytes an element (a, dh_seq, h_{t-1} read, da, "
+                        "db written) and the (B, W) rows over 3.35 TB/s"
+                        if name == "lru_scan_backward" else notes["lru_scan"][1]),
+            **({"replaces_note": "no TPU kernel: the gradient of "
+                "_lru_kernel's recurrence, which JAX takes by autodiff of "
+                "src/repro/models/layers.py:475 (_linear_scan_chunked)"}
+               if name == "lru_scan_backward" else {})))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
@@ -2628,13 +2982,17 @@ def main() -> int:
                    lm_mamba=mamba, lm_mamba_kernels=mamba_kern, lm_gqa=gqa,
                    lm_gqa_kernels=gqa_kern,
                    lm_more={arch: dict(serve=rec, kernels=recs)
-                            for arch, recs, _, rec in more})
+                            for arch, recs, _, rec in more},
+                   train_kernels=lru_train, train_check=train_chk,
+                   train=train_main, train_launcher=train_launch)
     # 5. no process the script started outlives it: the gateways closed
     # their workers; the helper process spawning them started goes too
     mod("serve.procpool").stop_spawn_helper()
     left = processes(parent=os.getpid())
     print(f"[procs] child processes left: {left or 'none'}", flush=True)
     check(not left, f"child processes left: {left}")
+    summary["total_s"] = time.perf_counter() - t_start
+    print(f"[time] smoke total {summary['total_s']:.1f} s", flush=True)
     print("[summary] " + json.dumps(summary), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

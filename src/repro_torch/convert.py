@@ -9,7 +9,16 @@ imports the other:
   :class:`models.transformer.LM` (``lm_params_from_jax``: decoder,
   encoder, MoE and cross-attention leaves), and any tree grouped as the
   JAX stack groups its layers (params or a decode cache, the decoder's
-  stack or the encoder's) -> one dict a layer (``layer_trees``).
+  stack or the encoder's) -> one dict a layer (``layer_trees``);
+* back: the port's weights -> the numpy tree of JAX's ``init_lm``, each
+  pattern position's leaves stacked over the repetitions as JAX's
+  ``scan`` group holds them (``lm_params_to_jax``), and any dict keyed
+  by the port's parameter names (gradients, AdamW moments) both ways
+  (``lm_named_to_jax``, ``lm_named_from_jax``);
+* a training state -> JAX's ``TrainState(params, AdamWState(step, m, v,
+  master))`` of numpy trees and back (``train_state_to_jax``,
+  ``train_state_from_jax``): what the checkpoints hold, under JAX's
+  paths.
 """
 from __future__ import annotations
 
@@ -21,7 +30,9 @@ from .models.transformer import LM
 from .scenarios import ScenarioGrid
 
 __all__ = ["pwl_from_numpy", "pwl_to_numpy", "grid_from_columns",
-           "layer_trees", "lm_params_from_jax"]
+           "layer_trees", "lm_params_from_jax", "load_lm_params",
+           "lm_params_to_jax", "lm_named_from_jax", "lm_named_to_jax",
+           "train_state_to_jax", "train_state_from_jax"]
 
 
 def pwl_from_numpy(xs, ys, sl, sr, m, *, device="cpu") -> PWL:
@@ -95,23 +106,161 @@ def _copy_tree(module, tree, where: str) -> None:
             leaf.data.copy_(src)
 
 
-def lm_params_from_jax(params_np, cfg, *, device="cpu") -> LM:
-    """The port's model holding the weights of a JAX ``init_lm`` tree
-    (its leaves as numpy arrays): the decoder's stack (``scan``,
-    ``rem{r}``) and the encoder's (``enc_scan``), every block's ``moe``
-    (with ``shared``), ``norm_x`` and ``cross`` leaves, ``enc_norm`` and
-    the embeddings.  Every leaf is copied, and a leaf that is missing or
-    left over raises."""
-    model = LM(cfg, device=device)
-    tree, stacks = dict(params_np), {"blocks": ("", cfg.n_layers)}
+def _stacks(cfg) -> dict:
+    """The port's layer lists and the JAX prefix and depth of each."""
+    stacks = {"blocks": ("", cfg.n_layers)}
     if cfg.n_encoder_layers:
         stacks["enc_blocks"] = ("enc_", cfg.n_encoder_layers)
-    for name, (prefix, n) in stacks.items():
+    return stacks
+
+
+def _port_tree(params_np, cfg) -> dict:
+    """A JAX ``init_lm``-shaped tree regrouped as the port's modules: the
+    stack groups replaced by ``blocks`` / ``enc_blocks``, one dict a
+    layer under its index."""
+    tree = dict(params_np)
+    for name, (prefix, n) in _stacks(cfg).items():
         reps, rem = divmod(n, len(cfg.block_pattern))
         for key in [f"{prefix}rem{r}" for r in range(rem)] + (
                 [prefix + "scan"] if reps else []):
             tree.pop(key, None)
         tree[name] = {str(i): t for i, t in
                       enumerate(layer_trees(params_np, cfg, prefix, n))}
-    _copy_tree(model, tree, "model")
+    return tree
+
+
+def load_lm_params(model: LM, params_np, cfg) -> LM:
+    """Copy the weights of a JAX ``init_lm`` tree (numpy leaves) into
+    ``model``: the decoder's stack (``scan``, ``rem{r}``) and the
+    encoder's (``enc_scan``), every block's ``moe`` (with ``shared``),
+    ``norm_x`` and ``cross`` leaves, ``enc_norm`` and the embeddings.
+    Every leaf is copied, and a leaf that is missing or left over
+    raises."""
+    _copy_tree(model, _port_tree(params_np, cfg), "model")
     return model
+
+
+def lm_params_from_jax(params_np, cfg, *, device="cpu") -> LM:
+    """The port's model holding the weights of a JAX ``init_lm`` tree (see
+    :func:`load_lm_params`)."""
+    return load_lm_params(LM(cfg, device=device), params_np, cfg)
+
+
+def _flat(node, prefix: str = "") -> dict:
+    out = {}
+    for key, val in node.items():
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def lm_named_from_jax(tree, cfg) -> dict:
+    """A tree shaped as JAX's ``init_lm`` params (gradients, moments) as a
+    dict keyed by the port's parameter names (``model.named_parameters()``:
+    ``embed``, ``blocks.3.rglru.w_in``, ``final_norm.scale`` ...)."""
+    return _flat(_port_tree(tree, cfg))
+
+
+def lm_named_to_jax(named: dict, cfg) -> dict:
+    """The inverse of :func:`lm_named_from_jax`: arrays keyed by the port's
+    parameter names -> the tree of JAX's ``init_lm``, layer ``r *
+    len(pattern) + j`` under ``scan/b{j}`` (stacked over the ``reps``
+    repetitions on a new leading axis when there are several), the rest
+    under ``rem{r}``; the encoder's under ``enc_scan``."""
+    pat = len(cfg.block_pattern)
+    stacks = {name: (prefix, divmod(n, pat))
+              for name, (prefix, n) in _stacks(cfg).items()}
+    tree, stacked = {}, {}
+    for name, arr in named.items():
+        parts = name.split(".")
+        if parts[0] in stacks:
+            prefix, (reps, _) = stacks[parts[0]]
+            i = int(parts[1])
+            if i < reps * pat:
+                r, j = divmod(i, pat)
+                path = (prefix + "scan", f"b{j}", *parts[2:])
+                if reps > 1:
+                    stacked.setdefault(path, [None] * reps)[r] = arr
+                    continue
+            else:
+                path = (f"{prefix}rem{i - reps * pat}", *parts[2:])
+        else:
+            path = tuple(parts)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    for path, arrs in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrs)
+    return tree
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` that later in-place updates leave alone."""
+    t = t.detach()
+    return t.cpu().numpy().copy() if t.device.type == "cpu" else \
+        t.cpu().numpy()
+
+
+def lm_params_to_jax(model: LM, cfg) -> dict:
+    """The port's weights as the numpy tree of JAX's ``init_lm`` (host
+    copies): ``lm_params_from_jax`` of it gives the same model back."""
+    return lm_named_to_jax({k: _host(p) for k, p in model.named_parameters()},
+                           cfg)
+
+
+def train_state_to_jax(state, cfg):
+    """A port ``TrainState(model, AdamWState)`` as JAX's ``TrainState``
+    of numpy trees (host copies): ``params`` and the moments in JAX's
+    ``init_lm`` layout, ``step`` an int32 scalar, ``master`` where the
+    optimizer keeps one.  ``checkpoint.ckpt.save`` writes it under JAX's
+    paths."""
+    from .optim.adamw import AdamWState
+    from .train.step import TrainState
+    opt = state.opt
+    tree = lambda d: lm_named_to_jax({k: _host(t) for k, t in d.items()},
+                                     cfg)
+    return TrainState(
+        params=lm_params_to_jax(state.params, cfg),
+        opt=AdamWState(step=np.asarray(int(opt.step), np.int32),
+                       m=tree(opt.m), v=tree(opt.v),
+                       master=None if opt.master is None else
+                       tree(opt.master)))
+
+
+def _copy_named(dst: dict, tree, cfg, what: str) -> None:
+    src = lm_named_from_jax(tree, cfg)
+    if set(src) != set(dst):
+        raise KeyError(f"{what}: the leaves {sorted(set(src) ^ set(dst))} "
+                       f"are in one tree only")
+    with torch.no_grad():
+        for name, t in dst.items():
+            a = np.asarray(src[name])
+            a = torch.from_numpy(a if a.flags.writeable else a.copy())
+            if a.shape != t.shape:
+                raise ValueError(f"{what}.{name}: shape {tuple(a.shape)} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(a)
+
+
+def train_state_from_jax(tree, cfg, state):
+    """Copy a JAX-layout ``TrainState`` of numpy trees (a restored
+    checkpoint of either package) into the port's ``state``, in place;
+    returns the state with the restored step."""
+    opt = state.opt
+    _copy_named(dict(state.params.named_parameters()), tree.params, cfg,
+                "params")
+    _copy_named(opt.m, tree.opt.m, cfg, "m")
+    _copy_named(opt.v, tree.opt.v, cfg, "v")
+    if (opt.master is None) != (tree.opt.master is None):
+        raise ValueError("the checkpoint and the state disagree on a "
+                         "float32 master copy")
+    if opt.master is not None:
+        _copy_named(opt.master, tree.opt.master, cfg, "master")
+    step = torch.tensor(int(tree.opt.step), dtype=torch.int32)
+    return type(state)(state.params, opt._replace(step=step))

@@ -1,4 +1,5 @@
-// Linear recurrence h_t = a_t * h_{t-1} + b_t along T, for Hopper.
+// Linear recurrence h_t = a_t * h_{t-1} + b_t along T, for Hopper, and its
+// gradient (lru_scan_backward_kernel, below the forward).
 //
 // Replaces the TPU kernel of src/repro/kernels/lru_scan.py: _lru_kernel
 // (entry lru_scan), which walks the sequence in chunks along a sequential
@@ -53,8 +54,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __global__ void __launch_bounds__(LANES)
@@ -90,7 +93,7 @@ lru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   float h = h0[(size_t)bi * W + w];
   for (int c = 0; c < nchunks; ++c) {
     issue(c + STAGES - 1);
-    cp_async_wait_ring();  // chunk c has landed
+    cp_async_wait<STAGES - 1>();  // chunk c has landed
     const int st = c % STAGES;
     const int t0 = c * CHUNK;
     const int n = min(CHUNK, T - t0);
@@ -111,7 +114,91 @@ lru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   h_last[(size_t)bi * W + w] = h;
 }
 
+// The gradient of the scan (no TPU kernel stands behind it: JAX gets it by
+// autodiff of _linear_scan_chunked, src/repro/models/layers.py).  With
+// g_t = dL/dh_t through the whole chain:
+//   g_{T-1} = dh_seq_{T-1} + dh_last,  g_t = dh_seq_t + a_{t+1} g_{t+1},
+//   db_t = g_t,  da_t = g_t h_{t-1} (h_{-1} = h0),  dh0 = a_0 g_0.
+// One lane a channel walks T in reverse, carrying c = a_{t+1} g_{t+1}.
+// Bound by bytes as the forward is: a, dh_seq and h_{t-1} read, da and db
+// written, 20 bytes and 3 operations an element.  It streams its three
+// inputs through the forward's cp.async ring run backwards (the last chunk,
+// ragged or not, first); three inputs a step make BSTAGES = 3 (36 KB of
+// shared memory a block), which keeps the forward's 24 KB of loads in
+// flight a warp.  The separate multiply and add match
+// lru_scan_backward_plain's order bit for bit.
+constexpr int BSTAGES = 3;
+
+__global__ void __launch_bounds__(LANES)
+lru_scan_backward_kernel(const float* __restrict__ a,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ h_seq,
+                         const float* __restrict__ dh_seq,
+                         const float* __restrict__ dh_last,
+                         float* __restrict__ da, float* __restrict__ db,
+                         float* __restrict__ dh0, int T, int W) {
+  __shared__ float ra[BSTAGES][CHUNK][LANES];
+  __shared__ float rg[BSTAGES][CHUNK][LANES];   // dh_seq_t
+  __shared__ float rh[BSTAGES][CHUNK][LANES];   // h_{t-1}
+  const int lane = threadIdx.x;
+  const int w = blockIdx.x * LANES + lane;
+  const int bi = blockIdx.y;
+  if (w >= W) return;
+  const size_t row = (size_t)bi * W + w;
+  const size_t base = (size_t)bi * T * W + w;
+  const int nchunks = (T + CHUNK - 1) / CHUNK;
+
+  // the k-th chunk from the end (chunk nchunks - 1 - k) into stage k % BSTAGES
+  auto fetch = [&](int k) {
+    if (k < nchunks) {
+      const int st = k % BSTAGES;
+      const int t0 = (nchunks - 1 - k) * CHUNK;
+      const int n = min(CHUNK, T - t0);
+      for (int u = 0; u < n; ++u) {
+        const size_t at = base + (size_t)(t0 + u) * W;
+        cp_async4(&ra[st][u][lane], a + at);
+        cp_async4(&rg[st][u][lane], dh_seq + at);
+        cp_async4(&rh[st][u][lane], t0 + u == 0 ? h0 + row : h_seq + at - W);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int k = 0; k < BSTAGES - 1; ++k) fetch(k);
+  float c = dh_last[row];
+  for (int k = 0; k < nchunks; ++k) {
+    fetch(k + BSTAGES - 1);
+    cp_async_wait<BSTAGES - 1>();
+    const int st = k % BSTAGES;
+    const int t0 = (nchunks - 1 - k) * CHUNK;
+    const int n = min(CHUNK, T - t0);
+    float* pda = da + base + (size_t)t0 * W;
+    float* pdb = db + base + (size_t)t0 * W;
+    for (int u = n - 1; u >= 0; --u) {
+      const float g = __fadd_rn(rg[st][u][lane], c);
+      pdb[(size_t)u * W] = g;
+      pda[(size_t)u * W] = __fmul_rn(g, rh[st][u][lane]);
+      c = __fmul_rn(ra[st][u][lane], g);
+    }
+  }
+  dh0[row] = c;
+}
+
 }  // namespace
+
+extern "C" int lru_scan_backward_launch(const void* a, const void* h0,
+                                        const void* h_seq, const void* dh_seq,
+                                        const void* dh_last, void* da,
+                                        void* db, void* dh0, int B, int T,
+                                        int W, void* stream) {
+  dim3 grid((W + LANES - 1) / LANES, B);
+  lru_scan_backward_kernel<<<grid, LANES, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)h0, (const float*)h_seq,
+      (const float*)dh_seq, (const float*)dh_last, (float*)da, (float*)db,
+      (float*)dh0, T, W);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int lru_scan_launch(const void* a, const void* b, const void* h0,
                                void* h_seq, void* h_last, int B, int T, int W,

@@ -23,7 +23,10 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all", "check"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all", "check",
+           "refuse_grad"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -99,3 +102,14 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a call of a kernel that has no
+    backward: its output would carry no ``grad_fn``, so every gradient
+    upstream of it would silently be zero.  Checked on every device, so
+    that a CPU run fails where a run on the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() or on "
+            f"inputs that do not require grad")

@@ -144,6 +144,7 @@ def _round(v, scalars, levels, block, kind, name, n_scalars, lane0):
         v, scalars = v[None], scalars[None]
     lane0 = int(lane0)
     _check(v, scalars, levels, block, n_scalars, lane0)
+    _build.refuse_grad(name, v, scalars)
     if v.device.type == "cuda":
         out = _launch(v, scalars, levels, block, kind, lane0)
         LAUNCHES[name if v.dtype == torch.float64 else f"{name}.float32"] += 1

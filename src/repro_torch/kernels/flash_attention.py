@@ -295,8 +295,13 @@ def _launch(q, k, v, causal: bool, window):
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Attention over positions ``0..T-1`` (queries) and ``0..S-1`` (keys):
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    the kernel on a CUDA tensor, the plain version on a CPU tensor.  It
+    has no backward (JAX's Pallas kernel has none either), so it raises on
+    inputs that require grad in grad mode: a model trains with
+    ``RunCfg(impl="naive")``."""
     _check(q, k, v, window)
+    _build.refuse_grad("flash_attention (train with RunCfg(impl='naive'))",
+                       q, k, v)
     if q.device.type == "cuda":
         out = _launch(q, k, v, causal, window)
         LAUNCHES["flash_attention"] += 1

@@ -321,6 +321,7 @@ def rz_round(z: P.PWL, scalars, *, levels: int, block: int,
     lane0 = int(lane0)
     owned = z.xs.shape[2] if owned is None else int(owned)
     _check(z, scalars, levels, block, sellers, lane0, owned)
+    _build.refuse_grad("rz_round", z.xs, z.ys, z.sl, z.sr, scalars)
     if z.xs.device.type == "cuda":
         out, pieces, launches = _launch(z, scalars, levels, block, sellers,
                                         lane0, owned)

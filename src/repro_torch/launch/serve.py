@@ -9,7 +9,9 @@ versions).  It serves from random weights drawn from a seeded generator
 on the device; for an encoder-decoder arch (``seamless-m4t-medium``,
 whose audio frontend is a stub) it also draws ``(batch, prompt_len,
 d_model)`` frame embeddings from that generator, as JAX's launcher
-does.  Loading a checkpoint (``--ckpt``) is not ported yet.
+does.  ``--ckpt DIR`` serves the parameters of the newest checkpoint
+under ``DIR``, written by ``repro_torch.launch.train`` or by the JAX
+package's trainer (the same format and paths).
 """
 from __future__ import annotations
 
@@ -18,10 +20,13 @@ import time
 
 import torch
 
+from .. import convert
+from ..checkpoint import ckpt as ckpt_lib
 from ..configs import get_config, reduced_config
 from ..core.device import resolve_device
 from ..models.transformer import RunCfg, init_lm
 from ..serve.engine import LMEngine
+from ..train.step import TrainState
 
 
 def main(argv=None):
@@ -35,16 +40,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: checkpoints are not ported yet (ROADMAP Queue A #11, "
-            "training: checkpoint/)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = init_lm(cfg, gen, device=dev)
+    if args.ckpt:
+        # the parameters' paths alone: TrainState(params, opt=None)
+        like = TrainState(convert.lm_params_to_jax(model, cfg), None)
+        state = ckpt_lib.restore(args.ckpt, like=like)
+        convert.load_lm_params(model, state.params, cfg)
+        print(f"restored params from {args.ckpt}")
     max_len = args.prompt_len + args.new_tokens
     eng = LMEngine(model, cfg, RunCfg(), batch=args.batch, max_len=max_len)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),

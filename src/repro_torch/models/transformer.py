@@ -23,21 +23,32 @@ one): that saves a copy of every KV cache per token.
 
 The MoE runs JAX's ``moe_dense`` (every expert on every token), as JAX
 does without mesh rules; the port has no mesh, so no expert dispatch.
+
+Training: ``lm_loss`` is JAX's causal-LM (or encoder-decoder) cross
+entropy plus ``0.01`` times the MoE's load-balancing term, differentiable
+in the model's parameters once they require grad (``LM`` makes them
+with ``requires_grad=False``, which serving keeps; ``train/step.py``
+turns it on).  ``RunCfg.remat`` recomputes each block in the backward
+pass: ``"full"`` keeps only the block's input, ``"dots"`` also the
+outputs of the plain weight products (JAX's
+``checkpoint_dots_with_no_batch_dims``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import layers as L
 
 __all__ = ["RunCfg", "Block", "LM", "init_lm", "embed_tokens", "encode",
-           "prefill", "init_cache", "decode_step"]
+           "prefill", "init_cache", "decode_step", "lm_loss"]
 
 _KINDS = ("attn", "local", "rglru", "mamba")
 # the recurrent kinds: the block function of each, whose state is
@@ -45,13 +56,21 @@ _KINDS = ("attn", "local", "rglru", "mamba")
 _RECURRENT = {"rglru": L.rglru_block, "mamba": L.mamba_block}
 
 
+_REMATS = ("none", "full", "dots")
+
+
 @dataclasses.dataclass(frozen=True)
 class RunCfg:
     """How the model runs.  The port computes in float32, the type of its
     kernels (bfloat16 waits: ROADMAP Queue A #11), and defaults to
     ``impl="flash"`` so that prefill goes through the attention kernel
-    (the JAX package defaults to bfloat16 and ``"naive"``)."""
-    impl: str = "flash"            # prefill attention: flash | naive
+    (the JAX package defaults to bfloat16 and ``"naive"``).  The flash
+    kernel has no backward: training runs ``"naive"``, as JAX's trainer
+    does.  ``remat`` and ``moe_impl`` are JAX's training fields; expert
+    dispatch needs a mesh, so ``lm_loss`` refuses ``"dispatch"``."""
+    impl: str = "flash"            # attention: flash | naive
+    remat: str = "none"            # backward recompute: none | full | dots
+    moe_impl: str = "dense"        # dense | dispatch (the mesh slice)
 
 
 class Block(nn.Module):
@@ -137,8 +156,9 @@ def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
                  causal: bool = True, enc_out=None):
     """Pre-norm block over a whole sequence from position 0 (causal, or
     bidirectional in the encoder), with cross attention to ``enc_out``
-    where it is given.  Returns ``(x, cache entry)``: ``k``, ``v``
-    (attention) or ``conv``, ``h`` (recurrent), and ``xk``, ``xv``."""
+    where it is given.  Returns ``(x, cache entry, aux)``: the entry's
+    ``k``, ``v`` (attention) or ``conv``, ``h`` (recurrent), and ``xk``,
+    ``xv``; ``aux`` the MoE's load-balancing loss (None without one)."""
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
     if blk.kind in _RECURRENT:
         out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg)
@@ -154,21 +174,24 @@ def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
         out, (entry["xk"], entry["xv"]) = L.attention(
             blk.cross, hx, cfg, x_kv=enc_out, causal=False, impl=run.impl)
         x = x + out
-    return _ffn(blk, x, cfg), entry
+    x, aux = _ffn(blk, x, cfg)
+    return x, entry, aux
 
 
 def _ffn(blk: Block, x, cfg: ModelConfig):
     """The block's MLP or MoE sub-layer with its residual (none for
-    mamba); the MoE's load-balancing loss is a training term, dropped
-    here as JAX's prefill and decode drop it."""
+    mamba).  Returns ``(x, aux)``, ``aux`` the MoE's load-balancing loss
+    (None without one): a training term, which JAX's prefill and decode
+    drop, as the port's do."""
+    aux = None
     if hasattr(blk, "moe"):
-        out, _ = L.moe_dense(blk.moe, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
-                             cfg)
+        out, aux = L.moe_dense(blk.moe, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
+                               cfg)
         x = x + out
     elif hasattr(blk, "mlp"):
         x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
                       cfg.mlp_kind)
-    return x
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, *, cross_len: int = 0,
@@ -200,6 +223,12 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, cross_len: int = 0,
     return cache
 
 
+def _encoder_input(model: LM, batch, cfg: ModelConfig):
+    if cfg.frontend == "audio_stub":
+        return batch["enc_embeds"].to(torch.float32)
+    return embed_tokens(model, batch["enc_tokens"])
+
+
 @torch.inference_mode()
 def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg):
     """The encoder of an encoder-decoder model: ``batch["enc_embeds"]``
@@ -207,12 +236,9 @@ def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg):
     embedded ``batch["enc_tokens"]``, through the encoder's blocks
     bidirectionally at rotary positions ``0..S_enc-1``, then
     ``enc_norm``."""
-    if cfg.frontend == "audio_stub":
-        xe = batch["enc_embeds"].to(torch.float32)
-    else:
-        xe = embed_tokens(model, batch["enc_tokens"])
+    xe = _encoder_input(model, batch, cfg)
     for blk in model.enc_blocks:
-        xe, _ = _apply_block(blk, xe, cfg, run, causal=False)
+        xe, _, _ = _apply_block(blk, xe, cfg, run, causal=False)
     return L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
 
 
@@ -235,7 +261,7 @@ def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
     cache = init_cache(cfg, B, max_len, device=x.device,
                        cross_len=0 if enc_out is None else enc_out.shape[1])
     for blk, c in zip(model.blocks, cache):
-        x, entry = _apply_block(blk, x, cfg, run, enc_out=enc_out)
+        x, entry, _ = _apply_block(blk, x, cfg, run, enc_out=enc_out)
         for name, val in entry.items():
             if name in ("k", "v"):
                 c[name][:, :S] = val
@@ -279,7 +305,7 @@ def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
                              positions=torch.full((1,), pos, device=x.device),
                              causal=False, impl="naive", use_rope=False)
         x = x + out
-    return _ffn(blk, x, cfg)
+    return _ffn(blk, x, cfg)[0]
 
 
 @torch.inference_mode()
@@ -293,3 +319,81 @@ def decode_step(model: LM, cache, tokens, pos: int, cfg: ModelConfig,
         x = _decode_block(blk, c, x, cfg, pos)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     return x @ model.head, cache
+
+
+# --------------------------------------------------------------------- #
+# training loss
+# --------------------------------------------------------------------- #
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the plain weight products' outputs (2-D
+    ``mm``/``addmm``: JAX's dots with no batch dimensions), recompute the
+    rest, batched attention products included."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _MM
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _train_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, causal: bool,
+                 enc_out):
+    x, _, aux = _apply_block(blk, x, cfg, run, causal=causal, enc_out=enc_out)
+    return x, aux
+
+
+def _block_fn(run: RunCfg):
+    """``_train_block`` under ``run.remat``: as it is, or recomputed in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant) keeping
+    only its inputs (``full``) or also its weight products (``dots``)."""
+    if run.remat not in _REMATS:
+        raise ValueError(f"remat must be one of {_REMATS}, got {run.remat!r}")
+    if run.remat == "none":
+        return _train_block
+    kw = {} if run.remat == "full" else {"context_fn": functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    return lambda *args: _ckpt.checkpoint(_train_block, *args,
+                                          use_reentrant=False, **kw)
+
+
+def lm_loss(model: LM, batch, cfg: ModelConfig, run: RunCfg):
+    """Causal-LM (or encoder-decoder) cross entropy, JAX's ``lm_loss``:
+    ``batch["tokens"]``, ``batch["targets"]`` (B, S), an optional
+    float ``batch["mask"]`` and the encoder's input (``enc_embeds`` or
+    ``enc_tokens``).  Float32 throughout.  Returns ``(loss + 0.01 * aux,
+    {"loss", "aux_loss", "tokens"})``, ``aux`` the decoder's summed MoE
+    load-balancing loss (the encoder's is dropped, as in JAX).
+
+    The target's logit is gathered: the same value as JAX's one-hot
+    contraction, without a ``(B, S, V)`` one-hot (2.1 GB at batch 2 x
+    1024 and vocab 256000)."""
+    if run.moe_impl != "dense":
+        raise NotImplementedError(
+            f"moe_impl={run.moe_impl!r}: expert dispatch needs a device mesh "
+            "(ROADMAP Queue A, the mesh slice); the port runs 'dense'")
+    block = _block_fn(run)
+    enc_out = None
+    if cfg.n_encoder_layers:
+        xe = _encoder_input(model, batch, cfg)
+        for blk in model.enc_blocks:
+            xe, _ = block(blk, xe, cfg, run, False, None)
+        enc_out = L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
+    x = embed_tokens(model, batch["tokens"])
+    aux = x.new_zeros(())
+    for blk in model.blocks:
+        x, a = block(blk, x, cfg, run, True, enc_out)
+        if a is not None:
+            aux = aux + a
+    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    logits = x @ model.head
+    targets = batch["targets"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    nll = (lse - true_logit) * mask
+    tokens = mask.sum()
+    loss = nll.sum() / torch.clamp_min(tokens, 1.0)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux,
+                               "tokens": tokens}

@@ -1,0 +1,108 @@
+"""Training loop with checkpoint/restart.
+
+The port of the JAX package's ``train/trainer.py`` on one device:
+
+  * **checkpoint/restart**: an ``AsyncCheckpointer`` every
+    ``ckpt_every`` steps and at the last step, in JAX's format (a
+    checkpoint of either package resumes in the other); on (re)start the
+    trainer restores the newest complete checkpoint and the stateless
+    data source seeks to that step, so a killed run resumes bit for bit.
+    ``simulate_failure_at`` raises at that step to exercise the path.
+  * **straggler log**: per-step wall times feed an EWMA; a step slower
+    than ``straggler_factor`` times it is logged.
+
+The default ``RunCfg(impl="naive")`` is JAX's trainer's (the flash
+kernel has no backward).  Elastic re-meshing and compressed
+data-parallel gradients wait for the mesh slice (ROADMAP Queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Optional
+
+import torch
+
+from .. import convert
+from ..checkpoint import ckpt as ckpt_lib
+from ..configs.base import ModelConfig
+from ..core.device import resolve_device
+from ..data.pipeline import SyntheticSource, to_device
+from ..models.transformer import RunCfg
+from ..optim.adamw import AdamWConfig
+from ..optim.schedule import warmup_cosine
+from .step import init_train_state, make_train_step
+
+__all__ = ["TrainerConfig", "train"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    n_micro: int = 1
+    peak_lr: float = 3e-4
+    warmup: int = 10
+    ckpt_every: int = 20
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    log_every: int = 10
+    seed: int = 0
+    straggler_factor: float = 3.0
+    simulate_failure_at: Optional[int] = None
+
+
+def train(cfg: ModelConfig, tc: TrainerConfig, run: Optional[RunCfg] = None,
+          log=print, device="cuda") -> dict:
+    """Runs (or resumes) training on ``device``; returns final metrics:
+    ``final_loss``, ``losses`` (this run's), ``last_step``,
+    ``grad_norm``."""
+    run = run or RunCfg(impl="naive")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(tc.seed)
+    state = init_train_state(cfg, gen, device=dev)
+    opt_cfg = AdamWConfig(lr=warmup_cosine(tc.peak_lr, tc.warmup, tc.steps))
+    step_fn = make_train_step(cfg, run, opt_cfg)
+
+    start_step = 0
+    latest = ckpt_lib.latest_step(tc.ckpt_dir)
+    if latest is not None:
+        tree = ckpt_lib.restore(tc.ckpt_dir, latest,
+                                like=convert.train_state_to_jax(state, cfg))
+        state = convert.train_state_from_jax(tree, cfg, state)
+        start_step = latest
+        log(f"[trainer] resumed from step {start_step}")
+
+    source = SyntheticSource(vocab=cfg.vocab, global_batch=tc.global_batch,
+                             seq_len=tc.seq_len, n_micro=tc.n_micro,
+                             seed=tc.seed)
+    saver = ckpt_lib.AsyncCheckpointer(tc.ckpt_dir)
+
+    ewma = None
+    losses = []
+    metrics = {}
+    for step in range(start_step, tc.steps):
+        if tc.simulate_failure_at is not None and step == tc.simulate_failure_at:
+            saver.wait()
+            raise RuntimeError(f"simulated node failure at step {step}")
+        batch = to_device(source.batch(step), dev)
+        t0 = time.time()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+        if dt > tc.straggler_factor * ewma and step > start_step + 2:
+            log(f"[straggler] step {step} took {dt:.3f}s vs EWMA {ewma:.3f}s")
+        losses.append(loss)
+        if step % tc.log_every == 0:
+            log(f"[trainer] step {step} loss {loss:.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms")
+        if (step + 1) % tc.ckpt_every == 0 or step + 1 == tc.steps:
+            saver.save(step + 1, convert.train_state_to_jax(state, cfg))
+    saver.wait()
+    return {"final_loss": losses[-1] if losses else None,
+            "losses": losses, "last_step": tc.steps,
+            "grad_norm": float(metrics["grad_norm"]) if losses else None}

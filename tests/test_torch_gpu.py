@@ -20,7 +20,11 @@ The pricing kernels' float32 instances are held to their float32 plain
 versions: the lattice kernels bit for bit (NaN for NaN), ``rz_round``
 in function values within the registry's 1e-4 (``kernels/contracts.py``;
 float32 knot counts are not required to match).  TF32 is off for the
-comparisons (and restored after them).
+comparisons (and restored after them).  The scan's backward kernel
+rounds as ``lru_scan_backward_plain`` does and agrees bit for bit; a
+train step on the card is held to the same step on the CPU (the loss
+within 1e-5 relative, each gradient within 1e-4 of its leaf's largest
+value).
 """
 import numpy as np
 import pytest
@@ -387,6 +391,92 @@ def test_flash_kernel_matches_plain(no_tf32, hd, G, causal, window):
     want = TF.flash_attention_plain(q, k, v, causal=causal, window=window,
                                     q_chunk=64, kv_chunk=48)
     assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("B,T,W", [(2, 1024, 2560), (1, 300, 2560),
+                                   (2, 20, 77), (1, 1, 33)])
+def test_lru_scan_backward_kernel_matches_plain(cuda, B, T, W):
+    """The reverse recurrence at the training shape (batch 2 x 1024,
+    recurrentgemma-2b's 2560 channels) and the forward's edge cases: a
+    ragged first (last in time) ring chunk, T below one chunk, W off the
+    32-channel warps, one batch row.  Slow decay, nonzero h0 and
+    dh_last: bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = 0.9 + 0.1 * torch.rand(B, T, W, generator=g, device=cuda)
+    h0 = torch.randn(B, W, generator=g, device=cuda)
+    h_seq = torch.randn(B, T, W, generator=g, device=cuda)
+    dh_seq = torch.randn(B, T, W, generator=g, device=cuda)
+    dh_last = torch.randn(B, W, generator=g, device=cuda)
+    n0 = TL.LAUNCHES["lru_scan_backward"]
+    got = TL.lru_scan_backward(a, h0, h_seq, dh_seq, dh_last)
+    torch.cuda.synchronize()
+    assert TL.LAUNCHES["lru_scan_backward"] == n0 + 1
+    want = TL.lru_scan_backward_plain(a, h0, h_seq, dh_seq, dh_last)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_lru_scan_gradient_on_card_equals_plain_autograd(cuda):
+    """Autograd through ``lru_scan`` on the card (forward and backward
+    kernels) against autograd through ``lru_scan_plain`` on the card."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B, T, W = 2, 200, 96
+    xs = [0.9 + 0.1 * torch.rand(B, T, W, generator=g, device=cuda),
+          torch.randn(B, T, W, generator=g, device=cuda),
+          torch.randn(B, W, generator=g, device=cuda)]
+    w = torch.randn(B, T, W, generator=g, device=cuda)
+    grads = []
+    for fn in (TL.lru_scan, TL.lru_scan_plain):
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        h_seq, h_last = fn(*leaves)
+        ((h_seq * w).sum() + h_last.square().sum()).backward()
+        grads.append([x.grad for x in leaves])
+    for x, y in zip(*grads):
+        assert (x - y).abs().max().item() <= 1e-6 * max(
+            y.abs().max().item(), 1.0)
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 64, 1, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TF.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert TF.flash_attention(q, k, k).grad_fn is None
+
+
+def test_train_step_on_card_matches_cpu(no_tf32):
+    """One ``make_train_step`` step of reduced recurrentgemma-2b (3
+    layers: two RG-LRU through both scan kernels, one local attention)
+    on the card and on the CPU from the same weights and batch: the loss
+    within 1e-5 relative, every gradient within 1e-4 of its leaf's
+    largest |g|."""
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step, train_state
+    cfg = reduced_config(get_config("recurrentgemma-2b"), n_layers=3,
+                         d_model=256, n_heads=4)
+    run = TT.RunCfg(impl="naive")
+    batch = SyntheticSource(cfg.vocab, 4, 64, n_micro=2).batch(0)
+    out = {}
+    for dev in ("cpu", no_tf32):
+        model = TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                           device="cpu").to(dev)
+        step = make_train_step(cfg, run, AdamWConfig())
+        n = dict(TL.LAUNCHES)
+        _, m = step(train_state(model), to_device(batch, dev))
+        out[str(dev)] = (float(m["loss"]), {
+            k: p.grad.cpu() for k, p in model.named_parameters()})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert TL.LAUNCHES["lru_scan"] == n["lru_scan"] + 4
+            assert TL.LAUNCHES["lru_scan_backward"] == \
+                n["lru_scan_backward"] + 4
+    (want, gw), (got, gg) = out["cpu"], out[str(no_tf32)]
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for name, w in gw.items():
+        assert (gg[name] - w).abs().max().item() <= 1e-4 * max(
+            w.abs().max().item(), 1e-12), name
 
 
 def test_flash_kernel_refuses_what_it_cannot_run(cuda):

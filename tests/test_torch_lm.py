@@ -35,10 +35,14 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import layer_trees, lm_params_from_jax
 from repro_torch.core import device as D
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt
 from repro_torch.launch import serve as port_serve
+from repro_torch.launch import train as port_train
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import LMEngine
+from repro_torch.train.step import train_state
 
 ARCH = "recurrentgemma-2b"
 TOL = 2e-5
@@ -202,14 +206,49 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """Checkpoints are not ported (the launcher's ``--ckpt`` raises); the
-    encoder-decoder and MoE archs are, and build."""
+    """Training on a device mesh is not ported (the train launcher's
+    ``--data``/``--model`` above 1 and ``--moe-impl dispatch`` raise,
+    naming the mesh slice); the encoder-decoder and MoE archs are, and
+    build."""
     for arch, blocks in (("seamless-m4t-medium", 12), ("dbrx-132b", 40)):
         cfg = get_config(arch)
         assert cfg.name == arch and cfg.n_layers == blocks
         assert (cfg.n_encoder_layers > 0) == (cfg.moe is None)
-    with pytest.raises(NotImplementedError, match="Queue A #11"):
-        port_serve.main(["--arch", ARCH, "--ckpt", "x", "--device", "cpu"])
+    for flags in (["--data", "2"], ["--model", "4"]):
+        with pytest.raises(NotImplementedError, match="mesh slice"):
+            port_train.main(["--arch", ARCH, "--device", "cpu"] + flags)
+    with pytest.raises(NotImplementedError, match="mesh slice"):
+        port_train.main(["--arch", "dbrx-132b", "--reduced", "--steps", "1",
+                         "--batch", "2", "--seq", "8", "--moe-impl",
+                         "dispatch", "--device", "cpu", "--ckpt", "unused"])
+
+
+def test_serve_ckpt_serves_the_trainers_checkpoint(tmp_path):
+    """``launch/train.py`` writes checkpoints; ``launch/serve.py --ckpt``
+    serves the newest one: its tokens are those of an engine on the
+    trained weights, restored from the same checkpoint by hand, and the
+    launcher's weights are not its random init."""
+    cfg = reduced_config(get_config(ARCH))          # the launchers' --reduced
+    out = port_train.main(["--arch", ARCH, "--reduced", "--steps", "3",
+                           "--batch", "2", "--seq", "16", "--ckpt",
+                           str(tmp_path), "--device", "cpu"])
+    assert len(out["losses"]) == 3 and np.isfinite(out["final_loss"])
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--new-tokens", "4"]
+    got = port_serve.main(argv + ["--ckpt", str(tmp_path)])
+    gen = torch.Generator().manual_seed(0)
+    init = T.init_lm(cfg, gen, device="cpu")        # the launcher's draws
+    prompt = torch.randint(0, cfg.vocab, (2, 8), generator=gen).numpy()
+    state = train_state(T.init_lm(cfg, torch.Generator().manual_seed(1),
+                                  device="cpu"))
+    tree = ckpt.restore(tmp_path, like=convert.train_state_to_jax(state, cfg))
+    assert int(tree.opt.step) == 3
+    trained = convert.train_state_from_jax(tree, cfg, state).params
+    assert not torch.equal(trained.blocks[0].rglru.w_in,
+                           init.blocks[0].rglru.w_in)
+    want = LMEngine(trained, cfg, T.RunCfg(), batch=2,
+                    max_len=12).generate(prompt, 4)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("impl", ["flash", "naive"])

@@ -140,6 +140,21 @@ encoder's bidirectional, the decoder's causal and the cross attention
 a prefill (12 of each).  TF32 is switched off for matrix products and
 cuDNN before the LMs run, so every product compared is full float32.
 
+Then bfloat16, JAX's default compute dtype: ``flash_attention``'s
+bfloat16 instance at small shapes (``[kernel] flash_attention bfloat16
+mirror``: head_dim 64, 128 and 256, causal, windowed and bidirectional,
+T != S both ways) against its plain version (2e-2, JAX's own bfloat16
+kernel-test bound) and its mirror (one bfloat16 ulp plus the mirror's
+slack, the differing elements counted); chameleon-34b and qwen2.5-14b
+served at their published width and depth with bfloat16 weights (their
+first card runs: batch 1 and 4, prompt 4096, 32 tokens) and qwen3-4b
+beside its float32 serve on the same draws (``[main] <arch> serve
+bfloat16``, ``[main] qwen3-4b bfloat16 vs float32``), each with its
+bfloat16 flash kernel held on its prefill's inputs (also against the
+mirror on the first 128 rows of batch row 0) and its ``[check]`` bound
+taken from JAX's own bfloat16 gap (``tools/jax_bf16_consistency_gap.py``)
+times the depth ratio.
+
 Then training (``repro_torch.train``): ``lru_scan``'s backward kernel
 against ``lru_scan_backward_plain`` bit for bit at the training shape
 (2, 1024, 2560) and the forward's edge shapes, timed beside its byte
@@ -155,7 +170,11 @@ memory, the scan's launches a step: 36 forward, 18 backward); and
 ``python -m repro_torch.launch.train`` killed at step 21, resumed, and
 held bit for bit to an uninterrupted run, then ``python -m
 repro_torch.launch.serve --ckpt`` on its checkpoint (``[main] train
-launcher``, ``[main] serve --ckpt``).  The script prints its total time
+launcher``, ``[main] serve --ckpt``).  In bfloat16 (``param_dtype``
+with a float32 master): the reduced step card vs CPU within twice the
+CPU's own bfloat16 distance from float32 (``[check] train step bfloat16
+card vs cpu``) and the full-width step (``[main] recurrentgemma-2b train
+bfloat16``).  The script prints its total time
 (``[time]``).
 
 Each launcher runs in a session of its own and fails the script if any
@@ -188,6 +207,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 FP64_OPS_PER_S = 34e12       # H100 SXM float64 outside the tensor cores
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12      # H100 SXM bfloat16 on the tensor cores, dense
 # the flash kernel's split TF32: three TF32 MMAs a float32 product
 SPLIT_TF32_MMAS = 3
 # float64 operations the lattice round needs: 5 per node and level (p*up,
@@ -233,6 +253,50 @@ LRU_EDGES = ((1, 300, 2560), (2, 20, 77), (1, 1, 33))
 # (label, B, T = S, H, KVH, hd, causal, window)
 FLASH_EXTRA = (("hd128", 2, 1000, 8, 2, 128, True, None),
                ("bidirectional", 1, 1000, 10, 1, 256, False, None))
+# the bfloat16 serves (RunCfg's default dtype, weights stored in
+# bfloat16): (arch, batch, prompt, new tokens), all layers at published
+# width.  chameleon-34b's 68.59 GB of bfloat16 weights fit the card at
+# batch 1; qwen2.5-14b's 29.54 GB at batch 4; qwen3-4b runs beside its
+# float32 serve on the same draws
+BF16_SERVES = (("chameleon-34b", 1, 4096, 32), ("qwen2.5-14b", 4, 4096, 32),
+               ("qwen3-4b", 4, 4096, 32))
+# prefill(T) + decode vs prefill(T + 1) in bfloat16: JAX's own relative
+# gap (max |d| over max |logit|) for the same comparison on the CPU,
+# fitted over depth (2 to 16 layers, prompts of 64 and 256) and width
+# (d_model 64 to 1024) and taken at the published depth and width
+# (tools/jax_bf16_consistency_gap.py: a * layers**alpha * (d_model/64)**beta,
+# alpha -0.02..0.15, beta 0.04..0.12), times BF16_GAP_MARGIN, times the
+# card's own max |logit|.  The margin: the largest relative gap scatters
+# by 1.5x between configs of one size on the CPU, and the port's bfloat16
+# gap is up to 1.3x JAX's there (tests/test_torch_bf16.py)
+JAX_BF16_REL_GAP = {"chameleon-34b": 0.013151890282720917,
+                    "qwen2.5-14b": 0.019235269344541454,
+                    "qwen3-4b": 0.02130326664692797}
+BF16_GAP_MARGIN = 2.0
+# the bfloat16 flash kernel against its mirror on a main path's inputs:
+# the first batch row's first query rows and its last (whole q tiles: the
+# kernel's rows there depend on nothing else; the last walk every KV
+# tile of a causal row, or of a full window)
+MIRROR_ROWS = 128
+# the bfloat16 kernel at small shapes: (hd, T, S, causal, window).  A
+# window of 40 keys cuts every tile it touches (narrower than a 64-row q
+# tile); one of 160 keys at T = 300, and one of 2048 at T = 2200, leave
+# tiles wholly inside the window and the causal triangle, which the
+# kernel takes without a mask
+FLASH_BF16_CASES = tuple((hd, 150, 150, c, w) for hd in (64, 128, 256)
+                         for c, w in ((True, None), (True, 40),
+                                      (False, None))) + tuple(
+    (hd, 300, 300, True, 160) for hd in (64, 128, 256)) + (
+    (128, 2200, 2200, True, 2048), (64, 100, 230, False, None),
+    (128, 230, 100, False, None), (256, 517, 517, True, None))
+# the bfloat16 kernel on the inputs a full-width bfloat16 prefill of
+# these archs gives it (the archs the bfloat16 serves do not cover):
+# (arch, batch, prompt, encoder frames), the float32 serves' shapes:
+# recurrentgemma-2b's hd 256 local attention with its 2048-key window
+# over 4096 tokens, seamless-m4t-medium's encoder, decoder and cross
+# attention at hd 64
+BF16_PREFILLS = (("recurrentgemma-2b", 4, 4096, None),
+                 ("seamless-m4t-medium", 4, 1000, 4000))
 # the LSMC engine: Longstaff & Schwartz (2001), Table 1 (American puts,
 # K=40, r=0.06, 100,000 antithetic paths, 50 exercise dates a year),
 # and a 64-contract Bermudan basket of 5 assets
@@ -859,23 +923,65 @@ def lru_hold(torch, LS, seen, label):
     return rec
 
 
+def mirror_spans(FL, T, hd):
+    """The query rows the bfloat16 mirror holds on a main path's inputs:
+    the first ``MIRROR_ROWS`` and the q tiles from ``MIRROR_ROWS`` before
+    the end (those walk the most KV tiles: a whole causal row, or a full
+    window), as ``(r0, r1)`` spans."""
+    bq = FL.KERNEL_TILES_BF16[hd][0]
+    spans = [(0, min(MIRROR_ROWS, T))]
+    r0 = max(spans[0][1], (T - MIRROR_ROWS) // bq * bq)
+    if r0 < T:
+        spans.append((r0, T))
+    return spans
+
+
+def flash_mirror_rows(torch, FL, q, k, v, got, kw):
+    """The bfloat16 kernel's output on a main path's inputs against its
+    mirror, on the first batch row's :func:`mirror_spans` (the kernel's
+    rows there depend on nothing else), elementwise within
+    ``mirror_bound_bf16``.  Returns ``(max abs difference, elements that
+    differ, elements, max difference over bound, spans)``."""
+    spans = mirror_spans(FL, q.shape[1], q.shape[3])
+    d_max, differ, n, of_bound = 0.0, 0, 0, 0.0
+    for r0, r1 in spans:
+        mirror, slack = FL.flash_attention_mirror(
+            q[:1], k[:1], v[:1], with_slack=True, rows=(r0, r1), **kw)
+        mine = got[:1, r0:r1]
+        d = (mine.float() - mirror.float()).abs()
+        bound = FL.mirror_bound_bf16(mine, mirror, slack)
+        d_max, differ = max(d_max, float(d.max())), differ + int((d > 0).sum())
+        n, of_bound = n + d.numel(), max(of_bound, float((d / bound).max()))
+    return d_max, differ, n, of_bound, spans
+
+
 def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
     """``flash_attention`` against its plain version on the inputs the
     first attention call of ``kind`` (:func:`kernel_kind`) in a
     full-width prefill gave it (taken out of ``seen``), timed there
     beside ``scaled_dot_product_attention`` on the same tensors with the
-    same mask.  Returns the kernel's record."""
+    same mask.  Float32 inputs run the split-TF32 instance (held to
+    ``FLASH_TOL``), bfloat16 ones the bfloat16 instance (held to the
+    plain version at ``BF16_PLAIN_TOL`` and to its mirror on the rows of
+    :func:`mirror_spans` within its bound).  Returns the kernel's
+    record."""
     import torch.nn.functional as F
     (q, k, v), kw = seen.pop(kind)
     B, T, H, hd = q.shape
     S = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    tol = FL.BF16_PLAIN_TOL if bf16 else FLASH_TOL
     got = FL.flash_attention(q, k, v, **kw)
     want = FL.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(err <= FLASH_TOL, f"flash_attention {label.strip() or 'prefill'}: "
-          f"kernel vs plain max abs err {err}")
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= tol, f"flash_attention {label.strip() or 'prefill'}: "
+          f"kernel vs plain max abs err {err} > {tol}")
     del want
+    mirror = flash_mirror_rows(torch, FL, q, k, v, got, kw) if bf16 else None
+    if mirror is not None:
+        check(mirror[3] <= 1.0, f"flash_attention {label.strip()}: kernel vs "
+              f"mirror {mirror[0]} beyond its bound ({mirror[3]:.3f} of it)")
     ms = cuda_ms(torch, lambda: FL.flash_attention(q, k, v, **kw), 5)
     plain_ms = cuda_ms(torch, lambda: FL.flash_attention_plain(q, k, v, **kw),
                        2)
@@ -896,29 +1002,47 @@ def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
             mask &= pos_q - pos_k < kw["window"]
         sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                       attn_mask=mask)
-    lib_err = float((sdpa().transpose(1, 2) - got).abs().max())
+    lib_err = float((sdpa().transpose(1, 2).float() - got.float())
+                    .abs().max())
     lib_ms = cuda_ms(torch, sdpa, 5)
     del ks, vs, got
     pairs = live_pairs(np, T, S, kw["causal"], kw["window"]) * B * H
-    # the kernel's products: 3 TF32 MMAs (split TF32) of 4*hd operations a
-    # live pair; the FFMA bound of the same pairs beside it
-    t_ops = SPLIT_TF32_MMAS * 4 * hd * pairs / TF32_OPS_PER_S
+    # the kernel's products: 4*hd operations a live pair, three TF32 MMAs
+    # each (split TF32) for float32 inputs, one bfloat16 MMA for
+    # bfloat16 ones; the FFMA bound of the same pairs beside the first
+    if bf16:
+        t_ops = 4 * hd * pairs / BF16_OPS_PER_S
+        rate = "bfloat16 on the tensor cores"
+    else:
+        t_ops = SPLIT_TF32_MMAS * 4 * hd * pairs / TF32_OPS_PER_S
+        rate = "split TF32 on the tensor cores"
     t_ffma = 4 * hd * pairs / FP32_OPS_PER_S
-    t_bytes = 2 * (q.numel() + k.numel()) * 4 / HBM_BYTES_PER_S
+    t_bytes = 2 * (q.numel() + k.numel()) * q.element_size() / HBM_BYTES_PER_S
     rec = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_bytes) * 1e3, ffma_bound_ms=t_ffma * 1e3,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_max_abs_diff=lib_err, live_pairs=pairs,
         q_shape=list(q.shape), kv_shape=list(k.shape), causal=kw["causal"],
-        window=kw["window"])
+        window=kw["window"], dtype=str(q.dtype).removeprefix("torch."))
+    if bf16:
+        rec.update(mirror_max_abs=mirror[0], mirror_differing=mirror[1],
+                   mirror_compared=mirror[2], mirror_of_bound=mirror[3],
+                   mirror_rows=[list(sp) for sp in mirror[4]])
+        extra = (f" vs mirror (batch row 0, rows "
+                 f"{', '.join(f'{a}-{b - 1}' for a, b in mirror[4])}) "
+                 f"{mirror[0]:.3e}, {mirror[1]} of {mirror[2]} "
+                 f"elements differ, {mirror[3]:.3f} of its bound;")
+    else:
+        rec["ffma_bound_ms"] = t_ffma * 1e3
+        extra = f" ffma_bound_ms={t_ffma * 1e3:.4f}"
     print(f"[kernel] flash_attention{' ' + label.strip() if label else ''}: "
-          f"q {tuple(q.shape)} k,v {tuple(k.shape)} causal={kw['causal']} "
-          f"window={kw['window']} live_pairs={pairs} max_abs_err={err:.3e} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={rec['bound_ms']:.4f} (split TF32 on the tensor cores) "
-          f"ffma_bound_ms={t_ffma * 1e3:.4f} sdpa_ms={lib_ms:.4f} (sdpa vs "
-          f"kernel {lib_err:.3e})", flush=True)
+          f"q {tuple(q.shape)} k,v {tuple(k.shape)} {rec['dtype']} "
+          f"causal={kw['causal']} window={kw['window']} live_pairs={pairs} "
+          f"max_abs_err={err:.3e} (tol {tol:g}) ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f} ({rate})"
+          f"{extra} sdpa_ms={lib_ms:.4f} (sdpa vs kernel {lib_err:.3e})",
+          flush=True)
     return rec
 
 
@@ -1066,19 +1190,27 @@ def route_flips(torch, pre, dec, full):
 
 
 def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
-             holds, n_layers=None, enc_frames=None):
+             holds, n_layers=None, enc_frames=None, dtype=None):
     """One architecture at its published width (and depth, or the first
-    ``n_layers`` layers): the prefill/decode consistency check (capturing
+    ``n_layers`` layers), its weights stored and computed in ``dtype``
+    (``RunCfg(dtype=)``; float32 unless given): the prefill/decode
+    consistency check (capturing
     the kernels' inputs; for an MoE arch also each layer's top-k expert
     sets, and ``moe_dense``'s device time in prefill), ``holds(seen)``
     holding each kernel against its plain version on them, then the
     serve through ``LMEngine.generate`` with its launch counts, and a
     profiled prefill and four decode steps.  An encoder-decoder arch
     reads ``enc_frames`` frame embeddings drawn on the card.  Returns
-    ``(kernel records, launches by kind, serve record)``; the model is
-    freed before it returns."""
+    ``(kernel records, launches by kind, serve record)``, the record
+    holding the served tokens and the checked prefill's last logits (a
+    host tensor, ``last_logits``); the model is freed before it
+    returns."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products sum in float32, as JAX's preferred_element_type
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     T_, cfgs, ops = mod("models.transformer"), mod("configs"), \
         mod("kernels.ops")
     L = mod("models.layers")
@@ -1092,9 +1224,14 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
              else f"{cfg.n_layers} layers")
     if cfg.n_encoder_layers:
         depth += f" + {cfg.n_encoder_layers} encoder layers"
-    run = T_.RunCfg(impl="flash")
+    run = T_.RunCfg(impl="flash", dtype=dtype)
+    dname = str(dtype).removeprefix("torch.")
+    fa_key = "flash_attention.bfloat16" if bf16 else "flash_attention"
     gen = torch.Generator(device=dev).manual_seed(0)
-    model, init_s = wall(torch, lambda: T_.init_lm(cfg, gen, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = wall(torch, lambda: T_.init_lm(cfg, gen, device=dev,
+                                                   dtype=dtype))
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(p.numel() for p in model.parameters())
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len + 1),
                            generator=gen, device=dev)
@@ -1106,9 +1243,10 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
         if enc is not None:
             out["enc_embeds"] = enc
         return out
+    elem = torch.tensor([], dtype=dtype).element_size()
     print(f"[lm] {arch}: {depth}, d_model {cfg.d_model}, {n_params} "
-          f"parameters ({n_params * 4 / 1e9:.3f} GB float32), initialised "
-          f"on the card in {init_s:.2f} s"
+          f"parameters ({n_params * elem / 1e9:.3f} GB {dname}), initialised "
+          f"on the card in {init_s:.2f} s (peak {init_peak_gb:.3f} GB)"
           + (f"; {enc_frames} encoder frames a sequence" if enc is not None
              else ""), flush=True)
 
@@ -1132,22 +1270,31 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
         model, feed(prompt_len + 1), cfg, run)[0]))
     moe_s = timer() if timer else None
     d = float((dec[:, 0] - full).abs().max())
+    top = float(full.abs().max())
+    # float32: CONSIST_TOL; bfloat16: JAX's own relative gap fitted to
+    # the published size, times the margin, times this run's max |logit|
+    tol = (JAX_BF16_REL_GAP[arch] * BF16_GAP_MARGIN * top
+           if bf16 else CONSIST_TOL)
     finite = bool(torch.isfinite(full).all() and torch.isfinite(dec).all())
     flips = (route_flips(torch, routes["pre"], routes["dec"], routes["full"])
              if routes else None)
     routes.clear()
-    print(f"[check] {arch} prefill {prompt_len} ({pre_s:.3f} s) + decode "
+    print(f"[check] {arch}{' bfloat16' if bf16 else ''} prefill "
+          f"{prompt_len} ({pre_s:.3f} s) + decode "
           f"of token {prompt_len} vs prefill {prompt_len + 1} ({full_s:.3f} "
-          f"s): max |d| logits {d:.3e} (tol {CONSIST_TOL}), logits "
-          f"{tuple(full.shape)} finite {finite}, max |logit| "
-          f"{float(full.abs().max()):.3f}"
+          f"s): max |d| logits {d:.3e} (tol {tol:.4g}"
+          + (f" = JAX's relative gap fitted to this size "
+             f"{JAX_BF16_REL_GAP[arch]:.4g} x margin {BF16_GAP_MARGIN} x "
+             f"max |logit|"
+             if bf16 else "") + f"), logits "
+          f"{tuple(full.shape)} finite {finite}, max |logit| {top:.3f}"
           + (f"; top-{cfg.moe.top_k} expert sets differing between the two "
              f"runs: {flips[0]} of {flips[1]} (layer, token) pairs; "
              f"moe_dense {moe_s:.3f} s of the prefill ({moe_s / full_s:.3f})"
              if flips else ""), flush=True)
     check(finite and tuple(full.shape) == (batch, cfg.vocab),
           f"{arch} logits finite and of shape (B, V)")
-    check(d <= CONSIST_TOL, f"{arch} prefill/decode consistency {d}"
+    check(d <= tol, f"{arch} {dname} prefill/decode consistency {d} > {tol}"
           + (f" ({flips[0]} routing flips)" if flips else ""))
     del dec, full
 
@@ -1164,19 +1311,19 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
     (out, _, calls), gen_s = wall(torch, lambda: capture_kernel_inputs(
         ops, lambda: eng.generate(prompt_np, n_new, enc_embeds=enc),
         keep=False))
-    launches = {"flash_attention": FL.LAUNCHES["flash_attention"],
+    launches = {fa_key: FL.LAUNCHES[fa_key],
                 "lru_scan": LS.LAUNCHES["lru_scan"]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tm = eng.timings
     kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)] + [
         cfg.block_kind(i) for i in range(cfg.n_encoder_layers)]
     cross = cfg.n_layers if cfg.n_encoder_layers else 0
-    want = {"flash_attention": sum(k in ("attn", "local") for k in kinds)
-            + cross,
+    want = {fa_key: sum(k in ("attn", "local") for k in kinds) + cross,
             "lru_scan": sum(k in ("rglru", "mamba") for k in kinds)}
     decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
     tok_s = batch * n_new / gen_s
-    print(f"[main] {arch} serve ({depth}): batch {batch}, prompt "
+    print(f"[main] {arch} serve{' bfloat16' if bf16 else ''} ({depth}"
+          f"{', weights ' + dname if bf16 else ''}): batch {batch}, prompt "
           f"{prompt_len}, {n_new} new tokens in {gen_s:.3f} s: prefill "
           f"{tm['prefill_s']:.3f} s, decode {decode_ms:.3f} ms/token, "
           f"{tok_s:.2f} tokens/s ({batch * n_new} generated), "
@@ -1187,7 +1334,8 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
     check(launches == want, f"{arch} launches {launches}, want {want} (one "
           "prefill, none in decode)")
     check(sum(n for k, n in calls.items() if k.startswith("flash")) ==
-          launches["flash_attention"], f"{arch} calls by kind {calls}")
+          launches[fa_key], f"{arch} calls by kind {calls}")
+    check(peak_gb < 80.0, f"{arch} peak memory {peak_gb} GB")
     check(out.shape == (batch, n_new) and (out >= 0).all()
           and (out < cfg.vocab).all(), f"{arch} generated tokens")
     top2 = torch.topk(last, 2, dim=-1).values
@@ -1196,9 +1344,12 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
     check((out[sure, 0] == first[sure]).all(),
           f"{arch} first served token vs the checked prefill's argmax")
     prof = lm_profile(torch, T_, model, cfg, run, feed, prompt_len, tm)
+    last_logits = last.float().cpu()
     del model, eng, last, enc
     torch.cuda.empty_cache()
     return kern, calls, dict(
+        dtype=dname, tokens=out.tolist(), last_logits=last_logits,
+        init_peak_gb=init_peak_gb, consistency_tol=tol,
         profile=prof, layers=cfg.n_layers, published_layers=full_cfg.n_layers,
         encoder_layers=cfg.n_encoder_layers, encoder_frames=enc_frames,
         batch=batch, prompt=prompt_len, new_tokens=n_new, params=n_params,
@@ -1811,6 +1962,139 @@ def flash_mirror_phase(torch, np, FL, contracts):
     return out
 
 
+def flash_bf16_phase(torch, np, FL):
+    """flash_attention's bfloat16 instance against its plain version (at
+    ``BF16_PLAIN_TOL``, JAX's own bfloat16 kernel-test bound) and against
+    its mirror (elementwise within ``mirror_bound_bf16``: one bfloat16
+    ulp of the output plus the mirror's slack), at head_dim 64, 128 and
+    256, causal, windowed (40, 160 and 2048 keys: the last two leave
+    tiles wholly inside the window) and bidirectional, the last tiles
+    ragged, and T != S both ways; each line counts the elements that
+    differ from the mirror."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for hd, T, S, causal, window in FLASH_BF16_CASES:
+        mk = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(
+            torch.bfloat16)
+        q, k, v = mk(1, T, 4, hd), mk(1, S, 2, hd), mk(1, S, 2, hd)
+        kw = dict(causal=causal, window=window)
+        got = FL.flash_attention(q, k, v, **kw)
+        mirror, slack = FL.flash_attention_mirror(q, k, v, with_slack=True,
+                                                  **kw)
+        plain = FL.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        d = (got.float() - mirror.float()).abs()
+        of_bound = float((d / FL.mirror_bound_bf16(got, mirror, slack)).max())
+        dp = float((got.float() - plain.float()).abs().max())
+        label = f"hd{hd} {'causal' if causal else 'bidirectional'}" + (
+            f" window {window}" if window else "") + (
+            f" T={T} S={S}" if T != S else f" T={T}")
+        out[label] = dict(vs_mirror=float(d.max()), differing=int(
+            (d > 0).sum()), elements=d.numel(), of_bound=of_bound,
+            vs_plain=dp)
+        print(f"[kernel] flash_attention bfloat16 mirror {label}: q (1, {T}, "
+              f"4, {hd}) k,v (1, {S}, 2, {hd}) vs mirror max {d.max():.3e}, "
+              f"{int((d > 0).sum())} of {d.numel()} elements differ, "
+              f"{of_bound:.3f} of the bound; vs plain {dp:.3e} (<= "
+              f"{FL.BF16_PLAIN_TOL:g})", flush=True)
+        check(of_bound <= 1.0, f"flash_attention bfloat16 {label}: kernel vs "
+              f"mirror beyond its bound ({of_bound:.3f})")
+        check(dp <= FL.BF16_PLAIN_TOL, f"flash_attention bfloat16 {label}: "
+              f"kernel vs plain {dp}")
+    return out
+
+
+def bf16_prefill_phase(torch, np, mod, all_launches):
+    """``BF16_PREFILLS``: each arch at its published width and depth,
+    weights stored in bfloat16, through one ``prefill`` with
+    ``RunCfg(impl="flash")`` at bfloat16 (the default dtype), its
+    bfloat16 flash launches counted from 0; then each kind of attention
+    call it made held by ``flash_hold`` on that call's inputs.  Returns
+    ``{arch: (records by kind, launches, calls by kind)}``."""
+    T_, cfgs, ops = mod("models.transformer"), mod("configs"), \
+        mod("kernels.ops")
+    FL = mod("kernels.flash_attention")
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    labels = {"flash_attention": "self", "flash_attention.bidirectional":
+              "encoder", "flash_attention.cross": "cross"}
+    out = {}
+    for arch, batch, prompt_len, frames in BF16_PREFILLS:
+        torch.cuda.empty_cache()
+        cfg = cfgs.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = T_.init_lm(cfg, gen, device=dev, dtype=bf)
+        feed = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                        generator=gen, device=dev)}
+        if frames:
+            feed["enc_embeds"] = torch.randn(batch, frames, cfg.d_model,
+                                             generator=gen, device=dev)
+        run = T_.RunCfg(impl="flash", dtype=bf)
+        zero_counts(all_launches)
+        ((logits, _), seen, calls), pre_s = wall(
+            torch, lambda: capture_kernel_inputs(ops, lambda: T_.prefill(
+                model, feed, cfg, run)))
+        n = FL.LAUNCHES["flash_attention.bfloat16"]
+        kinds = [cfg.block_kind(i) for i in range(cfg.n_layers)] + [
+            cfg.block_kind(i) for i in range(cfg.n_encoder_layers)]
+        want = sum(k in ("attn", "local") for k in kinds) + (
+            cfg.n_layers if cfg.n_encoder_layers else 0)
+        finite = bool(torch.isfinite(logits).all())
+        print(f"[main] {arch} prefill bfloat16 ({cfg.n_layers} layers"
+              + (f" + {cfg.n_encoder_layers} encoder layers, {frames} "
+                 f"frames" if frames else "") + f", weights bfloat16): "
+              f"batch {batch}, prompt {prompt_len} in {pre_s:.3f} s; "
+              f"logits {tuple(logits.shape)} finite {finite}; bfloat16 "
+              f"flash launches {n} (want {want}) by kind {json.dumps(calls)}",
+              flush=True)
+        check(finite and tuple(logits.shape) == (batch, cfg.vocab),
+              f"{arch} bfloat16 prefill logits")
+        check(n == want == sum(c for k, c in calls.items()
+                               if k.startswith("flash")),
+              f"{arch} bfloat16 prefill "
+              f"launches {n}, calls {calls}, want {want}")
+        del model, logits, feed
+        torch.cuda.empty_cache()
+        recs = {kind: flash_hold(torch, np, FL, seen,
+                                 f"{arch} bfloat16 {labels[kind]} ", kind)
+                for kind in list(seen) if kind in labels}
+        out[arch] = (recs, n, calls)
+        del seen
+    return out
+
+
+def bf16_serve_phase(torch, np, mod, all_launches, f32_qwen3):
+    """The bfloat16 serves (``BF16_SERVES``): each arch at its published
+    width and depth, weights stored in bfloat16, through ``lm_phase`` with
+    its causal flash_attention held on its prefill's inputs (bfloat16
+    instance); qwen3-4b's last logits and greedy tokens beside its float32
+    serve's on the same draws (reported, not gated)."""
+    FL = mod("kernels.flash_attention")
+    out = {}
+    for arch, b, p, n in BF16_SERVES:
+        out[arch] = lm_phase(
+            torch, np, mod, all_launches, arch, b, p, n,
+            lambda seen, arch=arch: {"flash_attention": flash_hold(
+                torch, np, FL, seen, arch + " bfloat16 ")},
+            dtype=torch.bfloat16)
+    rec = out["qwen3-4b"][2]
+    d = float((rec["last_logits"] - f32_qwen3["last_logits"]).abs().max())
+    same = np.array(rec["tokens"]) == np.array(f32_qwen3["tokens"])
+    rec["vs_float32"] = dict(max_abs_last_logits=d,
+                             tokens_agreeing=int(same.sum()),
+                             tokens=same.size,
+                             leading_tokens_agreeing=[
+                                 int(np.cumprod(row).sum()) for row in same])
+    print(f"[main] qwen3-4b bfloat16 vs float32 serve (same draws): max |d| "
+          f"last prefill logits {d:.3e} (max |logit| "
+          f"{float(f32_qwen3['last_logits'].abs().max()):.3f}); greedy "
+          f"tokens agreeing {int(same.sum())} of {same.size}, leading run "
+          f"a sequence {rec['vs_float32']['leading_tokens_agreeing']}",
+          flush=True)
+    return out
+
+
 def float32_main_phase(torch, np, mod, cfgs, ops, R, tc_grid, tc,
                        notc_price, pricing_launches):
     """The float32 main paths, each with its launches counted from 0:
@@ -2341,6 +2625,9 @@ def serve_launcher_phase():
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "recurrentgemma-2b", 2, \
     1024, 3
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# bfloat16 card vs CPU: within this many times the CPU's own bfloat16
+# distance from float32 (tests/test_torch_bf16.py's GAP_FACTOR)
+BF16_GAP_FACTOR = 2.0
 # the scan's backward beside its forward: the training shape and the
 # forward's edge shapes (LRU_EDGES)
 LRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 2560)
@@ -2417,7 +2704,7 @@ def train_check_phase(torch, mod):
     LS, data = mod("kernels.lru_scan"), mod("data.pipeline")
     step_mod, opt = mod("train.step"), mod("optim.adamw")
     cfg = cfgs.reduced_config(cfgs.get_config(TRAIN_ARCH), n_layers=3)
-    run = T_.RunCfg(impl="naive")
+    run = T_.RunCfg(impl="naive", dtype=torch.float32)
     batch = data.SyntheticSource(cfg.vocab, 4, 100, n_micro=2).batch(0)
     out = {}
     for dev in ("cpu", "cuda"):
@@ -2431,9 +2718,7 @@ def train_check_phase(torch, mod):
                     {k: LS.LAUNCHES[k] - before[k] for k in before})
     (want, gw, _), (got, gg, n) = out["cpu"], out["cuda"]
     rel = abs(got - want) / abs(want)
-    gaps = {k: float((gg[k] - w).abs().max()) / max(float(w.abs().max()),
-                                                     1e-12)
-            for k, w in gw.items()}
+    gaps = grad_gaps(gg, gw)
     worst = max(gaps, key=gaps.get)
     print(f"[check] train step card vs cpu: {TRAIN_ARCH} reduced to "
           f"{cfg.n_layers} layers ({cfg.block_pattern}), batch 2 x 2 "
@@ -2451,16 +2736,109 @@ def train_check_phase(torch, mod):
                 launches=n)
 
 
-def train_main_phase(torch, mod, all_launches):
+def grad_gaps(got, want):
+    """Each leaf's max |got - want| over its largest |want|."""
+    return {k: float((got[k].float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-12)
+            for k, w in want.items()}
+
+
+def train_check_bf16_phase(torch, mod):
+    """The same reduced step with ``param_dtype=bfloat16`` weights (drawn
+    in float32 and rounded), ``master_fp32`` and bfloat16 compute, on the
+    card and on the CPU, one microbatch (so each parameter's ``.grad``
+    holds the bfloat16 gradient AdamW read).  The bound is the float32
+    check's form scaled to bfloat16 the way the CPU tests scale theirs
+    (tests/test_torch_bf16.py): the CPU's own bfloat16 distance from
+    float32 on the same rounded weights (the port's float32 step on the
+    CPU), times ``BF16_GAP_FACTOR``; the loss's reference distance
+    floored at 2**-16 of it.  A card that computed in float32 would pass
+    those, so the prefill's logits before the step must be bfloat16
+    values, as the head rounds them."""
+    T_, cfgs = mod("models.transformer"), mod("configs")
+    LS, data = mod("kernels.lru_scan"), mod("data.pipeline")
+    step_mod, opt = mod("train.step"), mod("optim.adamw")
+    cfg = cfgs.reduced_config(cfgs.get_config(TRAIN_ARCH), n_layers=3)
+    bf = torch.bfloat16
+    batch = data.SyntheticSource(cfg.vocab, 4, 100, n_micro=1).batch(0)
+    out = {}
+    for key, dev, dtype in (("cpu", "cpu", bf), ("cuda", "cuda", bf),
+                            ("cpu float32", "cpu", torch.float32)):
+        model = T_.init_lm(cfg, torch.Generator().manual_seed(1),
+                           device="cpu", dtype=bf).to(dev, dtype)
+        run = T_.RunCfg(impl="naive", dtype=dtype)
+        ocfg = opt.AdamWConfig(master_fp32=dtype == bf)
+        if dev == "cuda":
+            with torch.no_grad():
+                logits, _ = T_.prefill(model, {"tokens": data.to_device(
+                    batch, dev)["tokens"][0]}, cfg, run)
+        before = dict(LS.LAUNCHES)
+        if dtype == bf:
+            step = step_mod.make_train_step(cfg, run, ocfg)
+            _, m = step(step_mod.train_state(model, ocfg),
+                        data.to_device(batch, dev))
+            loss = float(m["loss"])
+        else:       # the float32 reference: its unclipped gradients
+            model.requires_grad_(True)
+            loss, _ = T_.lm_loss(model, {k: v[0] for k, v in
+                                         data.to_device(batch, dev).items()},
+                                 cfg, run)
+            loss.backward()
+            loss = float(loss.detach())
+        out[key] = (loss, {k: p.grad.cpu() for k, p in
+                           model.named_parameters()},
+                    {k: LS.LAUNCHES[k] - before[k] for k in before})
+    (want, gw, _), (got, gg, n), (ref, gr, _) = (
+        out["cpu"], out["cuda"], out["cpu float32"])
+    # the card's prefill logits, which the head rounds to bfloat16: a
+    # float32 path's would not be bfloat16 values.  Their bits are not
+    # counted against the CPU's: cuBLAS's bfloat16 products sum in other
+    # orders, and through a few layers the card's logits differ in about
+    # as many bits as the float32 path's (PERF.md)
+    rounded = torch.equal(logits, logits.to(bf).float())
+    loss_tol = BF16_GAP_FACTOR * max(abs(want - ref), 2.0 ** -16 * abs(want))
+    cpu_gaps, gaps = grad_gaps(gw, gr), grad_gaps(gg, gw)
+    grad_tol = BF16_GAP_FACTOR * max(cpu_gaps.values())
+    worst = max(gaps, key=gaps.get)
+    print(f"[check] train step bfloat16 card vs cpu: {TRAIN_ARCH} reduced "
+          f"to {cfg.n_layers} layers, param_dtype bfloat16, master_fp32, "
+          f"batch 2 x 100 tokens: loss {got:.7f} vs {want:.7f} (|d| "
+          f"{abs(got - want):.3e}, tol {loss_tol:.3e} = {BF16_GAP_FACTOR} x "
+          f"the CPU's bfloat16-vs-float32 {abs(want - ref):.3e}, floored); "
+          f"largest gradient gap {gaps[worst]:.3e} of its leaf's max |g| "
+          f"({worst}; tol {grad_tol:.3e} = {BF16_GAP_FACTOR} x the CPU's "
+          f"bfloat16-vs-float32 {max(cpu_gaps.values()):.3e}) over "
+          f"{len(gaps)} leaves; prefill logits bfloat16 values {rounded}; "
+          f"card launches {json.dumps(n)}", flush=True)
+    check(all(p.dtype == bf for p in gg.values()), "bfloat16 gradients")
+    check(rounded, "bfloat16 train check: prefill logits not bfloat16 values")
+    check(abs(got - want) <= loss_tol, f"bfloat16 train step loss card vs "
+          f"cpu {abs(got - want)} > {loss_tol}")
+    check(gaps[worst] <= grad_tol, f"bfloat16 train step gradient {worst} "
+          f"card vs cpu {gaps[worst]} > {grad_tol}")
+    check(n["lru_scan"] == 2 and n["lru_scan_backward"] == 2,
+          f"bfloat16 train step launches {n}: want 2 forward, 2 backward")
+    return dict(loss_abs=abs(got - want), loss_tol=loss_tol,
+                grad_gap=gaps[worst], grad_tol=grad_tol, grad_gap_leaf=worst,
+                logits_bfloat16=rounded,
+                launches=n)
+
+
+def train_main_phase(torch, mod, all_launches, dtype=None):
     """``make_train_step`` on recurrentgemma-2b at its published width and
     depth: batch 2 x 1024 synthetic tokens (``SyntheticSource``), remat
     full, one microbatch, AdamW's defaults, through the scan kernels
     forward and backward (attention naive, as JAX's trainer).  One
     warm-up step, ``TRAIN_STEPS`` timed steps with the launches counted
     from 0, then one profiled step for the device's idle share.  Writes
-    no checkpoint (the state is 53 GB)."""
+    no checkpoint (the state is 53 GB).  ``dtype=bfloat16``:
+    ``init_train_state(param_dtype=bfloat16)`` with ``master_fp32`` and
+    bfloat16 compute (the scan stays float32, as in JAX)."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     T_, cfgs = mod("models.transformer"), mod("configs")
     LS, FL = mod("kernels.lru_scan"), mod("kernels.flash_attention")
     data, step_mod, opt = mod("data.pipeline"), mod("train.step"), \
@@ -2469,16 +2847,21 @@ def train_main_phase(torch, mod, all_launches):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = cfgs.get_config(TRAIN_ARCH)
-    run = T_.RunCfg(impl="naive", remat="full")
+    run = T_.RunCfg(impl="naive", remat="full", dtype=dtype)
+    ocfg = opt.AdamWConfig(master_fp32=bf16)
     (state, init_s) = wall(torch, lambda: step_mod.init_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        param_dtype=dtype if bf16 else None, opt_cfg=ocfg))
     n_params = sum(p.numel() for p in state.params.parameters())
-    step_fn = step_mod.make_train_step(cfg, run, opt.AdamWConfig())
+    step_fn = step_mod.make_train_step(cfg, run, ocfg)
     src = data.SyntheticSource(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
-    print(f"[lm] {TRAIN_ARCH} train: {cfg.n_layers} layers, d_model "
+    label = f"{TRAIN_ARCH} train{' bfloat16' if bf16 else ''}"
+    state_gb = (n_params * (2 + 3 * 4) if bf16 else 3 * n_params * 4) / 1e9
+    print(f"[lm] {label}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters, "
-          f"params + m + v {3 * n_params * 4 / 1e9:.2f} GB float32, "
-          f"initialised in {init_s:.2f} s", flush=True)
+          + (f"bfloat16 params + float32 master, m, v {state_gb:.2f} GB"
+             if bf16 else f"params + m + v {state_gb:.2f} GB float32")
+          + f", initialised in {init_s:.2f} s", flush=True)
     holder = {"state": state}
     del state
 
@@ -2508,13 +2891,13 @@ def train_main_phase(torch, mod, all_launches):
                 for i in range(cfg.n_layers))
     per = {k: v / TRAIN_STEPS for k, v in launches.items()}
     top = ", ".join(f"{n[:50]} {t * 1e3:.1f} ms" for n, t in kernels[:5])
-    print(f"[main] {TRAIN_ARCH} train ({cfg.n_layers} layers, full width): "
+    print(f"[main] {label} ({cfg.n_layers} layers, full width): "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full, AdamW "
-          f"defaults: {step_s:.3f} s/step (steps {', '.join(f'{t:.3f}' for t in times)}; "
+          f"defaults{', master_fp32' if bf16 else ''}: {step_s:.3f} s/step (steps {', '.join(f'{t:.3f}' for t in times)}; "
           f"warm-up {warm_s:.3f} s), {tok_s:.1f} tokens/s; losses "
           f"{losses}, grad_norm {norms}; peak device memory {peak_gb:.3f} "
           f"GB; launches a step {json.dumps(per)}", flush=True)
-    print(f"[profile] {TRAIN_ARCH} train step: {n_kernels} kernels, device "
+    print(f"[profile] {label} step: {n_kernels} kernels, device "
           f"busy {busy:.3f} s of {wall_s:.3f} s under the profiler (idle "
           f"share {'not measured' if idle is None else f'{idle:.3f}'}); top "
           f"kernels: {top}", flush=True)
@@ -2525,9 +2908,12 @@ def train_main_phase(torch, mod, all_launches):
                   "flash_attention": 0},
           f"train launches a step {per}: want {2 * n_rec} forward (remat "
           f"full runs each forward twice), {n_rec} backward, no flash")
+    kept = {p.dtype for p in holder["state"].params.parameters()}
+    check(kept == {dtype}, f"{label}: parameters stored in {kept}")
     holder.clear()
     torch.cuda.empty_cache()
-    return dict(step_s=step_s, steps_s=times, warmup_s=warm_s,
+    return dict(dtype=str(dtype).removeprefix("torch."),
+                step_s=step_s, steps_s=times, warmup_s=warm_s,
                 tokens_per_s=tok_s, losses=losses, grad_norms=norms,
                 peak_device_gb=peak_gb, launches=launches,
                 launches_per_step=per, idle_share=idle,
@@ -2618,12 +3004,14 @@ def train_launcher_phase(torch, mod):
     gen = torch.Generator(device=dev).manual_seed(0)
     T_.init_lm(cfg, gen, device=dev)
     prompt = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device=dev)
+    # the launcher serves in float32, as JAX's does
+    run = T_.RunCfg(dtype=torch.float32)
     with torch.inference_mode():
         want = mod("serve.engine").LMEngine(
-            resumed_model, cfg, T_.RunCfg(), batch=2, max_len=24).generate(
+            resumed_model, cfg, run, batch=2, max_len=24).generate(
                 prompt.cpu().numpy(), 8)
-        la, _ = T_.prefill(resumed_model, {"tokens": prompt}, cfg, T_.RunCfg())
-        lb, _ = T_.prefill(ref_model, {"tokens": prompt}, cfg, T_.RunCfg())
+        la, _ = T_.prefill(resumed_model, {"tokens": prompt}, cfg, run)
+        lb, _ = T_.prefill(ref_model, {"tokens": prompt}, cfg, run)
     same_logits = bool(torch.equal(la, lb))
     same_tokens = served.shape == want.shape and bool((served == want).all())
     print(f"[main] serve --ckpt: {' '.join(cmd[1:])}: exit {r.returncode} in "
@@ -2694,6 +3082,7 @@ def main() -> int:
                                put_cfg)
     fmirror = flash_mirror_phase(torch, np, mod("kernels.flash_attention"),
                                  contracts)
+    fbf16 = flash_bf16_phase(torch, np, mod("kernels.flash_attention"))
 
     # 3. the main path, through the public API with the default backend
     zero_counts((B.LAUNCHES, RS.LAUNCHES))
@@ -2843,12 +3232,26 @@ def main() -> int:
                           ("flash_attention.cross", "cross"))},
         enc_frames=frames))
 
+    # the bfloat16 serves (chameleon-34b and qwen2.5-14b's first on the
+    # card), qwen3-4b beside its float32 serve
+    bf16 = bf16_serve_phase(torch, np, mod, all_launches, gqa)
+    # the bfloat16 kernel at recurrentgemma-2b's and seamless-m4t-medium's
+    # main-path shapes, on their bfloat16 prefills' inputs
+    bf16_pre = bf16_prefill_phase(torch, np, mod, all_launches)
+
     # 5. training: the scan's backward kernel, a reduced step card vs CPU,
-    # the full-width step, the launchers' restart and serve --ckpt
+    # the full-width step, the launchers' restart and serve --ckpt; the
+    # same in bfloat16 with a float32 master
     lru_train = lru_backward_phase(torch, LS)
     train_chk = train_check_phase(torch, mod)
     train_main = train_main_phase(torch, mod, all_launches)
+    train_chk_bf16 = train_check_bf16_phase(torch, mod)
+    train_bf16 = train_main_phase(torch, mod, all_launches,
+                                  dtype=torch.bfloat16)
     train_launch = train_launcher_phase(torch, mod)
+    for rec in [lm, mamba, gqa] + [r for *_, r in more] + [
+            r for _, _, r in bf16.values()]:
+        rec.pop("last_logits")
 
     src = "src/repro_torch/csrc/"
     kernels = []
@@ -2943,26 +3346,65 @@ def main() -> int:
     # the training path's entries: the backward kernel (no TPU kernel
     # stands behind it: JAX differentiates _linear_scan_chunked) and the
     # forward at the training shape, each with the full-width run's
-    # launches (TRAIN_STEPS steps)
-    for name, rec, n in (
+    # launches (TRAIN_STEPS steps); the bfloat16 train step runs the same
+    # float32 scans (entries with ".bfloat16-train")
+    for name, rec, n, tag in (
             ("lru_scan_backward", lru_train["lru_scan_backward"],
-             train_main["launches"]["lru_scan_backward"]),
+             train_main["launches"]["lru_scan_backward"], ""),
             (f"lru_scan.{TRAIN_ARCH}-train", lru_train["lru_scan.train"],
-             train_main["launches"]["lru_scan"])):
+             train_main["launches"]["lru_scan"], ""),
+            ("lru_scan_backward.bfloat16-train",
+             lru_train["lru_scan_backward"],
+             train_bf16["launches"]["lru_scan_backward"], " bfloat16"),
+            (f"lru_scan.{TRAIN_ARCH}-train.bfloat16",
+             lru_train["lru_scan.train"], train_bf16["launches"]["lru_scan"],
+             " bfloat16")):
         kernels.append(dict(
             name=name, route="cuda", source=src + "lru_scan.cu",
             replaces="src/repro/kernels/lru_scan.py:31", launches=n,
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=None,
-            main_path=f"{TRAIN_ARCH} train ({TRAIN_STEPS} steps, remat full)",
+            main_path=f"{TRAIN_ARCH} train{tag} ({TRAIN_STEPS} steps, remat "
+                      "full)",
             bound_note=("20 bytes an element (a, dh_seq, h_{t-1} read, da, "
                         "db written) and the (B, W) rows over 3.35 TB/s"
-                        if name == "lru_scan_backward" else notes["lru_scan"][1]),
+                        if name.startswith("lru_scan_backward")
+                        else notes["lru_scan"][1]),
             **({"replaces_note": "no TPU kernel: the gradient of "
                 "_lru_kernel's recurrence, which JAX takes by autodiff of "
                 "src/repro/models/layers.py:475 (_linear_scan_chunked)"}
-               if name == "lru_scan_backward" else {})))
+               if name.startswith("lru_scan_backward") else {})))
+    # the bfloat16 instance on each bfloat16 serve's path
+    for i, (arch, (recs, calls, _)) in enumerate(bf16.items()):
+        rec = recs["flash_attention"]
+        kernels.append(dict(
+            name="flash_attention.bfloat16" + (f".{arch}" if i else ""),
+            route="cuda", source=src + "flash_attention.cu",
+            replaces=notes["flash_attention"][0],
+            launches=calls["flash_attention"], max_abs_err=rec["max_abs_err"],
+            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            main_path=f"{arch} serve bfloat16",
+            mirror_max_abs=rec["mirror_max_abs"],
+            mirror_of_bound=rec["mirror_of_bound"],
+            bound_note="4*hd operations per live (query, key) pair, one "
+                       "bfloat16 MMA each, over 989 TFLOP/s"))
+    for arch, (recs, _, calls) in bf16_pre.items():
+        for kind, rec in recs.items():
+            kernels.append(dict(
+                name=f"flash_attention.bfloat16.{arch}"
+                + kind.removeprefix("flash_attention"),
+                route="cuda", source=src + "flash_attention.cu",
+                replaces=notes["flash_attention"][0], launches=calls[kind],
+                max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+                main_path=f"{arch} prefill bfloat16",
+                mirror_max_abs=rec["mirror_max_abs"],
+                mirror_of_bound=rec["mirror_of_bound"],
+                bound_note="4*hd operations per live (query, key) pair, one "
+                           "bfloat16 MMA each, over 989 TFLOP/s"))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
@@ -2984,7 +3426,15 @@ def main() -> int:
                    lm_more={arch: dict(serve=rec, kernels=recs)
                             for arch, recs, _, rec in more},
                    train_kernels=lru_train, train_check=train_chk,
-                   train=train_main, train_launcher=train_launch)
+                   train=train_main, train_launcher=train_launch,
+                   flash_bf16=fbf16,
+                   lm_bf16={arch: dict(serve=rec, kernels=recs)
+                            for arch, (recs, _, rec) in bf16.items()},
+                   lm_bf16_prefill={arch: dict(kernels=recs, launches=n,
+                                               calls=calls)
+                                    for arch, (recs, n, calls)
+                                    in bf16_pre.items()},
+                   train_check_bf16=train_chk_bf16, train_bf16=train_bf16)
     # 5. no process the script started outlives it: the gateways closed
     # their workers; the helper process spawning them started goes too
     mod("serve.procpool").stop_spawn_helper()

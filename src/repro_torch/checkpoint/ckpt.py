@@ -16,10 +16,11 @@ master))`` of JAX-layout trees (``convert.train_state_to_jax``) writes
 ``.params/embed``, ``.opt/.step``, ``.opt/.m/scan/b0/...``, and a
 checkpoint written by either package restores in the other.
 
-bfloat16 and float8 leaves are stored bit-cast to unsigned integers of
-their width and cast back on restore from the logical dtype in
-``meta.json`` (JAX's ``_BITCAST`` table), through torch's own types, so
-``ml_dtypes`` is not needed.
+bfloat16 and float8 leaves (torch tensors of those types, or numpy
+arrays whose dtype bears the name, as JAX's trees hold them) are stored
+bit-cast to unsigned integers of their width and cast back on restore
+from the logical dtype in ``meta.json`` (JAX's ``_BITCAST`` table),
+through torch's own types, so ``ml_dtypes`` is not needed.
 
 Fault tolerance, as JAX's: a write lands in ``<dir>/tmp.<step>`` and is
 renamed into place after ``meta.json`` is synced, so a killed writer
@@ -107,7 +108,10 @@ def _host(leaf):
             arr = arr.view(_BITCAST[name][0])
         return arr, name or str(arr.dtype)
     arr = np.asarray(leaf)
-    return arr, str(arr.dtype)
+    name = str(arr.dtype)
+    if name in _BITCAST:                 # an ml_dtypes leaf of a JAX tree
+        arr = arr.view(_BITCAST[name][0])
+    return arr, name
 
 
 def _snapshot(tree):

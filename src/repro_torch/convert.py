@@ -19,6 +19,15 @@ imports the other:
   master))`` of numpy trees and back (``train_state_to_jax``,
   ``train_state_from_jax``): what the checkpoints hold, under JAX's
   paths.
+
+Every leaf keeps its dtype both ways.  numpy has no bfloat16 of its own
+(JAX's arrays carry ``ml_dtypes``' type, which the port does not import),
+so a bfloat16 leaf comes across through a 16-bit integer view of its
+bits: a JAX array whose dtype is named ``bfloat16`` becomes a
+``torch.bfloat16`` tensor of the same bits, and a ``torch.bfloat16``
+leaf goes back as a host ``torch.bfloat16`` tensor (its bits
+``t.view(torch.int16).numpy()``), which ``checkpoint.ckpt`` writes as
+the ``bfloat16`` leaf JAX writes.
 """
 from __future__ import annotations
 
@@ -29,10 +38,29 @@ from .core.pwl import PWL
 from .models.transformer import LM
 from .scenarios import ScenarioGrid
 
-__all__ = ["pwl_from_numpy", "pwl_to_numpy", "grid_from_columns",
+__all__ = ["to_torch", "pwl_from_numpy", "pwl_to_numpy", "grid_from_columns",
            "layer_trees", "lm_params_from_jax", "load_lm_params",
            "lm_params_to_jax", "lm_named_from_jax", "lm_named_to_jax",
            "train_state_to_jax", "train_state_from_jax"]
+
+
+def to_torch(a) -> torch.Tensor:
+    """A leaf as a tensor of its own dtype: a tensor as it is; a numpy
+    array (a JAX leaf) with its dtype, a bfloat16 one through a view of
+    its bits (no ``ml_dtypes`` needed), a read-only one copied."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy() if not bits.flags.writeable
+                                else bits).view(torch.bfloat16)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _stack(arrs):
+    return torch.stack(arrs) if isinstance(arrs[0], torch.Tensor) else \
+        np.stack(arrs)
 
 
 def pwl_from_numpy(xs, ys, sl, sr, m, *, device="cpu") -> PWL:
@@ -82,7 +110,9 @@ def layer_trees(tree, cfg, prefix: str = "", n_layers=None) -> list:
     def pick(node, r):
         if isinstance(node, dict):
             return {key: pick(val, r) for key, val in node.items()}
-        return np.asarray(node) if r is None else np.asarray(node)[r]
+        if not isinstance(node, torch.Tensor):
+            node = np.asarray(node)
+        return node if r is None else node[r]
     out = [pick(tree[prefix + "scan"][f"b{j}"], r if reps > 1 else None)
            for r in range(reps) for j in range(len(pat))]
     return out + [pick(tree[f"{prefix}rem{r}"], None) for r in range(rem)]
@@ -99,11 +129,14 @@ def _copy_tree(module, tree, where: str) -> None:
             _copy_tree(getattr(module, name), node, f"{where}.{name}")
         else:
             leaf = getattr(module, name)
-            src = torch.tensor(np.asarray(node, np.float32))
+            src = to_torch(node)
             if src.shape != leaf.shape:
                 raise ValueError(f"{where}.{name}: shape {tuple(src.shape)} "
                                  f"!= {tuple(leaf.shape)}")
-            leaf.data.copy_(src)
+            if src.dtype == leaf.dtype:
+                leaf.data.copy_(src)
+            else:                        # the JAX leaf's dtype is kept
+                leaf.data = src.to(leaf.device, copy=True)
 
 
 def _stacks(cfg) -> dict:
@@ -134,8 +167,8 @@ def load_lm_params(model: LM, params_np, cfg) -> LM:
     ``model``: the decoder's stack (``scan``, ``rem{r}``) and the
     encoder's (``enc_scan``), every block's ``moe`` (with ``shared``),
     ``norm_x`` and ``cross`` leaves, ``enc_norm`` and the embeddings.
-    Every leaf is copied, and a leaf that is missing or left over
-    raises."""
+    Every leaf is copied with its dtype (a bfloat16 tree gives a bfloat16
+    model), and a leaf that is missing or left over raises."""
     _copy_tree(model, _port_tree(params_np, cfg), "model")
     return model
 
@@ -196,13 +229,17 @@ def lm_named_to_jax(named: dict, cfg) -> dict:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrs)
+        node[path[-1]] = _stack(arrs)
     return tree
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` that later in-place updates leave alone."""
+def _host(t: torch.Tensor):
+    """A host copy of ``t`` that later in-place updates leave alone: a
+    numpy array, or for a bfloat16 tensor (numpy has no such type) a host
+    ``torch.bfloat16`` tensor."""
     t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.to("cpu", copy=True)
     return t.cpu().numpy().copy() if t.device.type == "cpu" else \
         t.cpu().numpy()
 
@@ -240,8 +277,7 @@ def _copy_named(dst: dict, tree, cfg, what: str) -> None:
                        f"are in one tree only")
     with torch.no_grad():
         for name, t in dst.items():
-            a = np.asarray(src[name])
-            a = torch.from_numpy(a if a.flags.writeable else a.copy())
+            a = to_torch(src[name])
             if a.shape != t.shape:
                 raise ValueError(f"{what}.{name}: shape {tuple(a.shape)} != "
                                  f"{tuple(t.shape)}")

@@ -68,7 +68,11 @@ CONTRACTS: Dict[str, KernelContract] = {c.name: c for c in [
         plain=binomial_step.lattice_round_plain,
         source=_CSRC + "binomial_step.cu",
         replaces="src/repro/kernels/binomial_step.py:87"),
-    # the LM kernels are float32 only, as the TPU kernels are
+    # the LM kernels' entries are float32 only, as JAX declares them.
+    # flash_attention also has a bfloat16 instance (what JAX's kernel
+    # computes for bfloat16 inputs, tests/test_kernels_attention.py:20);
+    # its bounds stand beside the wrapper (BF16_PLAIN_TOL, the mirror's
+    # MIRROR_REL_BF16), so that this registry stays equal to JAX's
     KernelContract(
         name="flash_attention",
         wrapper=flash_attention.flash_attention,

@@ -1,8 +1,9 @@
 """GQA flash attention (causal or not, optionally sliding-window) on the card.
 
 Port of the JAX package's ``kernels/flash_attention.py`` (Pallas kernel
-``_fa_kernel``): ``q (B, T, H, hd)``, ``k, v (B, S, KVH, hd)``, float32,
-give ``(B, T, H, hd)``; query head ``h`` reads KV head ``h // (H / KVH)``.
+``_fa_kernel``): ``q (B, T, H, hd)``, ``k, v (B, S, KVH, hd)``, float32
+or bfloat16, give ``(B, T, H, hd)`` in their type; query head ``h``
+reads KV head ``h // (H / KVH)``.
 Positions start at 0 for queries and keys alike (a prefill); a key is
 live for a query if ``pos_q >= pos_k`` (``causal``) and
 ``pos_q - pos_k < window`` (``window`` not None).
@@ -26,6 +27,20 @@ each MMA's alignment and truncation as the tensor cores do them, its
 tile walk, its k-step order, the base-2 softmax): the kernel is held to it at the float32 contract's
 2e-6 (``kernels/contracts.py``), the bound between two lowerings of one
 algorithm.
+
+The bfloat16 instance (``flash_attention_launch_bf16``) computes what
+``_fa_kernel`` and ``_attn_flash`` compute for bfloat16 inputs: float32
+scores, ``m``, ``l`` and PV sums, ``p`` rounded to bfloat16 for PV while
+``l`` sums the unrounded ``p``, the output rounded to bfloat16.  Its
+products are single bfloat16 MMAs (``mma.sync.m16n8k16``), its tiles
+``KERNEL_TILES_BF16``.  The plain version takes bfloat16 inputs with the
+same rounding (``flash_attention_plain``), and so does the mirror, which
+follows the kernel's tiles, k-steps and base-2 softmax and gives, beside
+its output, the slack that bounds the kernel's distance from it
+(``mirror_bound_bf16``).  Its bounds stand beside the wrapper:
+``BF16_PLAIN_TOL`` (JAX's own bfloat16 kernel test) and the mirror's
+derived bound; the registry (``kernels/contracts.py``) keeps JAX's
+float32-only entry.
 """
 from __future__ import annotations
 
@@ -37,30 +52,59 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "flash_attention_mirror", "mask_bias", "kv_tile_range", "tf32",
-           "split_tf32", "mma3_steps", "qk_steps", "LAUNCHES",
-           "KERNEL_HEAD_DIMS", "KERNEL_TILES"]
+           "flash_attention_mirror", "mirror_bound_bf16", "bf16_ulp",
+           "mask_bias", "kv_tile_range", "tf32", "split_tf32", "mma3_steps",
+           "qk_steps", "LAUNCHES", "KERNEL_HEAD_DIMS", "KERNEL_TILES",
+           "KERNEL_TILES_BF16", "BF16_PLAIN_TOL", "MIRROR_REL_BF16"]
 
-# kernel launches (never bumped by the plain version)
-LAUNCHES = {"flash_attention": 0}
+# kernel launches by instance (never bumped by the plain version)
+LAUNCHES = {"flash_attention": 0, "flash_attention.bfloat16": 0}
 # (q rows, keys) of a tile of the kernel, per head_dim
 KERNEL_TILES = {64: (64, 32), 128: (64, 32), 256: (64, 32)}
 KERNEL_HEAD_DIMS = tuple(KERNEL_TILES)
+# the bfloat16 instance's tiles: half the bytes hold twice the keys, but
+# at hd 256, where O takes 128 registers a thread
+KERNEL_TILES_BF16 = {64: (64, 64), 128: (64, 64), 256: (64, 32)}
 _MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
+# the bfloat16 instance against its plain version: the bound of the JAX
+# package's own bfloat16 kernel test (tests/test_kernels_attention.py:20)
+BF16_PLAIN_TOL = 2e-2
+# against its mirror (mirror_bound_bf16): the kernel and the mirror form
+# the same bfloat16 products and sum them in float32 over the same tiles
+# and k-steps, so before the output's rounding they differ by float32
+# rounding alone: the MMA's internal accumulation and exp2's last bits,
+# a few parts in 2**22 of each term.  Two consequences are bounded with a
+# wide margin, at this relative size: a float32 difference of every PV
+# term (the sum of p |v| / l), and a flip of p's rounding to bfloat16
+# where p lies this close to a rounding boundary (one bfloat16 ulp of p,
+# times |v| / l).  Rounding the output to bfloat16 adds one ulp.
+MIRROR_REL_BF16 = 2.0 ** -14
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _I, _I, _I, ctypes.c_float, _P]}
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_SIGNATURES = {"flash_attention_launch": _ARGS,
+               "flash_attention_launch_bf16": _ARGS}
+
+
+# the C entry and the launch count of each instance
+_ENTRIES = {torch.float32: ("flash_attention_launch", "flash_attention"),
+            torch.bfloat16: ("flash_attention_launch_bf16",
+                             "flash_attention.bfloat16")}
+
+
+def _tiles(hd: int, dtype=torch.float32):
+    return (KERNEL_TILES_BF16 if dtype == torch.bfloat16
+            else KERNEL_TILES)[hd]
 
 
 def kv_tile_range(q0: int, T: int, S: int, hd: int, *, causal: bool,
-                  window) -> range:
-    """The KV tiles that the kernel walks at head_dim ``hd`` for the q
-    tile of rows ``q0..`` (cut at ``T``): all but those that the causal
-    triangle, the window or the end of ``S`` leave without a live key
-    for any of its rows."""
-    bq, bkv = KERNEL_TILES[hd]
+                  window, dtype=torch.float32) -> range:
+    """The KV tiles that the kernel's ``dtype`` instance walks at head_dim
+    ``hd`` for the q tile of rows ``q0..`` (cut at ``T``): all but those
+    that the causal triangle, the window or the end of ``S`` leave
+    without a live key for any of its rows."""
+    bq, bkv = _tiles(hd, dtype)
     q_last = min(q0 + bq, T) - 1
     lo = (q0 - window + 1) // bkv if window and q0 - window + 1 > 0 else 0
     hi = -(-S // bkv) - 1
@@ -83,7 +127,11 @@ def mask_bias(pos_q, pos_k, *, causal: bool, window, neg: float = _MASK_NEG):
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
                           q_chunk: int = 1024, kv_chunk: int = 1024):
     """Plain PyTorch version: ``_attn_flash``'s online softmax over KV
-    chunks, one q chunk at a time (a ragged last chunk is allowed)."""
+    chunks, one q chunk at a time (a ragged last chunk is allowed).  For
+    bfloat16 inputs, ``_attn_flash``'s rounding: float32 scores, ``m``,
+    ``l`` and PV sums (the operands upcast: their products are exact in
+    float32), ``p`` rounded to ``v``'s type for PV while ``l`` sums it
+    unrounded, the output rounded to ``q``'s type."""
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -93,7 +141,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     pos_k = torch.arange(S, device=q.device)
     out = torch.empty_like(qg)
     for q0 in range(0, T, q_chunk):
-        qi = qg[:, q0:q0 + q_chunk]
+        qi = qg[:, q0:q0 + q_chunk].float()
         cq = qi.shape[1]
         m = torch.full((B, KVH, G, cq), -math.inf, dtype=torch.float32,
                        device=q.device)
@@ -101,7 +149,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
         acc = torch.zeros((B, cq, KVH, G, hd), dtype=torch.float32,
                           device=q.device)
         for k0 in range(0, S, kv_chunk):
-            kj, vj = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            kj = k[:, k0:k0 + kv_chunk].float()
+            vj = v[:, k0:k0 + kv_chunk].float()
             bias = mask_bias(pos_q[q0:q0 + cq], pos_k[k0:k0 + kv_chunk],
                              causal=causal, window=window)
             s = torch.einsum("bqkgh,bskh->bkgqs", qi, kj) * scale + bias
@@ -109,7 +158,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskh->bqkgh", p, vj)
+            pv = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), vj)
             acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
             m = m_new
         l = torch.clamp_min(l, 1e-30)
@@ -189,22 +238,149 @@ def qk_steps(hd: int):
             for h0 in (0, hd // 2)]
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 values at ``|x|`` (8 significant bits), as
+    float32; at least that of the smallest normal."""
+    e = torch.frexp(x.float().abs())[1]
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       torch.clamp_min(e - 8, -133))
+
+
+def mirror_bound_bf16(got, want, slack):
+    """The elementwise bound of the bfloat16 kernel's distance from its
+    mirror: one bfloat16 ulp of the larger magnitude (the output's
+    rounding) plus the mirror's ``slack`` (``MIRROR_REL_BF16``)."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    return bf16_ulp(big) + slack
+
+
+def _mma16(acc, a, b, tensor_core: bool):
+    """``acc + a @ b`` over one k-step of 16 bfloat16 products: as the
+    tensor cores round an MMA (:func:`_mma`, the 16 products in one
+    alignment), or summed in float32 and added to nearest."""
+    if tensor_core:
+        return _mma(acc.double(), a, b).float()
+    return acc + a @ b
+
+
+def _row_span(rows, T: int, bq: int):
+    """The query rows ``r0..r1-1`` a mirror computes (all if ``rows`` is
+    None); ``r0`` must start one of the kernel's q tiles."""
+    r0, r1 = (0, T) if rows is None else rows
+    if not (0 <= r0 < r1 <= T) or r0 % bq:
+        raise ValueError(f"rows {rows} must start a {bq}-row q tile and "
+                         f"lie within 0..{T}")
+    return r0, r1
+
+
+def _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack,
+                 rows=None):
+    """The bfloat16 instance's arithmetic: ``KERNEL_TILES_BF16`` tiles,
+    the KV tiles of :func:`kv_tile_range`, S in k-steps of 16 dims, the
+    base-2 softmax in float32, ``p`` rounded to bfloat16 (nearest even)
+    for PV in k-steps of 16 keys while ``l`` sums it unrounded, ``out =
+    acc / max(l, 1e-30)`` rounded to bfloat16.  With ``with_slack`` also
+    the slack of :data:`MIRROR_REL_BF16`: over the PV terms, ``(sum of
+    one bfloat16 ulp of p over the p within that relative distance of a
+    rounding boundary, times |v|) + MIRROR_REL_BF16 * sum of p |v|``,
+    over ``l``."""
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    bq, bkv = KERNEL_TILES_BF16[hd]
+    r0, r1 = _row_span(rows, T, bq)
+    dev = q.device
+    neg = _MASK_NEG
+    rel = MIRROR_REL_BF16
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+                  * torch.tensor(math.log2(math.e), dtype=torch.float32)
+                  ).to(dev)
+    qg = q.float().reshape(B, T, KVH, G, hd).permute(0, 2, 3, 1, 4)
+    kg, vg = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+
+    def pad(x, n):      # zero-fill axis -2 to n rows
+        return torch.cat([x, x.new_zeros(x.shape[:-2] + (n - x.shape[-2],)
+                                         + x.shape[-1:])], dim=-2)
+
+    span = qg.shape[:3] + (r1 - r0, hd)
+    out = torch.empty(span, dtype=torch.bfloat16, device=dev)
+    slack = torch.zeros(span, dtype=torch.float32, device=dev)
+    for q0 in range(r0, r1, bq):
+        qt = pad(qg[..., q0:q0 + bq, :], bq)
+        pq = torch.arange(q0, q0 + bq, device=dev)[:, None]
+        m = torch.full((B, KVH, G, bq), neg, device=dev)
+        l = torch.zeros(B, KVH, G, bq, device=dev)
+        acc = torch.zeros(B, KVH, G, bq, hd, device=dev)
+        risk, absacc = torch.zeros_like(acc), torch.zeros_like(acc)
+        for j in kv_tile_range(q0, T, S, hd, causal=causal, window=window,
+                               dtype=torch.bfloat16):
+            k0 = j * bkv
+            kt = pad(kg[..., k0:k0 + bkv, :], bkv)[:, :, None]
+            vt = pad(vg[..., k0:k0 + bkv, :], bkv)[:, :, None]
+            st = torch.zeros(B, KVH, G, bq, bkv, device=dev)
+            for d0 in range(0, hd, 16):
+                st = _mma16(st, qt[..., d0:d0 + 16],
+                            kt[..., d0:d0 + 16].transpose(-1, -2),
+                            tensor_core)
+            pk = torch.arange(k0, k0 + bkv, device=dev)[None, :]
+            live = pk < S
+            if causal:
+                live = live & (pq >= pk)
+            if window is not None:
+                live = live & (pq - pk < window)
+            st = torch.where(live, st * scale_log2, neg)
+            m_new = torch.maximum(m, st.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(st - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            pb = p.to(torch.bfloat16).float()
+            acc = acc * corr[..., None]
+            for kk in range(0, bkv, 16):
+                acc = _mma16(acc, pb[..., kk:kk + 16], vt[..., kk:kk + 16, :],
+                             tensor_core)
+            if with_slack:
+                near = ((p * (1 + rel)).to(torch.bfloat16)
+                        != (p * (1 - rel)).to(torch.bfloat16))
+                pu = torch.where(near, bf16_ulp(p), 0.0)
+                risk = risk * corr[..., None] + pu @ vt.abs()
+                absacc = absacc * corr[..., None] + p @ vt.abs()
+            m = m_new
+        den = torch.clamp_min(l, 1e-30)[..., None]
+        n = min(bq, r1 - q0)
+        out[..., q0 - r0:q0 - r0 + n, :] = (acc / den)[..., :n, :]
+        slack[..., q0 - r0:q0 - r0 + n, :] = ((risk + rel * absacc)
+                                              / den)[..., :n, :]
+    shape = lambda x: x.permute(0, 3, 1, 2, 4).reshape(B, r1 - r0, H, hd)
+    return (shape(out), shape(slack)) if with_slack else shape(out)
+
+
 def flash_attention_mirror(q, k, v, *, causal: bool = True, window=None,
-                           split: bool = True, tensor_core: bool = True):
+                           split: bool = True, tensor_core: bool = True,
+                           with_slack: bool = False, rows=None):
     """The kernel's arithmetic, tile by tile, in plain PyTorch on the
-    device of ``q``: q tiles of ``KERNEL_TILES[hd][0]`` rows, the KV tiles
+    device of ``q``.  bfloat16 inputs take the bfloat16 instance's
+    (:func:`_mirror_bf16`; ``split`` does not apply, ``with_slack`` also
+    returns the slack of its bound); float32 inputs the float32
+    instance's: q tiles of ``KERNEL_TILES[hd][0]`` rows, the KV tiles
     of :func:`kv_tile_range` only, ragged last q and KV tiles zero-filled
     and masked, masked scores ``-1e30`` and ``m`` starting at ``-1e30``,
     the online softmax in base 2 on scores scaled by ``scale * log2(e)``,
     every product in split TF32 (:func:`mma3_steps`; ``split=False``:
     single-pass TF32; ``tensor_core=False``: each MMA rounded to nearest
     in two steps, the term the kernel's distance follows), each half of
-    hd summed apart and then added, as the kernel's warp pairs do.  A Python loop over tiles: slow, for
-    small shapes."""
+    hd summed apart and then added, as the kernel's warp pairs do.
+    ``rows=(r0, r1)`` computes query rows ``r0..r1-1`` only (``r0`` at
+    the start of a q tile), as the kernel computes them in the whole
+    ``q``.  A Python loop over tiles: slow, for small shapes or a few
+    rows."""
+    if q.dtype == torch.bfloat16:
+        return _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack,
+                            rows)
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     bq, bkv = KERNEL_TILES[hd]
+    r0, r1 = _row_span(rows, T, bq)
     dev = q.device
     neg = _MASK_NEG
     scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
@@ -219,8 +395,8 @@ def flash_attention_mirror(q, k, v, *, causal: bool = True, window=None,
         return torch.cat([x, x.new_zeros(x.shape[:-2] + (n - x.shape[-2],)
                                          + x.shape[-1:])], dim=-2)
 
-    out = torch.empty_like(qg)
-    for q0 in range(0, T, bq):
+    out = qg.new_empty(qg.shape[:3] + (r1 - r0, hd))
+    for q0 in range(r0, r1, bq):
         qt = pad(qg[..., q0:q0 + bq, :], bq)
         pq = torch.arange(q0, q0 + bq, device=dev)[:, None]
         m = torch.full((B, KVH, G, bq), neg, device=dev)
@@ -249,9 +425,9 @@ def flash_attention_mirror(q, k, v, *, causal: bool = True, window=None,
                              split=split, tensor_core=tensor_core)
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        rows = min(bq, T - q0)
-        out[..., q0:q0 + rows, :] = o[..., :rows, :]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+        n = min(bq, r1 - q0)
+        out[..., q0 - r0:q0 - r0 + n, :] = o[..., :n, :]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, r1 - r0, H, hd)
 
 
 def _check(q, k, v, window):
@@ -261,8 +437,9 @@ def _check(q, k, v, window):
     B, T, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2] != 0:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if any(x.dtype != torch.float32 for x in (q, k, v)):
-        raise TypeError("flash_attention takes float32 tensors")
+    if q.dtype not in _ENTRIES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention takes float32 or bfloat16 tensors "
+                        f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if window is not None and window < 1:
@@ -282,29 +459,32 @@ def _launch(q, k, v, causal: bool, window):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("the flash_attention kernel takes contiguous, "
                              "16-byte aligned tensors")
+    entry, _ = _ENTRIES[q.dtype]
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_launch(
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H,
         KVH, hd, int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(hd), stream)
-    _build.check(err, "flash_attention_launch")
+    _build.check(err, entry)
     return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Attention over positions ``0..T-1`` (queries) and ``0..S-1`` (keys):
-    the kernel on a CUDA tensor, the plain version on a CPU tensor.  It
-    has no backward (JAX's Pallas kernel has none either), so it raises on
-    inputs that require grad in grad mode: a model trains with
+    the kernel's float32 or bfloat16 instance on a CUDA tensor (counted
+    under ``LAUNCHES["flash_attention"]`` or
+    ``["flash_attention.bfloat16"]``), the plain version on a CPU tensor.
+    It has no backward (JAX's Pallas kernel has none either), so it raises
+    on inputs that require grad in grad mode: a model trains with
     ``RunCfg(impl="naive")``."""
     _check(q, k, v, window)
     _build.refuse_grad("flash_attention (train with RunCfg(impl='naive'))",
                        q, k, v)
     if q.device.type == "cuda":
         out = _launch(q, k, v, causal, window)
-        LAUNCHES["flash_attention"] += 1
+        LAUNCHES[_ENTRIES[q.dtype][1]] += 1
         return out
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -66,7 +66,8 @@ def price_notc_kernel(model: LatticeModel, strike: float, *,
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Causal/windowed GQA flash attention over positions from 0.
 
-    q: (B, T, H, hd);  k, v: (B, S, KVH, hd);  returns (B, T, H, hd).
+    q: (B, T, H, hd);  k, v: (B, S, KVH, hd), float32 or bfloat16 (the
+    kernel's instance of that type);  returns (B, T, H, hd) in their type.
     """
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 

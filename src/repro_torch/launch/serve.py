@@ -53,7 +53,8 @@ def main(argv=None):
         convert.load_lm_params(model, state.params, cfg)
         print(f"restored params from {args.ckpt}")
     max_len = args.prompt_len + args.new_tokens
-    eng = LMEngine(model, cfg, RunCfg(), batch=args.batch, max_len=max_len)
+    eng = LMEngine(model, cfg, RunCfg(dtype=torch.float32), batch=args.batch,
+                   max_len=max_len)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev).cpu().numpy()
     enc = None

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from ..configs import get_config, reduced_config
 from ..models.transformer import RunCfg
 from ..train.trainer import TrainerConfig, train
@@ -50,7 +52,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    run = RunCfg(impl="naive", remat=args.remat, moe_impl=args.moe_impl)
+    run = RunCfg(impl="naive", dtype=torch.float32, remat=args.remat,
+                 moe_impl=args.moe_impl)
     tc = TrainerConfig(steps=args.steps, global_batch=args.batch,
                        seq_len=args.seq, n_micro=args.micro,
                        peak_lr=args.lr, ckpt_dir=args.ckpt,

@@ -7,8 +7,19 @@ used as ``x @ w``), under the JAX leaf names, so that converting a JAX
 tree is a copy; the apply functions take a container and read its
 leaves, as the JAX functions read a params dict.
 
-Compute is float32, the type of the port's kernels.  Two calls go to
-the kernels where the JAX model calls their references:
+Compute follows JAX's dtype policy: the leaves are stored in float32
+or in a narrower type, and every apply function casts each weight to
+its ``dtype`` (JAX's ``cast = lambda w: w.astype(dtype)``; default
+``DEFAULT_DTYPE``, bfloat16, as JAX's) where it uses it.  JAX's float32
+islands stay float32: ``rmsnorm`` and ``_qk_head_norm`` (normalised in
+float32, rounded back to the input's type), rotary embedding (float32
+angles, rounded back), the attention scores, softmax and PV sums (JAX's
+``preferred_element_type=float32``: the products of bfloat16 values are
+exact in float32, so the port upcasts the operands and multiplies in
+float32, rounding ``w`` to ``v``'s type before PV and the output after
+it, where JAX does), the RG-LRU coefficients and recurrence, mamba's
+``delta``, ``bx``, state and ``y``, the router's softmax.  Two calls go
+to the kernels where the JAX model calls their references:
 
 * ``attention(impl="flash")`` with ``T > 1`` and no cached K/V calls
   ``ops.flash_attention`` (JAX: ``_attn_flash``): causal self attention
@@ -37,16 +48,18 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from ..kernels.flash_attention import mask_bias as _mask_bias
 
-__all__ = ["RMSNorm", "Attention", "MLP", "MoE", "RGLRU", "Mamba",
-           "dense_init_", "rmsnorm", "apply_rope", "attention", "mlp",
+__all__ = ["DEFAULT_DTYPE", "RMSNorm", "Attention", "MLP", "MoE", "RGLRU",
+           "Mamba", "dense_init_", "rmsnorm", "apply_rope", "attention", "mlp",
            "moe_route", "moe_dense", "router_aux", "rglru_block",
            "mamba_block"]
 
 _RGLRU_C = 8.0
+# JAX's DEFAULT_DTYPE: the compute type of every apply function
+DEFAULT_DTYPE = torch.bfloat16
 
 
-def _leaf(*shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
+def _leaf(*shape, device, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
 
@@ -55,42 +68,50 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
     """Fill ``w`` as the JAX package's ``_dense_init``: a normal truncated
     to [-2, 2], times ``scale / sqrt(fan_in)`` with ``fan_in =
     w.shape[in_axis]`` (the inverse normal CDF of a uniform draw, as
-    ``trunc_normal_`` does)."""
+    ``trunc_normal_`` does).  A leaf of a narrower type is drawn in a
+    float32 buffer of its shape and stored rounded (JAX: ``init_lm``,
+    then ``astype``), so it holds the float32 draw's values rounded."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     std = scale / math.sqrt(w.shape[in_axis])
-    w.uniform_(2.0 * lo - 1.0, 1.0 - 2.0 * lo, generator=generator)
-    w.erfinv_().mul_(math.sqrt(2.0) * std)
-    w.clamp_(-2.0 * std, 2.0 * std)
+    buf = w if w.dtype == torch.float32 else torch.empty(
+        w.shape, dtype=torch.float32, device=w.device)
+    buf.uniform_(2.0 * lo - 1.0, 1.0 - 2.0 * lo, generator=generator)
+    buf.erfinv_().mul_(math.sqrt(2.0) * std)
+    buf.clamp_(-2.0 * std, 2.0 * std)
+    if buf is not w:
+        w.copy_(buf)
 
 
 # --------------------------------------------------------------------- #
 # weight containers
 # --------------------------------------------------------------------- #
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, *, device):
+    def __init__(self, d: int, *, device,
+                 dtype=torch.float32):
         super().__init__()
-        self.scale = _leaf(d, device=device)
+        self.scale = _leaf(d, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         self.scale.fill_(1.0)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, cfg: ModelConfig, *, device,
+                 dtype=torch.float32):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         h, kvh = cfg.n_heads, cfg.n_kv_heads
-        self.wq = _leaf(d, h * hd, device=device)
-        self.wk = _leaf(d, kvh * hd, device=device)
-        self.wv = _leaf(d, kvh * hd, device=device)
-        self.wo = _leaf(h * hd, d, device=device)
+        self.wq = _leaf(d, h * hd, device=device, dtype=dtype)
+        self.wk = _leaf(d, kvh * hd, device=device, dtype=dtype)
+        self.wv = _leaf(d, kvh * hd, device=device, dtype=dtype)
+        self.wo = _leaf(h * hd, d, device=device, dtype=dtype)
         if cfg.qkv_bias:
-            self.bq = _leaf(h * hd, device=device)
-            self.bk = _leaf(kvh * hd, device=device)
-            self.bv = _leaf(kvh * hd, device=device)
+            self.bq = _leaf(h * hd, device=device, dtype=dtype)
+            self.bk = _leaf(kvh * hd, device=device, dtype=dtype)
+            self.bv = _leaf(kvh * hd, device=device, dtype=dtype)
         if cfg.qk_norm:
-            self.q_norm = _leaf(hd, device=device)
-            self.k_norm = _leaf(hd, device=device)
+            self.q_norm = _leaf(hd, device=device, dtype=dtype)
+            self.k_norm = _leaf(hd, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -104,11 +125,12 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     """Gated feed-forward (``swiglu`` or gated ``gelu``)."""
 
-    def __init__(self, d: int, f: int, *, device):
+    def __init__(self, d: int, f: int, *, device,
+                 dtype=torch.float32):
         super().__init__()
-        self.wi = _leaf(d, f, device=device)
-        self.wg = _leaf(d, f, device=device)
-        self.wo = _leaf(f, d, device=device)
+        self.wi = _leaf(d, f, device=device, dtype=dtype)
+        self.wg = _leaf(d, f, device=device, dtype=dtype)
+        self.wo = _leaf(f, d, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         for w in (self.wi, self.wg, self.wo):
@@ -120,15 +142,17 @@ class MoE(nn.Module):
     ``wg (E, d, f)`` and ``wo (E, f, d)``, and where the config has one,
     a ``shared`` gated MLP of ``cfg.d_ff``."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, cfg: ModelConfig, *, device,
+                 dtype=torch.float32):
         super().__init__()
         d, e = cfg.d_model, cfg.moe
-        self.router = _leaf(d, e.num_experts, device=device)
-        self.wi = _leaf(e.num_experts, d, e.d_ff_expert, device=device)
-        self.wg = _leaf(e.num_experts, d, e.d_ff_expert, device=device)
-        self.wo = _leaf(e.num_experts, e.d_ff_expert, d, device=device)
+        self.router = _leaf(d, e.num_experts, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.wi = _leaf(e.num_experts, d, e.d_ff_expert, **kw)
+        self.wg = _leaf(e.num_experts, d, e.d_ff_expert, **kw)
+        self.wo = _leaf(e.num_experts, e.d_ff_expert, d, **kw)
         if e.shared_expert:
-            self.shared = MLP(d, cfg.d_ff, device=device)
+            self.shared = MLP(d, cfg.d_ff, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         dense_init_(self.router, generator)
@@ -137,16 +161,17 @@ class MoE(nn.Module):
 
 
 class RGLRU(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, cfg: ModelConfig, *, device,
+                 dtype=torch.float32):
         super().__init__()
         d, w, dc = cfg.d_model, cfg.lru_width, cfg.recurrent.d_conv
-        self.w_in = _leaf(d, w, device=device)
-        self.w_gate = _leaf(d, w, device=device)
-        self.conv = _leaf(dc, w, device=device)
-        self.lam = _leaf(w, device=device)
-        self.w_ig = _leaf(w, device=device)
-        self.w_rg = _leaf(w, device=device)
-        self.w_out = _leaf(w, d, device=device)
+        self.w_in = _leaf(d, w, device=device, dtype=dtype)
+        self.w_gate = _leaf(d, w, device=device, dtype=dtype)
+        self.conv = _leaf(dc, w, device=device, dtype=dtype)
+        self.lam = _leaf(w, device=device, dtype=dtype)
+        self.w_ig = _leaf(w, device=device, dtype=dtype)
+        self.w_rg = _leaf(w, device=device, dtype=dtype)
+        self.w_out = _leaf(w, d, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         dense_init_(self.w_in, generator)
@@ -163,19 +188,20 @@ class Mamba(nn.Module):
     leaves: ``di = expand * d``, ``ds = d_state``, ``dtr = dt_rank``
     (default ``ceil(d / 16)``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, cfg: ModelConfig, *, device,
+                 dtype=torch.float32):
         super().__init__()
         d, s = cfg.d_model, cfg.ssm
         di, ds = s.expand * d, s.d_state
         dtr = s.dt_rank or -(-d // 16)
-        self.in_proj = _leaf(d, 2 * di, device=device)
-        self.conv = _leaf(s.d_conv, di, device=device)
-        self.x_proj = _leaf(di, dtr + 2 * ds, device=device)
-        self.dt_proj = _leaf(dtr, di, device=device)
-        self.dt_bias = _leaf(di, device=device)
-        self.A_log = _leaf(di, ds, device=device)
-        self.D = _leaf(di, device=device)
-        self.out_proj = _leaf(di, d, device=device)
+        self.in_proj = _leaf(d, 2 * di, device=device, dtype=dtype)
+        self.conv = _leaf(s.d_conv, di, device=device, dtype=dtype)
+        self.x_proj = _leaf(di, dtr + 2 * ds, device=device, dtype=dtype)
+        self.dt_proj = _leaf(dtr, di, device=device, dtype=dtype)
+        self.dt_bias = _leaf(di, device=device, dtype=dtype)
+        self.A_log = _leaf(di, ds, device=device, dtype=dtype)
+        self.D = _leaf(di, device=device, dtype=dtype)
+        self.out_proj = _leaf(di, d, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         dense_init_(self.in_proj, generator)
@@ -194,12 +220,15 @@ class Mamba(nn.Module):
 # norms and rotary position embedding
 # --------------------------------------------------------------------- #
 def rmsnorm(p: RMSNorm, x, eps: float = 1e-6):
-    var = x.square().mean(dim=-1, keepdim=True)
-    return x * torch.rsqrt(var + eps) * p.scale
+    """Normalised in float32, rounded back to ``x``'s type (JAX's)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p.scale).to(x.dtype)
 
 
 def apply_rope(x, positions, theta: float):
-    """x: (B, T, H, hd), positions: (B, T) or (T,)."""
+    """x: (B, T, H, hd), positions: (B, T) or (T,).  Float32 angles; the
+    rotation is formed in float32 and rounded back to ``x``'s type."""
     half = x.shape[-1] // 2
     freq = theta ** (-torch.arange(half, dtype=torch.float32,
                                    device=x.device) / half)
@@ -208,45 +237,51 @@ def apply_rope(x, positions, theta: float):
     ang = positions[..., None].to(torch.float32) * freq
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
 
 
 # --------------------------------------------------------------------- #
 # attention
 # --------------------------------------------------------------------- #
 def _qk_head_norm(x, scale, eps: float):
-    var = x.square().mean(dim=-1, keepdim=True)
-    return x * torch.rsqrt(var + eps) * scale
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def _attn_naive(q, k, v, bias):
-    """q: (B,T,KVH,G,hd)  k,v: (B,S,KVH,hd)  bias: (T,S) additive."""
+    """q: (B,T,KVH,G,hd)  k,v: (B,S,KVH,hd)  bias: (T,S) additive.  JAX's:
+    float32 scores and PV sums (``preferred_element_type``: the operands
+    are upcast, their products exact), the weights rounded to ``v``'s
+    type before PV, the output after it."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("btkgh,bskh->bkgts", q, k) * scale + bias
-    w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgts,bskh->btkgh", w, v)
+    scores = torch.einsum("btkgh,bskh->bkgts", q.float(), k.float()) * scale
+    w = torch.softmax(scores + bias, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", w.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
 
 
-def _project_q(p: Attention, x, cfg: ModelConfig):
+def _project_q(p: Attention, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
     """Q of ``x (B, T, D)`` as ``(B, T, KVH, G, hd)``, with bias and
     qk-norm as the config has them."""
     B, T, _ = x.shape
     kvh = cfg.n_kv_heads
-    q = x @ p.wq
+    q = x @ p.wq.to(dtype)
     if cfg.qkv_bias:
-        q = q + p.bq
+        q = q + p.bq.to(dtype)
     q = q.reshape(B, T, kvh, cfg.n_heads // kvh, cfg.resolved_head_dim)
     if cfg.qk_norm:
         q = _qk_head_norm(q, p.q_norm, cfg.norm_eps)
     return q
 
 
-def _project_kv(p: Attention, src, cfg: ModelConfig):
+def _project_kv(p: Attention, src, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
     """K and V of ``src (B, S, D)`` as ``(B, S, KVH, hd)`` each."""
     B, S, _ = src.shape
-    k, v = src @ p.wk, src @ p.wv
+    k, v = src @ p.wk.to(dtype), src @ p.wv.to(dtype)
     if cfg.qkv_bias:
-        k, v = k + p.bk, v + p.bv
+        k, v = k + p.bk.to(dtype), v + p.bv.to(dtype)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     if cfg.qk_norm:
@@ -254,14 +289,14 @@ def _project_kv(p: Attention, src, cfg: ModelConfig):
     return k, v
 
 
-def _project_qkv(p: Attention, x, cfg: ModelConfig):
-    return (_project_q(p, x, cfg),) + _project_kv(p, x, cfg)
+def _project_qkv(p: Attention, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
+    return (_project_q(p, x, cfg, dtype),) + _project_kv(p, x, cfg, dtype)
 
 
 def attention(p: Attention, x, cfg: ModelConfig, *, kv=None, x_kv=None,
               positions=None, causal: bool = True,
               window: Optional[int] = None, impl: str = "flash",
-              use_rope: Optional[bool] = None):
+              dtype=DEFAULT_DTYPE, use_rope: Optional[bool] = None):
     """Self or cross attention of ``x (B, T, D)``, JAX's ``attention``.
 
     ``x_kv`` (B, S, D): K and V are projected from it (cross attention
@@ -273,16 +308,17 @@ def attention(p: Attention, x, cfg: ModelConfig, *, kv=None, x_kv=None,
     cross attention against its cache passes False), and never to a
     cached K.  Returns ``(out, (k, v))`` so callers can build caches.
     ``impl="flash"`` with ``T > 1`` and no ``kv`` runs the flash kernel
-    over positions from 0; ``"naive"`` materialises the scores."""
+    over positions from 0; ``"naive"`` materialises the scores.  The
+    weights and a cached K/V are cast to ``dtype``."""
     if impl not in ("flash", "naive"):
         raise ValueError(f"impl must be 'flash' or 'naive', got {impl!r}")
     B, T, _ = x.shape
     hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
     g = cfg.n_heads // kvh
-    q = _project_q(p, x, cfg)
+    q = _project_q(p, x, cfg, dtype)
     # a cached K/V is attended to as it is; JAX projects x and drops it
-    k, v = kv if kv is not None else _project_kv(
-        p, x if x_kv is None else x_kv, cfg)
+    k, v = (tuple(t.to(dtype) for t in kv) if kv is not None else
+            _project_kv(p, x if x_kv is None else x_kv, cfg, dtype))
     if positions is None:
         positions = torch.arange(T, device=x.device)
     if use_rope is None:
@@ -305,31 +341,56 @@ def attention(p: Attention, x, cfg: ModelConfig, *, kv=None, x_kv=None,
                  if x_kv is not None else positions)
         bias = _mask_bias(positions, pos_k, causal=causal, window=window)
         out = _attn_naive(q, k, v, bias)
-    return out.reshape(B, T, cfg.n_heads * hd) @ p.wo, (k, v)
+    return out.reshape(B, T, cfg.n_heads * hd) @ p.wo.to(dtype), (k, v)
 
 
 # --------------------------------------------------------------------- #
 # feed-forward
 # --------------------------------------------------------------------- #
-def mlp(p: MLP, x, kind: str):
-    gate = x @ p.wg
-    act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
-    return (act * (x @ p.wi)) @ p.wo
+def silu(x):
+    """``jax.nn.silu``.  In float32 ``F.silu``; in a narrower type the
+    primitives JAX's compiled graph rounds after, each in ``x``'s type:
+    ``x * (1 / (1 + exp(-x)))`` (XLA's logistic).  ``F.silu`` rounds
+    once, and a third of bfloat16 values would land a rounding away: the
+    layers would no longer be held bit for bit to JAX's.  The extra
+    passes cost 8% of qwen3-4b's bfloat16 prefill and 26% of
+    recurrentgemma-2b's on an H100 (``tools/bf16_activation_cost.py``;
+    PERF.md)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def moe_route(p: MoE, x, cfg: ModelConfig):
+def gelu(x):
+    """``jax.nn.gelu`` (the tanh form), as :func:`silu`: ``F.gelu`` in
+    float32, JAX's primitives in a narrower type, its constants rounded
+    to that type as JAX's weakly typed constants are."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * x ** 3)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def mlp(p: MLP, x, kind: str, dtype=DEFAULT_DTYPE):
+    gate = x @ p.wg.to(dtype)
+    act = silu(gate) if kind == "swiglu" else gelu(gate)
+    return (act * (x @ p.wi.to(dtype))) @ p.wo.to(dtype)
+
+
+def moe_route(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
     """The router: float32 softmax over ``x @ router`` and its top-k.
     Returns ``(probs (..., E), top_v, top_i (..., k))``."""
-    probs = torch.softmax((x @ p.router).float(), dim=-1)
+    probs = torch.softmax((x @ p.router.to(dtype)).float(), dim=-1)
     top_v, top_i = torch.topk(probs, cfg.moe.top_k, dim=-1)
     return probs, top_v, top_i
 
 
-def moe_dense(p: MoE, x, cfg: ModelConfig):
+def moe_dense(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
     """JAX's ``moe_dense``: every expert on every token of ``x (B, S,
-    D)``, mixed by the top-k gates normalised by ``max(sum, 1e-9)``,
-    plus the shared expert.  Returns ``(out, aux)``, ``aux`` the
-    router's load-balancing loss.
+    D)``, mixed by the top-k gates normalised by ``max(sum, 1e-9)`` (in
+    float32, rounded to ``dtype`` for the mix), plus the shared expert.
+    Returns ``(out, aux)``, ``aux`` the router's load-balancing loss.
 
     The expert products are batched matrix products over the experts
     with the tokens broadcast, so each expert's weights are read where
@@ -339,23 +400,25 @@ def moe_dense(p: MoE, x, cfg: ModelConfig):
     in place."""
     e = cfg.moe
     B, S, d = x.shape
-    probs, top_v, top_i = moe_route(p, x, cfg)
+    probs, top_v, top_i = moe_route(p, x, cfg, dtype)
     gates = torch.zeros_like(probs).scatter_(-1, top_i, top_v)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     xs = x.reshape(1, B * S, d)
-    up = torch.matmul(xs, p.wi)                         # (E, B * S, f)
-    act = torch.matmul(xs, p.wg)
-    act = (F.silu(act, inplace=True) if cfg.mlp_kind == "swiglu"
-           else F.gelu(act, approximate="tanh"))
+    up = torch.matmul(xs, p.wi.to(dtype))               # (E, B * S, f)
+    act = torch.matmul(xs, p.wg.to(dtype))
+    if act.dtype == torch.float32 and cfg.mlp_kind == "swiglu":
+        F.silu(act, inplace=True)
+    else:
+        act = silu(act) if cfg.mlp_kind == "swiglu" else gelu(act)
     act.mul_(up)
     del up
-    y = torch.matmul(act, p.wo)                         # (E, B * S, d)
+    y = torch.matmul(act, p.wo.to(dtype))               # (E, B * S, d)
     del act
     out = torch.einsum("end,ne->nd", y, gates.reshape(B * S, e.num_experts)
-                       .to(x.dtype)).reshape(B, S, d)
+                       .to(dtype)).reshape(B, S, d)
     if e.shared_expert:
-        out = out + mlp(p.shared, x, cfg.mlp_kind)
-    return out, router_aux(probs, top_i, e.num_experts)
+        out = out + mlp(p.shared, x, cfg.mlp_kind, dtype)
+    return out.to(x.dtype), router_aux(probs, top_i, e.num_experts)
 
 
 def router_aux(probs, top_i, n_exp: int):
@@ -372,29 +435,34 @@ def router_aux(probs, top_i, n_exp: int):
 # RG-LRU recurrent block (recurrentgemma / Griffin)
 # --------------------------------------------------------------------- #
 def _rglru_coeffs(p: RGLRU, xc):
-    """a_t, b_t of h_t = a_t h + b_t from the conv output xc (B, T, W)."""
-    r = torch.sigmoid(xc * p.w_rg)
-    i = torch.sigmoid(xc * p.w_ig)
+    """a_t, b_t of h_t = a_t h + b_t from the conv output xc (B, T, W), in
+    float32."""
+    xf = xc.float()
+    r = torch.sigmoid(xf * p.w_rg)
+    i = torch.sigmoid(xf * p.w_ig)
     log_a = -_RGLRU_C * F.softplus(p.lam) * r
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * xc)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * xf)
     return a, b
 
 
-def rglru_block(p: RGLRU, x, cfg: ModelConfig, *, state=None):
+def rglru_block(p: RGLRU, x, cfg: ModelConfig, *, state=None,
+                dtype=DEFAULT_DTYPE):
     """Returns ``(out, (conv_state, h_last))``; ``state`` is
-    ``(conv_state (B, d_conv-1, W), h (B, W))`` for decode."""
+    ``(conv_state (B, d_conv-1, W), h (B, W))`` for decode (``conv`` in
+    ``dtype``, ``h`` float32, as JAX's cache)."""
     B, T, _ = x.shape
     w, dc = cfg.lru_width, cfg.recurrent.d_conv
-    xb = x @ p.w_in
-    gate = x @ p.w_gate
+    xb = x @ p.w_in.to(dtype)
+    gate = x @ p.w_gate.to(dtype)
+    conv_w = p.conv.to(dtype)
     if state is None:
-        conv_state = torch.zeros(B, dc - 1, w, dtype=x.dtype, device=x.device)
+        conv_state = torch.zeros(B, dc - 1, w, dtype=dtype, device=x.device)
         h0 = torch.zeros(B, w, dtype=torch.float32, device=x.device)
     else:
         conv_state, h0 = state
     xpad = torch.cat([conv_state, xb], dim=1)
-    xc = sum(xpad[:, i:i + T, :] * p.conv[i] for i in range(dc))
+    xc = sum(xpad[:, i:i + T, :] * conv_w[i] for i in range(dc))
     # a copy: a view would keep the whole (B, T + dc - 1, W) buffer alive
     new_conv_state = xpad[:, -(dc - 1):, :].clone() if dc > 1 else conv_state
     a, b = _rglru_coeffs(p, xc)
@@ -403,16 +471,18 @@ def rglru_block(p: RGLRU, x, cfg: ModelConfig, *, state=None):
         h_seq = h_last[:, None, :]
     else:
         h_seq, h_last = ops.lru_scan(a, b, h0)
-    out = (h_seq * F.gelu(gate, approximate="tanh")) @ p.w_out
+    out = (h_seq.to(dtype) * gelu(gate)) @ p.w_out.to(dtype)
     return out, (new_conv_state, h_last)
 
 
 # --------------------------------------------------------------------- #
 # Mamba-1 selective SSM block (falcon-mamba)
 # --------------------------------------------------------------------- #
-def mamba_block(p: Mamba, x, cfg: ModelConfig, *, state=None):
+def mamba_block(p: Mamba, x, cfg: ModelConfig, *, state=None,
+                dtype=DEFAULT_DTYPE):
     """Returns ``(out, (conv_state, h_last))``; ``state`` is
-    ``(conv_state (B, d_conv-1, di), h (B, di, ds))`` for decode.
+    ``(conv_state (B, d_conv-1, di), h (B, di, ds))`` for decode
+    (``conv`` in ``dtype``, ``h`` float32).
 
     A prefill holds a few ``(B, T, di, ds)`` float32 tensors at once
     (``a``, ``bx``, ``h_seq``); each is dropped as soon as the next step
@@ -420,26 +490,28 @@ def mamba_block(p: Mamba, x, cfg: ModelConfig, *, state=None):
     B, T, _ = x.shape
     s = cfg.ssm
     di, ds = s.expand * cfg.d_model, s.d_state
-    xb, z = (x @ p.in_proj).chunk(2, dim=-1)            # (B, T, di) each
+    xb, z = (x @ p.in_proj.to(dtype)).chunk(2, dim=-1)   # (B, T, di) each
+    conv_w = p.conv.to(dtype)
     if state is None:
-        conv_state = torch.zeros(B, s.d_conv - 1, di, dtype=x.dtype,
+        conv_state = torch.zeros(B, s.d_conv - 1, di, dtype=dtype,
                                  device=x.device)
         h0 = torch.zeros(B, di, ds, dtype=torch.float32, device=x.device)
     else:
         conv_state, h0 = state
     xpad = torch.cat([conv_state, xb], dim=1)
-    xc = sum(xpad[:, i:i + T, :] * p.conv[i] for i in range(s.d_conv))
+    xc = sum(xpad[:, i:i + T, :] * conv_w[i] for i in range(s.d_conv))
     new_conv_state = xpad[:, -(s.d_conv - 1):, :].clone()
     del xpad, xb
-    xc = F.silu(xc)
+    xc = silu(xc)
 
-    proj = xc @ p.x_proj                                # (B, T, dtr + 2 ds)
+    proj = xc @ p.x_proj.to(dtype)                      # (B, T, dtr + 2 ds)
     dtr = p.dt_proj.shape[0]
     dt, Bc, Cc = proj.split([dtr, ds, ds], dim=-1)
-    delta = F.softplus(dt @ p.dt_proj + p.dt_bias)      # (B, T, di)
+    delta = F.softplus((dt @ p.dt_proj.to(dtype)).float() + p.dt_bias)
     A = -torch.exp(p.A_log)                             # (di, ds)
     a = torch.exp_(delta[..., None] * A)                # (B, T, di, ds)
-    bx = (delta * xc)[..., None] * Bc[:, :, None, :]    # (B, T, di, ds)
+    xf, Bc, Cc = xc.float(), Bc.float(), Cc.float()
+    bx = (delta * xf)[..., None] * Bc[:, :, None, :]    # (B, T, di, ds)
     del delta
     if T == 1:
         h = a[:, 0] * h0 + bx[:, 0]
@@ -454,6 +526,6 @@ def mamba_block(p: Mamba, x, cfg: ModelConfig, *, state=None):
         y = torch.matmul(h_seq.view(B, T, di, ds), Cc[..., None])[..., 0]
         del h_seq
         h_last = h_last.view(B, di, ds)
-    y = y + xc * p.D
-    out = (y * F.silu(z)) @ p.out_proj
+    y = y + xf * p.D
+    out = (y.to(dtype) * silu(z)) @ p.out_proj.to(dtype)
     return out, (new_conv_state, h_last)

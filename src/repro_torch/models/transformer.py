@@ -61,14 +61,19 @@ _REMATS = ("none", "full", "dots")
 
 @dataclasses.dataclass(frozen=True)
 class RunCfg:
-    """How the model runs.  The port computes in float32, the type of its
-    kernels (bfloat16 waits: ROADMAP Queue A #11), and defaults to
+    """How the model runs.  ``dtype`` is the compute type, JAX's
+    ``RunCfg.dtype``: bfloat16 by default, as JAX's; the weights are
+    cast to it where they are used, the activations, K/V caches and
+    convolution states are held in it, and JAX's float32 islands stay
+    float32 (``models/layers.py``).  A caller that means float32 says
+    so, as JAX's launchers and trainer do.  The port defaults to
     ``impl="flash"`` so that prefill goes through the attention kernel
-    (the JAX package defaults to bfloat16 and ``"naive"``).  The flash
-    kernel has no backward: training runs ``"naive"``, as JAX's trainer
-    does.  ``remat`` and ``moe_impl`` are JAX's training fields; expert
+    (the JAX package defaults to ``"naive"``).  The flash kernel has no
+    backward: training runs ``"naive"``, as JAX's trainer does.
+    ``remat`` and ``moe_impl`` are JAX's training fields; expert
     dispatch needs a mesh, so ``lm_loss`` refuses ``"dispatch"``."""
     impl: str = "flash"            # attention: flash | naive
+    dtype: torch.dtype = L.DEFAULT_DTYPE
     remat: str = "none"            # backward recompute: none | full | dots
     moe_impl: str = "dense"        # dense | dispatch (the mesh slice)
 
@@ -79,53 +84,56 @@ class Block(nn.Module):
     MLP or the mixture of experts (JAX's ``_init_block``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, cross: bool = False,
-                 device):
+                 device, dtype=torch.float32):
         super().__init__()
         if kind not in _KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
         self.kind = kind
-        self.norm1 = L.RMSNorm(cfg.d_model, device=device)
+        kw = dict(device=device, dtype=dtype)
+        self.norm1 = L.RMSNorm(cfg.d_model, **kw)
         if kind == "rglru":
-            self.rglru = L.RGLRU(cfg, device=device)
+            self.rglru = L.RGLRU(cfg, **kw)
         elif kind == "mamba":
-            self.mamba = L.Mamba(cfg, device=device)
+            self.mamba = L.Mamba(cfg, **kw)
         else:
-            self.attn = L.Attention(cfg, device=device)
+            self.attn = L.Attention(cfg, **kw)
         if cross:
-            self.norm_x = L.RMSNorm(cfg.d_model, device=device)
-            self.cross = L.Attention(cfg, device=device)
+            self.norm_x = L.RMSNorm(cfg.d_model, **kw)
+            self.cross = L.Attention(cfg, **kw)
         if kind != "mamba":
-            self.norm2 = L.RMSNorm(cfg.d_model, device=device)
+            self.norm2 = L.RMSNorm(cfg.d_model, **kw)
             if cfg.moe is not None:
-                self.moe = L.MoE(cfg, device=device)
+                self.moe = L.MoE(cfg, **kw)
             elif cfg.d_ff:
-                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device)
+                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, **kw)
 
 
 class LM(nn.Module):
     """The weights of an LM (uninitialised until ``init_lm`` or
-    ``convert.lm_params_from_jax`` fills them): the decoder's blocks and,
-    for an encoder-decoder config, the encoder's (``enc_blocks``,
-    ``enc_norm``; JAX's ``init_lm``)."""
+    ``convert.lm_params_from_jax`` fills them), every leaf stored in
+    ``dtype``: the decoder's blocks and, for an encoder-decoder config,
+    the encoder's (``enc_blocks``, ``enc_norm``; JAX's ``init_lm``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cpu"):
+    def __init__(self, cfg: ModelConfig, *, device="cpu",
+                 dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
         cross = cfg.n_encoder_layers > 0
-        self.embed = nn.Parameter(torch.empty(cfg.vocab, d, device=device),
+        kw = dict(device=device, dtype=dtype)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, d, **kw),
                                   requires_grad=False)
         self.blocks = nn.ModuleList(
-            Block(cfg, cfg.block_kind(i), cross=cross, device=device)
+            Block(cfg, cfg.block_kind(i), cross=cross, **kw)
             for i in range(cfg.n_layers))
         if cross:
             self.enc_blocks = nn.ModuleList(
-                Block(cfg, cfg.block_kind(i), device=device)
+                Block(cfg, cfg.block_kind(i), **kw)
                 for i in range(cfg.n_encoder_layers))
-            self.enc_norm = L.RMSNorm(d, device=device)
-        self.final_norm = L.RMSNorm(d, device=device)
+            self.enc_norm = L.RMSNorm(d, **kw)
+        self.final_norm = L.RMSNorm(d, **kw)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(d, cfg.vocab, device=device),
+            self.lm_head = nn.Parameter(torch.empty(d, cfg.vocab, **kw),
                                         requires_grad=False)
 
     @property
@@ -134,11 +142,16 @@ class LM(nn.Module):
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
-            device="cuda") -> LM:
+            device="cuda", dtype=torch.float32) -> LM:
     """Random weights from ``generator`` (on ``device``), distributed as the
-    JAX package's ``init_lm`` draws them.  The two packages' generators
-    give different numbers: parity tests copy JAX's weights instead."""
-    model = LM(cfg, device=resolve_device(device))
+    JAX package's ``init_lm`` draws them, stored in ``dtype``.  Each leaf
+    is drawn in float32 and stored rounded, one at a time (JAX's
+    ``init_lm`` and then ``astype``, as ``train/step.py`` does for
+    ``param_dtype``): the same generator gives the same weights, rounded,
+    in any ``dtype``, and the device holds the model plus one float32
+    leaf.  The two packages' generators give different numbers: parity
+    tests copy JAX's weights instead."""
+    model = LM(cfg, device=resolve_device(device), dtype=dtype)
     L.dense_init_(model.embed, generator)
     for module in model.modules():
         if hasattr(module, "init_"):
@@ -148,8 +161,15 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
     return model
 
 
-def embed_tokens(model: LM, tokens):
-    return model.embed[tokens]
+def embed_tokens(model: LM, tokens, dtype=L.DEFAULT_DTYPE):
+    """JAX's ``embed.astype(dtype)[tokens]``: the rows gathered, then
+    cast (the same values, without a cast copy of the whole table)."""
+    return model.embed[tokens].to(dtype)
+
+
+def _logits(model: LM, x, dtype):
+    """JAX's ``(x @ head.astype(dtype)).astype(float32)``."""
+    return (x @ model.head.to(dtype)).float()
 
 
 def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
@@ -161,24 +181,27 @@ def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
     ``xv``; ``aux`` the MoE's load-balancing loss (None without one)."""
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
     if blk.kind in _RECURRENT:
-        out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg)
+        out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg,
+                                               dtype=run.dtype)
         entry = {"conv": conv, "h": hh}
     else:
         window = cfg.local_window if blk.kind == "local" else None
         out, (k, v) = L.attention(blk.attn, h, cfg, causal=causal,
-                                  window=window, impl=run.impl)
+                                  window=window, impl=run.impl,
+                                  dtype=run.dtype)
         entry = {"k": k, "v": v}
     x = x + out
     if enc_out is not None:
         hx = L.rmsnorm(blk.norm_x, x, cfg.norm_eps)
         out, (entry["xk"], entry["xv"]) = L.attention(
-            blk.cross, hx, cfg, x_kv=enc_out, causal=False, impl=run.impl)
+            blk.cross, hx, cfg, x_kv=enc_out, causal=False, impl=run.impl,
+            dtype=run.dtype)
         x = x + out
-    x, aux = _ffn(blk, x, cfg)
+    x, aux = _ffn(blk, x, cfg, run.dtype)
     return x, entry, aux
 
 
-def _ffn(blk: Block, x, cfg: ModelConfig):
+def _ffn(blk: Block, x, cfg: ModelConfig, dtype):
     """The block's MLP or MoE sub-layer with its residual (none for
     mamba).  Returns ``(x, aux)``, ``aux`` the MoE's load-balancing loss
     (None without one): a training term, which JAX's prefill and decode
@@ -186,47 +209,53 @@ def _ffn(blk: Block, x, cfg: ModelConfig):
     aux = None
     if hasattr(blk, "moe"):
         out, aux = L.moe_dense(blk.moe, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
-                               cfg)
+                               cfg, dtype)
         x = x + out
     elif hasattr(blk, "mlp"):
         x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
-                      cfg.mlp_kind)
+                      cfg.mlp_kind, dtype)
     return x, aux
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, *, cross_len: int = 0,
+def init_cache(cfg: ModelConfig, B: int, max_len: int,
+               dtype=L.DEFAULT_DTYPE, *, cross_len: int = 0,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One zeroed cache entry a decoder layer: K and V of ``max_len``
-    positions for attention, a recurrent state for RG-LRU (``conv (B,
-    d_conv-1, W)``, ``h (B, W)``) and mamba (``conv (B, d_conv-1, di)``,
-    ``h (B, di, ds)``); with ``cross_len``, also the cross K/V ``xk``,
-    ``xv`` of ``cross_len`` encoder positions."""
+    """One zeroed cache entry a decoder layer, in ``dtype`` but for the
+    recurrent states ``h`` (float32; JAX's ``init_cache``): K and V of
+    ``max_len`` positions for attention, a recurrent state for RG-LRU
+    (``conv (B, d_conv-1, W)``, ``h (B, W)``) and mamba (``conv (B,
+    d_conv-1, di)``, ``h (B, di, ds)``); with ``cross_len``, also the
+    cross K/V ``xk``, ``xv`` of ``cross_len`` encoder positions."""
     dev = resolve_device(device)
     hd, kvh, w = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.lru_width
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
     cache = []
     for i in range(cfg.n_layers):
         kind = cfg.block_kind(i)
         if kind == "rglru":
-            c = {"conv": torch.zeros(B, cfg.recurrent.d_conv - 1, w, device=dev),
-                 "h": torch.zeros(B, w, device=dev)}
+            c = {"conv": zeros(B, cfg.recurrent.d_conv - 1, w),
+                 "h": f32(B, w)}
         elif kind == "mamba":
             di = cfg.ssm.expand * cfg.d_model
-            c = {"conv": torch.zeros(B, cfg.ssm.d_conv - 1, di, device=dev),
-                 "h": torch.zeros(B, di, cfg.ssm.d_state, device=dev)}
+            c = {"conv": zeros(B, cfg.ssm.d_conv - 1, di),
+                 "h": f32(B, di, cfg.ssm.d_state)}
         else:
-            c = {"k": torch.zeros(B, max_len, kvh, hd, device=dev),
-                 "v": torch.zeros(B, max_len, kvh, hd, device=dev)}
+            c = {"k": zeros(B, max_len, kvh, hd),
+                 "v": zeros(B, max_len, kvh, hd)}
         if cross_len:
-            c["xk"] = torch.zeros(B, cross_len, kvh, hd, device=dev)
-            c["xv"] = torch.zeros(B, cross_len, kvh, hd, device=dev)
+            c["xk"] = zeros(B, cross_len, kvh, hd)
+            c["xv"] = zeros(B, cross_len, kvh, hd)
         cache.append(c)
     return cache
 
 
-def _encoder_input(model: LM, batch, cfg: ModelConfig):
+def _encoder_input(model: LM, batch, cfg: ModelConfig, run: RunCfg):
+    """The encoder's input in ``run.dtype`` (JAX's
+    ``enc_embeds.astype(run.dtype)``, or the embedded ``enc_tokens``)."""
     if cfg.frontend == "audio_stub":
-        return batch["enc_embeds"].to(torch.float32)
-    return embed_tokens(model, batch["enc_tokens"])
+        return batch["enc_embeds"].to(run.dtype)
+    return embed_tokens(model, batch["enc_tokens"], run.dtype)
 
 
 @torch.inference_mode()
@@ -236,7 +265,7 @@ def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg):
     embedded ``batch["enc_tokens"]``, through the encoder's blocks
     bidirectionally at rotary positions ``0..S_enc-1``, then
     ``enc_norm``."""
-    xe = _encoder_input(model, batch, cfg)
+    xe = _encoder_input(model, batch, cfg, run)
     for blk in model.enc_blocks:
         xe, _, _ = _apply_block(blk, xe, cfg, run, causal=False)
     return L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
@@ -257,8 +286,8 @@ def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
     B, S = tokens.shape
     max_len = max_len or S
     enc_out = encode(model, batch, cfg, run) if cfg.n_encoder_layers else None
-    x = embed_tokens(model, tokens)
-    cache = init_cache(cfg, B, max_len, device=x.device,
+    x = embed_tokens(model, tokens, run.dtype)
+    cache = init_cache(cfg, B, max_len, run.dtype, device=x.device,
                        cross_len=0 if enc_out is None else enc_out.shape[1])
     for blk, c in zip(model.blocks, cache):
         x, entry, _ = _apply_block(blk, x, cfg, run, enc_out=enc_out)
@@ -271,21 +300,22 @@ def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
                 c[name] = val
         del entry
     x = L.rmsnorm(model.final_norm, x[:, -1], cfg.norm_eps)
-    return x @ model.head, cache
+    return _logits(model, x, run.dtype), cache
 
 
-def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
+def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int, dtype):
     """One block, T = 1, against its cache entry (updated in place)."""
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
     B = x.shape[0]
     if blk.kind in _RECURRENT:
         out, (conv, hh) = _RECURRENT[blk.kind](getattr(blk, blk.kind), h, cfg,
-                                               state=(c["conv"], c["h"]))
+                                               state=(c["conv"], c["h"]),
+                                               dtype=dtype)
         c["conv"], c["h"] = conv, hh
     else:
         hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
         g = cfg.n_heads // kvh
-        q, k, v = L._project_qkv(blk.attn, h, cfg)
+        q, k, v = L._project_qkv(blk.attn, h, cfg, dtype)
         positions = torch.full((1,), pos, device=x.device)
         q = L.apply_rope(q.reshape(B, 1, kvh * g, hd), positions,
                          cfg.rope_theta).reshape(B, 1, kvh, g, hd)
@@ -296,16 +326,17 @@ def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int):
                                                     device=x.device),
                             causal=True, window=window, neg=-float("inf"))
         out = L._attn_naive(q, c["k"], c["v"], bias)
-        out = out.reshape(B, 1, cfg.n_heads * hd) @ blk.attn.wo
+        out = out.reshape(B, 1, cfg.n_heads * hd) @ blk.attn.wo.to(dtype)
     x = x + out
     if hasattr(blk, "cross"):
         # the cached cross K/V, bidirectional, no rotary embedding
         hx = L.rmsnorm(blk.norm_x, x, cfg.norm_eps)
         out, _ = L.attention(blk.cross, hx, cfg, kv=(c["xk"], c["xv"]),
                              positions=torch.full((1,), pos, device=x.device),
-                             causal=False, impl="naive", use_rope=False)
+                             causal=False, impl="naive", dtype=dtype,
+                             use_rope=False)
         x = x + out
-    return _ffn(blk, x, cfg)[0]
+    return _ffn(blk, x, cfg, dtype)[0]
 
 
 @torch.inference_mode()
@@ -314,11 +345,11 @@ def decode_step(model: LM, cache, tokens, pos: int, cfg: ModelConfig,
     """One decoding step.  ``tokens``: (B, 1); ``pos``: the position of
     ``tokens``.  Returns ``(logits (B, 1, V), cache)``, the cache updated
     in place."""
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, run.dtype)
     for blk, c in zip(model.blocks, cache):
-        x = _decode_block(blk, c, x, cfg, pos)
+        x = _decode_block(blk, c, x, cfg, pos, run.dtype)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return x @ model.head, cache
+    return _logits(model, x, run.dtype), cache
 
 
 # --------------------------------------------------------------------- #
@@ -359,7 +390,8 @@ def lm_loss(model: LM, batch, cfg: ModelConfig, run: RunCfg):
     """Causal-LM (or encoder-decoder) cross entropy, JAX's ``lm_loss``:
     ``batch["tokens"]``, ``batch["targets"]`` (B, S), an optional
     float ``batch["mask"]`` and the encoder's input (``enc_embeds`` or
-    ``enc_tokens``).  Float32 throughout.  Returns ``(loss + 0.01 * aux,
+    ``enc_tokens``).  The model computes in ``run.dtype``; its logits
+    are rounded to it and the loss is taken in float32 (JAX's).  Returns ``(loss + 0.01 * aux,
     {"loss", "aux_loss", "tokens"})``, ``aux`` the decoder's summed MoE
     load-balancing loss (the encoder's is dropped, as in JAX).
 
@@ -373,18 +405,18 @@ def lm_loss(model: LM, batch, cfg: ModelConfig, run: RunCfg):
     block = _block_fn(run)
     enc_out = None
     if cfg.n_encoder_layers:
-        xe = _encoder_input(model, batch, cfg)
+        xe = _encoder_input(model, batch, cfg, run)
         for blk in model.enc_blocks:
             xe, _ = block(blk, xe, cfg, run, False, None)
         enc_out = L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
-    x = embed_tokens(model, batch["tokens"])
-    aux = x.new_zeros(())
+    x = embed_tokens(model, batch["tokens"], run.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
         x, a = block(blk, x, cfg, run, True, enc_out)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    logits = x @ model.head
+    logits = _logits(model, x, run.dtype)
     targets = batch["targets"].long()
     lse = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, -1, targets[..., None])[..., 0]

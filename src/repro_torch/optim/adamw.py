@@ -92,15 +92,16 @@ def adamw_update(cfg: AdamWConfig, grads: Dict[str, torch.Tensor],
     """One AdamW step.  Returns ``(params, state, metrics)`` as JAX does;
     ``params``, the moments (and the master) are the same tensors, updated
     in place, and ``grads`` are clipped in place where they are already
-    float32.  ``metrics``: ``grad_norm`` (before clipping, a device
-    tensor) and ``lr``."""
-    grads = {k: g.to(torch.float32) for k, g in grads.items()}
+    float32 (a narrower leaf's gradient is cast to float32 when its turn
+    comes, so no float32 copy of every gradient is held at once).
+    ``metrics``: ``grad_norm`` (before clipping, a device tensor) and
+    ``lr``.  With ``master_fp32`` the float32 master is updated and each
+    parameter is written back as its cast (JAX's ``pnew.astype``)."""
     gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                             max=1.0)
-        for g in grads.values():
-            g.mul_(scale)
     step = state.step + 1
     lr = (cfg.lr(step) if callable(cfg.lr)
           else torch.tensor(cfg.lr, dtype=torch.float32))
@@ -110,7 +111,9 @@ def adamw_update(cfg: AdamWConfig, grads: Dict[str, torch.Tensor],
 
     base = state.master if cfg.master_fp32 else params
     for name, p in params.items():
-        p32, g = base[name], grads[name]
+        p32, g = base[name], grads[name].to(torch.float32)
+        if scale is not None:
+            g.mul_(scale)
         m, v = state.m[name], state.v[name]
         m.mul_(cfg.b1).add_(g * (1.0 - cfg.b1))
         v.mul_(cfg.b2).add_(torch.square(g).mul_(1.0 - cfg.b2))

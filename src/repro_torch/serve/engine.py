@@ -166,8 +166,8 @@ class LMEngine:
                  enc_embeds: Optional[np.ndarray] = None) -> np.ndarray:
         """Greedy generation.  tokens: (B, S0) prompt; ``enc_embeds`` (B,
         S_enc, D): an encoder-decoder model's encoder input (the
-        ``audio_stub`` frontend's frames), a numpy array or a tensor;
-        returns (B, n_new)."""
+        ``audio_stub`` frontend's frames), a numpy array or a tensor,
+        taken in ``run.dtype``; returns (B, n_new)."""
         B, S0 = tokens.shape
         if B != self.batch or n_new < 1 or S0 + n_new > self.max_len:
             raise ValueError(f"prompt {tokens.shape} + {n_new} new tokens do "
@@ -178,8 +178,8 @@ class LMEngine:
         batch = {"tokens": toks}
         if enc_embeds is not None:
             batch["enc_embeds"] = torch.as_tensor(enc_embeds,
-                                                  dtype=torch.float32,
-                                                  device=self.device)
+                                                  device=self.device).to(
+                                                      self.run.dtype)
         logits, cache = prefill(self.model, batch, self.cfg, self.run,
                                 max_len=self.max_len)
         tok = torch.argmax(logits, dim=-1)[:, None]

@@ -5,15 +5,18 @@ returns ``step(state, batch) -> (state, metrics)``:
 
   * microbatched gradient accumulation over the batch's leading
     ``n_micro`` axis (``batch`` arrives as ``(n_micro, B / n_micro,
-    S)``): each microbatch's backward adds into the parameters' float32
-    ``.grad`` (JAX: a float32 sum from zeros), then the sum is divided
-    by ``n_micro``, and the metric ``loss`` is the mean of the
+    S)``): the microbatches' gradients are summed in float32 (JAX: a
+    float32 sum from zeros; float32 parameters add into their ``.grad``,
+    narrower ones into float32 sums of their gradients), then the sum is
+    divided by ``n_micro``, and the metric ``loss`` is the mean of the
     microbatches' ``loss + 0.01 * aux``, as JAX's;
-  * loss, parameters and compute in float32;
+  * the loss in float32, compute in ``run.dtype``, the parameters in
+    their storage type (``init_train_state(param_dtype=)``: bfloat16
+    beside AdamW's float32 master);
   * ``adamw_update`` in place: ``state`` comes back holding the same
     tensors (JAX donates the state's buffers to the same effect).  After
-    a step each parameter's ``.grad`` holds the clipped gradient that
-    AdamW read.
+    a step each float32 parameter's ``.grad`` holds the clipped gradient
+    that AdamW read.
 
 ``TrainState`` is a NamedTuple ``(params, opt)`` as JAX's, its
 ``params`` the model (an ``LM`` whose parameters require grad) and
@@ -50,13 +53,20 @@ def train_state(model: LM, opt_cfg: Optional[AdamWConfig] = None
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator, *,
-                     device="cuda",
+                     device="cuda", param_dtype=None,
                      opt_cfg: Optional[AdamWConfig] = None) -> TrainState:
     """Random weights (``models.transformer.init_lm``) and zero moments.
-    JAX's ``param_dtype`` (bfloat16 weights beside a float32 master)
-    waits for bfloat16 (ROADMAP Queue A); JAX's ``specs`` for the mesh
+    ``param_dtype`` (JAX's): the weights stored in that type, drawn in
+    float32 and rounded (JAX's ``init_lm`` then ``astype``), with a
+    float32 master copy in the optimizer state, which it requires
+    (``opt_cfg.master_fp32``).  JAX's ``specs`` wait for the mesh
     slice."""
-    return train_state(init_lm(cfg, generator, device=device), opt_cfg)
+    if param_dtype not in (None, torch.float32) and not (
+            opt_cfg is not None and opt_cfg.master_fp32):
+        raise ValueError(f"param_dtype={param_dtype} keeps a float32 "
+                         "master copy: pass AdamWConfig(master_fp32=True)")
+    return train_state(init_lm(cfg, generator, device=device,
+                               dtype=param_dtype or torch.float32), opt_cfg)
 
 
 def make_train_step(cfg: ModelConfig, run: RunCfg, opt_cfg: AdamWConfig):
@@ -67,18 +77,30 @@ def make_train_step(cfg: ModelConfig, run: RunCfg, opt_cfg: AdamWConfig):
         model = state.params
         params = dict(model.named_parameters())
         n_micro = next(iter(batch.values())).shape[0]
+        # narrower parameters' gradients are summed in float32 apart
+        narrow = n_micro > 1 and any(p.dtype != torch.float32
+                                     for p in params.values())
         for p in params.values():
             p.grad = None
-        lsum = None
+        lsum, gsum = None, {}
         for i in range(n_micro):
             loss, _ = lm_loss(model, {k: v[i] for k, v in batch.items()},
                               cfg, run)
             loss.backward()
             loss = loss.detach()
             lsum = loss if lsum is None else lsum + loss
+            if narrow:
+                for name, p in params.items():
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                    gsum[name] = (g.float() if i == 0
+                                  else gsum[name].add_(g))
+                    p.grad = None
         grads = {}
         for name, p in params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            if narrow:
+                g = gsum[name]
+            else:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads[name] = g.div_(n_micro) if n_micro > 1 else g
         _, opt, om = adamw_update(opt_cfg, grads, state.opt, params)
         metrics = {"loss": lsum / n_micro, **om, "step": opt.step}

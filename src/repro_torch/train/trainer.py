@@ -11,9 +11,10 @@ The port of the JAX package's ``train/trainer.py`` on one device:
   * **straggler log**: per-step wall times feed an EWMA; a step slower
     than ``straggler_factor`` times it is logged.
 
-The default ``RunCfg(impl="naive")`` is JAX's trainer's (the flash
-kernel has no backward).  Elastic re-meshing and compressed
-data-parallel gradients wait for the mesh slice (ROADMAP Queue A).
+The default ``RunCfg(impl="naive", dtype=torch.float32)`` is JAX's
+trainer's (the flash kernel has no backward).  Elastic re-meshing and
+compressed data-parallel gradients wait for the mesh slice (ROADMAP
+Queue A).
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ def train(cfg: ModelConfig, tc: TrainerConfig, run: Optional[RunCfg] = None,
     """Runs (or resumes) training on ``device``; returns final metrics:
     ``final_loss``, ``losses`` (this run's), ``last_step``,
     ``grad_norm``."""
-    run = run or RunCfg(impl="naive")
+    run = run or RunCfg(impl="naive", dtype=torch.float32)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(tc.seed)
     state = init_train_state(cfg, gen, device=dev)

@@ -73,6 +73,10 @@ def reference(arch):
     return out
 
 
+def run32(impl):
+    return T.RunCfg(impl=impl, dtype=torch.float32)
+
+
 def batch_of(ref, n=S):
     batch = {"tokens": torch.tensor(ref["toks"][:, :n])}
     if ref["enc"] is not None:
@@ -82,7 +86,7 @@ def batch_of(ref, n=S):
 
 def check_prefill(ref, impl):
     cfg, model = ref["cfg"], ref["model"]
-    logits, cache = T.prefill(model, batch_of(ref), cfg, T.RunCfg(impl=impl),
+    logits, cache = T.prefill(model, batch_of(ref), cfg, run32(impl),
                               max_len=S + NEW)
     np.testing.assert_allclose(logits.numpy(), ref["logits"], rtol=0, atol=TOL)
     assert [sorted(c) for c in cache] == [sorted(c) for c in ref["cache"]]
@@ -95,7 +99,7 @@ def check_prefill(ref, impl):
 
 
 def check_decode(ref, impl):
-    cfg, model, run = ref["cfg"], ref["model"], T.RunCfg(impl=impl)
+    cfg, model, run = ref["cfg"], ref["model"], run32(impl)
     _, cache = T.prefill(model, batch_of(ref), cfg, run, max_len=S + NEW)
     for i, (fed, want) in enumerate(zip(ref["fed"], ref["dec_logits"])):
         logits, cache = T.decode_step(model, cache, torch.tensor(fed), S + i,
@@ -109,7 +113,7 @@ def check_engine(ref, impl):
     """Greedy tokens are compared while the reference's top-2 margin is
     above the logits' tolerance (a closer pair may tie either way)."""
     cfg, model = ref["cfg"], ref["model"]
-    got = LMEngine(model, cfg, T.RunCfg(impl=impl), batch=B,
+    got = LMEngine(model, cfg, run32(impl), batch=B,
                    max_len=S + NEW).generate(ref["toks"][:, :S], NEW,
                                              enc_embeds=ref["enc"])
     assert got.shape == ref["engine"].shape == (B, NEW)
@@ -127,7 +131,7 @@ def check_engine(ref, impl):
 def check_decode_after_prefill(ref, impl):
     """prefill(T) then decode of token T equals prefill(T + 1)'s last
     logits."""
-    cfg, model, run = ref["cfg"], ref["model"], T.RunCfg(impl=impl)
+    cfg, model, run = ref["cfg"], ref["model"], run32(impl)
     full, _ = T.prefill(model, batch_of(ref, S + 1), cfg, run)
     _, cache = T.prefill(model, batch_of(ref), cfg, run, max_len=S + 1)
     dec, _ = T.decode_step(model, cache, torch.tensor(ref["toks"][:, S:]), S,

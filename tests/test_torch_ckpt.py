@@ -198,6 +198,6 @@ def test_serve_launcher_serves_a_jax_checkpoint(tmp_path):
     prompt = torch.randint(0, cfg.vocab, (2, 8), generator=gen).numpy()
     model = convert.lm_params_from_jax(jax.tree.map(np.asarray, state.params),
                                        cfg)
-    want = LMEngine(model, cfg, T.RunCfg(), batch=2,
+    want = LMEngine(model, cfg, T.RunCfg(dtype=torch.float32), batch=2,
                     max_len=12).generate(prompt, 4)
     np.testing.assert_array_equal(got, want)

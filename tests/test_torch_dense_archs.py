@@ -45,7 +45,7 @@ TOL = 2e-5
 B, S, NEW = 2, 32, 4
 JRUN = JRunCfg(dtype=jnp.float32, impl="flash", attn_q_chunk=16,
                attn_kv_chunk=16, scan_chunk=16)
-RUN = T.RunCfg(impl="flash")
+RUN = T.RunCfg(dtype=torch.float32, impl="flash")
 
 
 def _cfgs(arch):

@@ -57,7 +57,8 @@ def test_cross_attention_matches_jax(ref, impl, T_, S_):
                                   x_kv=jnp.asarray(enc), causal=False,
                                   dtype=jnp.float32)
     got, (k, v) = L.attention(port, torch.tensor(x), cfg,
-                              x_kv=torch.tensor(enc), causal=False, impl=impl)
+                              x_kv=torch.tensor(enc), causal=False, impl=impl,
+                              dtype=torch.float32)
     assert k.shape == (R.B, S_, cfg.n_kv_heads, cfg.resolved_head_dim)
     for g, w in ((got, want), (k, wk), (v, wv)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
@@ -69,7 +70,8 @@ def test_cross_attention_matches_jax(ref, impl, T_, S_):
                              dtype=jnp.float32, use_rope=False)
         g1, _ = L.attention(port, torch.tensor(x[:, t:t + 1]), cfg,
                             kv=(k, v), positions=torch.full((1,), t),
-                            causal=False, impl=impl, use_rope=False)
+                            causal=False, impl=impl, dtype=torch.float32,
+                            use_rope=False)
         np.testing.assert_allclose(g1.numpy(), np.asarray(w1), rtol=0,
                                    atol=R.TOL)
         np.testing.assert_allclose(g1.numpy(), got[:, t:t + 1].numpy(),
@@ -81,7 +83,7 @@ def test_encoder_is_bidirectional_and_matches_jax(ref):
     ``xk`` is ``enc_out @ wk``; a frame's change reaches earlier
     frames' outputs (no causal mask)."""
     cfg, model = ref["cfg"], ref["model"]
-    run = T.RunCfg(impl="flash")
+    run = T.RunCfg(dtype=torch.float32, impl="flash")
     enc_out = T.encode(model, R.batch_of(ref), cfg, run)
     assert enc_out.shape == (R.B, R.S_ENC, cfg.d_model)
     xk = (enc_out @ model.blocks[0].cross.wk).reshape(
@@ -135,4 +137,4 @@ def test_serve_launcher_draws_frames_and_needs_them(capsys):
     model = T.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(KeyError, match="enc_embeds"):
         T.prefill(model, {"tokens": torch.zeros(1, 4, dtype=torch.int64)},
-                  cfg, T.RunCfg())
+                  cfg, T.RunCfg(dtype=torch.float32))

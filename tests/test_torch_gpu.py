@@ -456,7 +456,7 @@ def test_train_step_on_card_matches_cpu(no_tf32):
     from repro_torch.train.step import make_train_step, train_state
     cfg = reduced_config(get_config("recurrentgemma-2b"), n_layers=3,
                          d_model=256, n_heads=4)
-    run = TT.RunCfg(impl="naive")
+    run = TT.RunCfg(dtype=torch.float32, impl="naive")
     batch = SyntheticSource(cfg.vocab, 4, 64, n_micro=2).batch(0)
     out = {}
     for dev in ("cpu", no_tf32):
@@ -503,9 +503,10 @@ def test_reduced_lm_on_card_matches_cpu(no_tf32):
     toks = torch.randint(0, cfg.vocab, (2, 130),
                          generator=torch.Generator().manual_seed(2))
     n_fa, n_ls = TF.LAUNCHES["flash_attention"], TL.LAUNCHES["lru_scan"]
-    want, _ = TT.prefill(cpu_model, {"tokens": toks}, cfg, TT.RunCfg())
+    want, _ = TT.prefill(cpu_model, {"tokens": toks}, cfg,
+                         TT.RunCfg(dtype=torch.float32))
     got, _ = TT.prefill(card_model, {"tokens": toks.to(no_tf32)}, cfg,
-                        TT.RunCfg())
+                        TT.RunCfg(dtype=torch.float32))
     assert TF.LAUNCHES["flash_attention"] == n_fa + 2
     assert TL.LAUNCHES["lru_scan"] == n_ls + 6
     assert (got.cpu() - want).abs().max().item() <= 1e-4
@@ -524,9 +525,10 @@ def test_reduced_slice_archs_on_card_match_cpu(no_tf32, arch):
     toks = torch.randint(0, cfg.vocab, (2, 130),
                          generator=torch.Generator().manual_seed(2))
     n_fa, n_ls = TF.LAUNCHES["flash_attention"], TL.LAUNCHES["lru_scan"]
-    want, _ = TT.prefill(cpu_model, {"tokens": toks}, cfg, TT.RunCfg())
+    want, _ = TT.prefill(cpu_model, {"tokens": toks}, cfg,
+                         TT.RunCfg(dtype=torch.float32))
     got, _ = TT.prefill(card_model, {"tokens": toks.to(no_tf32)}, cfg,
-                        TT.RunCfg())
+                        TT.RunCfg(dtype=torch.float32))
     mamba = arch == "falcon-mamba-7b"
     assert TF.LAUNCHES["flash_attention"] == n_fa + (0 if mamba else 2)
     assert TL.LAUNCHES["lru_scan"] == n_ls + (2 if mamba else 0)
@@ -789,12 +791,145 @@ def test_reduced_moe_and_encdec_archs_on_card_match_cpu(no_tf32, arch, flash):
     if cfg.n_encoder_layers:
         batch["enc_embeds"] = torch.randn(2, 120, cfg.d_model, generator=gen)
     n_fa = TF.LAUNCHES["flash_attention"]
-    want, wcache = TT.prefill(cpu_model, batch, cfg, TT.RunCfg())
+    run = TT.RunCfg(dtype=torch.float32)
+    want, wcache = TT.prefill(cpu_model, batch, cfg, run)
     got, gcache = TT.prefill(card_model, {k: v.to(no_tf32) for k, v in
-                                          batch.items()}, cfg, TT.RunCfg())
+                                          batch.items()}, cfg, run)
     assert TF.LAUNCHES["flash_attention"] == n_fa + flash
     assert (got.cpu() - want).abs().max().item() <= 1e-4
     for g, w in zip(gcache, wcache):
         assert sorted(g) == sorted(w)
         for name in w:
             assert (g[name].cpu() - w[name]).abs().max().item() <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# bfloat16: flash_attention's bfloat16 instance, reduced LMs in bfloat16
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def bf16_sums(no_tf32):
+    """bfloat16 products summed in float32 (JAX's preferred_element_type),
+    restored after."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield no_tf32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def _bf16_kernel_holds(dev, B, T, S, H, KVH, hd, causal, window, seed):
+    """The bfloat16 instance on seeded inputs against its plain version at
+    JAX's bfloat16 kernel-test bound (2e-2) and against its mirror
+    elementwise within the mirror's bound (one bfloat16 ulp plus its
+    slack): on every row up to T = 1024, beyond that on the first batch
+    row's first 128 rows and its last q tiles from 128 rows before the end
+    (those walk the most KV tiles); launches counted under
+    ``flash_attention.bfloat16``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = mk(B, T, H, hd), mk(B, S, KVH, hd), mk(B, S, KVH, hd)
+    kw = dict(causal=causal, window=window)
+    n = TF.LAUNCHES["flash_attention.bfloat16"]
+    got = TF.flash_attention(q, k, v, **kw)
+    assert TF.LAUNCHES["flash_attention.bfloat16"] == n + 1
+    assert got.dtype == torch.bfloat16
+    plain = TF.flash_attention_plain(q, k, v, **kw)
+    assert (got.float() - plain.float()).abs().max().item() <= \
+        TF.BF16_PLAIN_TOL
+    del plain
+    if T <= 1024:
+        spans, q, k, v = [None], q, k, v
+    else:
+        bq = TF.KERNEL_TILES_BF16[hd][0]
+        spans = [(0, 128), ((T - 128) // bq * bq, T)]
+        q, k, v, got = q[:1], k[:1], v[:1], got[:1]
+    for rows in spans:
+        mirror, slack = TF.flash_attention_mirror(
+            q, k, v, with_slack=True, rows=rows, **kw)
+        mine = got if rows is None else got[:, rows[0]:rows[1]]
+        d = (mine.float() - mirror.float()).abs()
+        assert (d <= TF.mirror_bound_bf16(mine, mirror, slack)).all(), rows
+
+
+@pytest.mark.parametrize("hd,T,S,causal,window", [
+    (hd, 150, 150, c, w) for hd in (64, 128, 256)
+    for c, w in ((True, None), (True, 40), (False, None))] + [
+    (hd, 300, 300, True, 160) for hd in (64, 128, 256)] + [
+    (64, 100, 230, False, None), (128, 230, 100, False, None),
+    (128, 517, 517, True, None), (256, 2200, 2200, True, 2048)])
+def test_flash_bf16_kernel_matches_plain_and_mirror(bf16_sums, hd, T, S,
+                                                    causal, window):
+    """Small shapes: every head_dim; causal, bidirectional, T != S both
+    ways; a window of 40 keys (it cuts every tile it touches) and ones of
+    160 and 2048 keys at T > window + 64, which leave tiles wholly inside
+    the window that the kernel takes without a mask."""
+    _bf16_kernel_holds(bf16_sums, 2, T, S, 4, 2, hd, causal, window, hd + T)
+
+
+@pytest.mark.parametrize("shape", [
+    ("recurrentgemma-2b local", 4, 4096, 4096, 10, 1, 256, True, 2048),
+    ("qwen3-4b", 4, 4096, 4096, 32, 8, 128, True, None),
+    ("chameleon-34b", 1, 4096, 4096, 64, 8, 128, True, None),
+    ("seamless-m4t-medium encoder", 4, 4000, 4000, 16, 16, 64, False, None),
+    ("seamless-m4t-medium self", 4, 1000, 1000, 16, 16, 64, True, None),
+    ("seamless-m4t-medium cross", 4, 1000, 4000, 16, 16, 64, False, None)],
+    ids=lambda sh: sh[0].replace(" ", "-"))
+def test_flash_bf16_kernel_at_main_path_shapes(bf16_sums, shape):
+    """The shapes a full-width bfloat16 prefill of these archs gives the
+    kernel (recurrentgemma-2b's rows past position 2048 walk a full
+    window), on seeded inputs."""
+    _bf16_kernel_holds(bf16_sums, *shape[1:], seed=shape[2] + shape[4])
+
+
+def test_flash_bf16_kernel_refuses_what_it_cannot_run(cuda):
+    bf = torch.bfloat16
+    q = torch.zeros(1, 8, 2, 96, device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="head_dim"):
+        TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=bf)
+    with pytest.raises(ValueError, match="contiguous"):
+        TF.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q[:, :, :1], q[:, :, :1])
+    with pytest.raises(TypeError, match="bfloat16"):
+        TF.flash_attention(q, q[:, :, :1].float(), q[:, :, :1])
+    with pytest.raises(RuntimeError, match="no backward"):
+        TF.flash_attention(q.clone().requires_grad_(), q[:, :, :1],
+                           q[:, :, :1])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "qwen3-4b",
+                                  "seamless-m4t-medium"])
+def test_reduced_lm_bf16_on_card_matches_cpu(bf16_sums, arch):
+    """Reduced archs with bfloat16 weights and compute (head_dim 64: the
+    bfloat16 flash kernel, windowed, causal, bidirectional and cross)
+    on the card against the same on the CPU (the plain versions): the
+    logits within twice the CPU's own bfloat16 distance from float32 on
+    the same weights, as tests/test_torch_bf16.py holds the CPU to JAX."""
+    bf = torch.bfloat16
+    cfg = reduced_config(get_config(arch), n_layers=3, d_model=256,
+                         n_heads=4)
+    make = lambda: TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                              device="cpu", dtype=bf)
+    cpu_model, card_model = make(), make().to(bf16_sums)
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 130), generator=gen)}
+    if cfg.n_encoder_layers:
+        batch["enc_embeds"] = torch.randn(2, 120, cfg.d_model, generator=gen)
+    n = TF.LAUNCHES["flash_attention.bfloat16"]
+    run = TT.RunCfg(dtype=bf)
+    want, _ = TT.prefill(cpu_model, batch, cfg, run)
+    got, cache = TT.prefill(card_model, {k: v.to(bf16_sums) for k, v in
+                                         batch.items()}, cfg, run)
+    assert TF.LAUNCHES["flash_attention.bfloat16"] > n
+    assert all(t.dtype == (torch.float32 if name == "h" else bf)
+               for c in cache for name, t in c.items())
+    ref, _ = TT.prefill(cpu_model.float(), batch, cfg,
+                        TT.RunCfg(dtype=torch.float32))
+    own = (want - ref).abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 2.0 * own
+    # the head rounds the logits to bfloat16, as JAX's (a float32 path's
+    # logits would not be bfloat16 values).  Their bits are not counted
+    # here: cuBLAS's bfloat16 products sum in other orders than the
+    # CPU's, and at d_model 256 the card's logits differ from the CPU's
+    # in 0.73-0.87 of their bits, as many as the float32 path's do
+    assert torch.equal(got, got.to(bf).float())

@@ -49,7 +49,7 @@ TOL = 2e-5
 B, S, NEW = 2, 64, 4
 JRUN = JRunCfg(dtype=jnp.float32, impl="flash", attn_q_chunk=16,
                attn_kv_chunk=16, scan_chunk=16)
-RUN = T.RunCfg(impl="flash")
+RUN = T.RunCfg(dtype=torch.float32, impl="flash")
 
 
 def _cfgs():
@@ -246,7 +246,7 @@ def test_serve_ckpt_serves_the_trainers_checkpoint(tmp_path):
     trained = convert.train_state_from_jax(tree, cfg, state).params
     assert not torch.equal(trained.blocks[0].rglru.w_in,
                            init.blocks[0].rglru.w_in)
-    want = LMEngine(trained, cfg, T.RunCfg(), batch=2,
+    want = LMEngine(trained, cfg, T.RunCfg(dtype=torch.float32), batch=2,
                     max_len=12).generate(prompt, 4)
     np.testing.assert_array_equal(got, want)
 
@@ -275,7 +275,8 @@ def test_attention_layer_matches_jax(flags, impl):
     for name, val in params.items():
         getattr(layer, name).data.copy_(torch.tensor(val))
     got, (gk, gv) = L.attention(layer, torch.tensor(x), cfg,
-                                window=cfg.local_window, impl=impl)
+                                window=cfg.local_window, impl=impl,
+                                dtype=torch.float32)
     for a, b in ((got, want), (gk, wk), (gv, wv)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=TOL)
 
@@ -285,7 +286,8 @@ def test_naive_prefill_matches_flash_prefill(port):
     toks = torch.tensor(np.random.default_rng(2).integers(0, cfg.vocab,
                                                           (B, S)))
     flash, _ = T.prefill(model, {"tokens": toks}, cfg, RUN)
-    naive, _ = T.prefill(model, {"tokens": toks}, cfg, T.RunCfg(impl="naive"))
+    naive, _ = T.prefill(model, {"tokens": toks}, cfg,
+                         T.RunCfg(dtype=torch.float32, impl="naive"))
     np.testing.assert_allclose(naive.numpy(), flash.numpy(), rtol=0, atol=TOL)
 
 

@@ -43,7 +43,7 @@ TOL = 2e-5
 B, S, NEW = 2, 64, 4
 JRUN = JRunCfg(dtype=jnp.float32, impl="flash", attn_q_chunk=16,
                attn_kv_chunk=16, scan_chunk=16)
-RUN = T.RunCfg(impl="flash")
+RUN = T.RunCfg(dtype=torch.float32, impl="flash")
 
 
 def _cfgs():
@@ -127,7 +127,7 @@ def test_mamba_block_matches_jax(T_, with_state):
         getattr(layer, name).data.copy_(torch.tensor(val))
     tstate = tuple(map(torch.tensor, state)) if with_state else None
     got, (gconv, gh) = L.mamba_block(layer, torch.tensor(x), cfg,
-                                     state=tstate)
+                                     state=tstate, dtype=torch.float32)
     for a, b in ((got, want), (gconv, wconv), (gh, wh)):
         assert tuple(a.shape) == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=TOL)
@@ -153,10 +153,12 @@ def test_mamba_block_runs_the_scan_on_the_flattened_width(monkeypatch):
         return orig(a, b, h0)
     monkeypatch.setattr(LS, "lru_scan", spy)
     di, ds = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
-    _, (_, h) = L.mamba_block(layer, torch.tensor(x), cfg)
+    _, (_, h) = L.mamba_block(layer, torch.tensor(x), cfg,
+                              dtype=torch.float32)
     assert shapes == [((B, 32, di * ds), (B, di * ds))]
     L.mamba_block(layer, torch.tensor(x[:, :1]), cfg,
-                  state=(torch.zeros(B, cfg.ssm.d_conv - 1, di), h))
+                  state=(torch.zeros(B, cfg.ssm.d_conv - 1, di), h),
+                  dtype=torch.float32)
     assert len(shapes) == 1
 
 

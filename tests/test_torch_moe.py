@@ -55,14 +55,15 @@ def test_moe_dense_matches_jax_out_and_aux(refs, arch):
         (R.B, 24, cfg.d_model)).astype(np.float32)
     want, want_aux = JL.moe_dense(jax.tree.map(jnp.asarray, jp),
                                   jnp.asarray(x), jcfg, jnp.float32)
-    got, aux = L.moe_dense(ref["model"].blocks[0].moe, torch.tensor(x), cfg)
+    got, aux = L.moe_dense(ref["model"].blocks[0].moe, torch.tensor(x), cfg,
+                           torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=R.TOL)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=0,
                                atol=R.TOL)
     # the routing itself: each token's top-k set is JAX's
     _, _, top_i = L.moe_route(ref["model"].blocks[0].moe, torch.tensor(x),
-                              cfg)
+                              cfg, torch.float32)
     probs = jax.nn.softmax(jnp.asarray(x) @ jnp.asarray(jp["router"]), -1)
     j_top = np.asarray(jax.lax.top_k(probs, cfg.moe.top_k)[1])
     assert np.array_equal(np.sort(top_i.numpy(), -1), np.sort(j_top, -1))

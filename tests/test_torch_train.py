@@ -60,7 +60,7 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 B, S, S_ENC = 2, 32, 24
 JRUN = JRunCfg(dtype=jnp.float32, impl="naive")
-RUN = T.RunCfg(impl="naive")
+RUN = T.RunCfg(dtype=torch.float32, impl="naive")
 # arch -> reduced depth
 ARCHS = {"internlm2-1.8b": 2, "recurrentgemma-2b": 3, "dbrx-132b": 2,
          "seamless-m4t-medium": 2}
@@ -202,8 +202,8 @@ def test_remat_full_and_dots_give_the_same_loss_and_gradients(refs, arch):
     batch = _torch_batch(ref["batch"])
     base = _port_grads(model, batch, cfg)
     for remat in ("full", "dots"):
-        loss, _, grads = _port_grads(model, batch, cfg,
-                                     T.RunCfg(impl="naive", remat=remat))
+        loss, _, grads = _port_grads(model, batch, cfg, T.RunCfg(
+            dtype=torch.float32, impl="naive", remat=remat))
         assert torch.equal(loss, base[0]), remat
         for name, g in grads.items():
             assert torch.equal(g, base[2][name]), (remat, name)
@@ -215,14 +215,17 @@ def test_training_refuses_flash_and_dispatch(refs):
     model = _port_model(ref["params"], cfg)
     batch = _torch_batch(ref["batch"])
     with pytest.raises(RuntimeError, match="no backward"):
-        T.lm_loss(model, batch, cfg, T.RunCfg(impl="flash"))
+        T.lm_loss(model, batch, cfg,
+                  T.RunCfg(dtype=torch.float32, impl="flash"))
     with torch.no_grad():            # serving-style calls still run it
-        T.lm_loss(model, batch, cfg, T.RunCfg(impl="flash"))
+        T.lm_loss(model, batch, cfg,
+                  T.RunCfg(dtype=torch.float32, impl="flash"))
     with pytest.raises(NotImplementedError, match="mesh"):
-        T.lm_loss(model, batch, cfg, T.RunCfg(impl="naive",
-                                              moe_impl="dispatch"))
+        T.lm_loss(model, batch, cfg, T.RunCfg(
+            dtype=torch.float32, impl="naive", moe_impl="dispatch"))
     with pytest.raises(ValueError, match="remat"):
-        T.lm_loss(model, batch, cfg, T.RunCfg(impl="naive", remat="all"))
+        T.lm_loss(model, batch, cfg, T.RunCfg(
+            dtype=torch.float32, impl="naive", remat="all"))
 
 
 def test_kernels_without_backward_refuse_grad_on_cpu():

@@ -141,19 +141,25 @@ a prefill (12 of each).  TF32 is switched off for matrix products and
 cuDNN before the LMs run, so every product compared is full float32.
 
 Then bfloat16, JAX's default compute dtype: ``flash_attention``'s
-bfloat16 instance at small shapes (``[kernel] flash_attention bfloat16
-mirror``: head_dim 64, 128 and 256, causal, windowed and bidirectional,
-T != S both ways) against its plain version (2e-2, JAX's own bfloat16
-kernel-test bound) and its mirror (one bfloat16 ulp plus the mirror's
-slack, the differing elements counted); chameleon-34b and qwen2.5-14b
-served at their published width and depth with bfloat16 weights (their
-first card runs: batch 1 and 4, prompt 4096, 32 tokens) and qwen3-4b
-beside its float32 serve on the same draws (``[main] <arch> serve
-bfloat16``, ``[main] qwen3-4b bfloat16 vs float32``), each with its
-bfloat16 flash kernel held on its prefill's inputs (also against the
-mirror on the first 128 rows of batch row 0) and its ``[check]`` bound
+bfloat16 instance (``csrc/flash_attention_bf16.cu``: wgmma fed by TMA,
+a producer and two consumer warpgroups, a persistent grid) at small
+shapes (``[kernel] flash_attention bfloat16 mirror``: head_dim 64, 128
+and 256, causal, windowed and bidirectional, T != S both ways, T off the
+128-row q tile, S shorter than a KV tile, two batch rows) against its
+plain version
+(2e-2, JAX's own bfloat16 kernel-test bound) and its mirror (one
+bfloat16 ulp plus the mirror's slack, the differing elements counted);
+chameleon-34b and qwen2.5-14b served at their published width and depth
+with bfloat16 weights (batch 1 and 4, prompt 4096, 32 tokens) and
+qwen3-4b beside its float32 serve on the same draws (``[main] <arch>
+serve bfloat16``, ``[main] qwen3-4b bfloat16 vs float32``), each with
+its bfloat16 flash kernel held on its prefill's inputs (also against
+the mirror on the first 128 rows of batch row 0 and its last q tiles,
+the share of its bound it reaches printed) and its ``[check]`` bound
 taken from JAX's own bfloat16 gap (``tools/jax_bf16_consistency_gap.py``)
-times the depth ratio.
+times the depth ratio; each serve's prefill and kernel time stand beside
+the kernel's earlier mma.sync design's (``[main] <arch> bfloat16
+prefill``).
 
 Then training (``repro_torch.train``): ``lru_scan``'s backward kernel
 against ``lru_scan_backward_plain`` bit for bit at the training shape
@@ -273,22 +279,38 @@ JAX_BF16_REL_GAP = {"chameleon-34b": 0.013151890282720917,
                     "qwen2.5-14b": 0.019235269344541454,
                     "qwen3-4b": 0.02130326664692797}
 BF16_GAP_MARGIN = 2.0
+# each bfloat16 serve's prefill seconds and flash_attention ms a launch,
+# as recorded (printed beside this run's, never in the kernels' record)
+# with the bfloat16 kernel's earlier design (mma.sync m16n8k16 fed by
+# ldmatrix, 4 warps of 16 rows a block, a two-stage cp.async ring), on
+# NVIDIA H100 80GB HBM3 at 700 W: the baseline of the wgmma design
+BF16_MMA_SYNC = {"chameleon-34b": (0.588, 1.2838),
+                 "qwen2.5-14b": (1.107, 3.0617),
+                 "qwen3-4b": (0.479, 2.4368)}
 # the bfloat16 flash kernel against its mirror on a main path's inputs:
 # the first batch row's first query rows and its last (whole q tiles: the
 # kernel's rows there depend on nothing else; the last walk every KV
 # tile of a causal row, or of a full window)
 MIRROR_ROWS = 128
-# the bfloat16 kernel at small shapes: (hd, T, S, causal, window).  A
-# window of 40 keys cuts every tile it touches (narrower than a 64-row q
-# tile); one of 160 keys at T = 300, and one of 2048 at T = 2200, leave
-# tiles wholly inside the window and the causal triangle, which the
-# kernel takes without a mask
-FLASH_BF16_CASES = tuple((hd, 150, 150, c, w) for hd in (64, 128, 256)
+# the bfloat16 kernel at small shapes: (hd, B, T, S, causal, window).  A
+# window of 40 keys cuts every tile it touches.  The kernel takes a KV
+# tile without a mask where it lies wholly inside the causal triangle and
+# the window for all 64 rows of a consumer warpgroup, which needs a window
+# of BKV + 64 keys (192; 128 at hd 256): one of 300 keys at T = 700 and
+# one of 2048 at T = 2400 (T > window + 2 * the 128-row q tile) leave such
+# tiles at every head_dim, one of 160 at T = 300 at hd 256 only.  T = 150,
+# 230, 300, 517 and 700 are not multiples of the q tile; S = 90 and 40 are
+# shorter than one KV tile (128 keys, 64 at hd 256); B = 2 with a ragged S
+# holds the TMA loads' zero fill within each batch row
+FLASH_BF16_CASES = tuple((hd, 1, 150, 150, c, w) for hd in (64, 128, 256)
                          for c, w in ((True, None), (True, 40),
                                       (False, None))) + tuple(
-    (hd, 300, 300, True, 160) for hd in (64, 128, 256)) + (
-    (128, 2200, 2200, True, 2048), (64, 100, 230, False, None),
-    (128, 230, 100, False, None), (256, 517, 517, True, None))
+    (hd, 1, 300, 300, True, 160) for hd in (64, 128, 256)) + (
+    (128, 1, 2200, 2200, True, 2048), (64, 1, 100, 230, False, None),
+    (128, 1, 230, 100, False, None), (256, 1, 517, 517, True, None)) + tuple(
+    (hd, 2, 700, 700, True, 300) for hd in (64, 128, 256)) + (
+    (128, 1, 2400, 2400, True, 2048), (64, 2, 100, 90, False, None),
+    (256, 2, 200, 40, False, None))
 # the bfloat16 kernel on the inputs a full-width bfloat16 prefill of
 # these archs gives it (the archs the bfloat16 serves do not cover):
 # (arch, batch, prompt, encoder frames), the float32 serves' shapes:
@@ -438,17 +460,23 @@ def print_ptxas(source, log):
             if entry and facts:
                 print(f"[ptxas] {source} {entry}: {'; '.join(facts)}",
                       flush=True)
-            # the kernel's name and template arguments out of the mangled one
-            k = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?",
-                          m.group(1))
-            args = [] if k is None else [x for x in k.groups()[1:] if x]
+            # the kernel's name out of the mangled one: the identifier
+            # ending in _kernel that its length prefix spans (nvcc's
+            # anonymous namespace is letters, digits and _ too), then its
+            # template arguments
+            k = next((k for k in re.finditer(
+                r"(?=(\d+)([a-z]\w*?_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?)",
+                m.group(1)) if len(k.group(2)) == int(k.group(1))), None)
+            args = [] if k is None else [x for x in k.groups()[2:] if x]
             if len(args) == 2:
                 args[1] = "true" if args[1] == "1" else "false"
             entry = (m.group(1) if k is None else
-                     k.group(1) + (f"<{', '.join(args)}>" if args else ""))
+                     k.group(2) + (f"<{', '.join(args)}>" if args else ""))
             facts = []
         elif entry and ("Used" in ln or "spill" in ln):
             facts.append(ln.split(":", 1)[-1].strip())
+        if "warning" in ln and ("wgmma" in ln or "setmaxnreg" in ln):
+            print(f"[ptxas] {source} {ln.strip()}", flush=True)
 
 
 def ops_rate(torch, dtype):
@@ -955,6 +983,27 @@ def flash_mirror_rows(torch, FL, q, k, v, got, kw):
     return d_max, differ, n, of_bound, spans
 
 
+def sdpa_call(torch, q, k, v, kw):
+    """The library's attention on the inputs of ``flash_attention(q, k, v,
+    **kw)``: a call of ``scaled_dot_product_attention`` with heads first,
+    the KV head repeated for every query head and the same mask (its
+    output is (B, H, T, hd))."""
+    import torch.nn.functional as F
+    T, H, S = q.shape[1], q.shape[2], k.shape[1]
+    qs = q.transpose(1, 2)
+    ks = k.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
+    vs = v.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
+    if kw["window"] is None:
+        return lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=kw["causal"])
+    pos_q = torch.arange(T, device=q.device)[:, None]
+    pos_k = torch.arange(S, device=q.device)[None, :]
+    mask = pos_q - pos_k < kw["window"]
+    if kw["causal"]:
+        mask &= pos_q >= pos_k
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+
 def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
     """``flash_attention`` against its plain version on the inputs the
     first attention call of ``kind`` (:func:`kernel_kind`) in a
@@ -965,7 +1014,6 @@ def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
     plain version at ``BF16_PLAIN_TOL`` and to its mirror on the rows of
     :func:`mirror_spans` within its bound).  Returns the kernel's
     record."""
-    import torch.nn.functional as F
     (q, k, v), kw = seen.pop(kind)
     B, T, H, hd = q.shape
     S = k.shape[1]
@@ -985,27 +1033,11 @@ def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
     ms = cuda_ms(torch, lambda: FL.flash_attention(q, k, v, **kw), 5)
     plain_ms = cuda_ms(torch, lambda: FL.flash_attention_plain(q, k, v, **kw),
                        2)
-    # the library's attention on the same inputs, heads first, the KV head
-    # repeated for every query head, the same mask
-    qs = q.transpose(1, 2)
-    ks = k.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
-    vs = v.transpose(1, 2).repeat_interleave(H // k.shape[2], dim=1)
-    if kw["window"] is None:
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=kw["causal"])
-    else:
-        pos_q = torch.arange(T, device=q.device)[:, None]
-        pos_k = torch.arange(S, device=q.device)[None, :]
-        mask = (pos_q >= pos_k if kw["causal"]
-                else torch.ones_like(pos_q >= pos_k))
-        if kw["window"] is not None:
-            mask &= pos_q - pos_k < kw["window"]
-        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                      attn_mask=mask)
+    sdpa = sdpa_call(torch, q, k, v, kw)
     lib_err = float((sdpa().transpose(1, 2).float() - got.float())
                     .abs().max())
     lib_ms = cuda_ms(torch, sdpa, 5)
-    del ks, vs, got
+    del sdpa, got
     pairs = live_pairs(np, T, S, kw["causal"], kw["window"]) * B * H
     # the kernel's products: 4*hd operations a live pair, three TF32 MMAs
     # each (split TF32) for float32 inputs, one bfloat16 MMA for
@@ -1021,6 +1053,7 @@ def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
     rec = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_share=max(t_ops, t_bytes) * 1e3 / ms,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=lib_ms, library_max_abs_diff=lib_err, live_pairs=pairs,
         q_shape=list(q.shape), kv_shape=list(k.shape), causal=kw["causal"],
@@ -1040,8 +1073,9 @@ def flash_hold(torch, np, FL, seen, label, kind="flash_attention"):
           f"q {tuple(q.shape)} k,v {tuple(k.shape)} {rec['dtype']} "
           f"causal={kw['causal']} window={kw['window']} live_pairs={pairs} "
           f"max_abs_err={err:.3e} (tol {tol:g}) ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f} ({rate})"
-          f"{extra} sdpa_ms={lib_ms:.4f} (sdpa vs kernel {lib_err:.3e})",
+          f"plain_ms={plain_ms:.4f} bound_ms={rec['bound_ms']:.4f} ({rate}; "
+          f"{rec['bound_share']:.3f} of it reached){extra} sdpa_ms="
+          f"{lib_ms:.4f} (sdpa vs kernel {lib_err:.3e})",
           flush=True)
     return rec
 
@@ -1967,17 +2001,18 @@ def flash_bf16_phase(torch, np, FL):
     ``BF16_PLAIN_TOL``, JAX's own bfloat16 kernel-test bound) and against
     its mirror (elementwise within ``mirror_bound_bf16``: one bfloat16
     ulp of the output plus the mirror's slack), at head_dim 64, 128 and
-    256, causal, windowed (40, 160 and 2048 keys: the last two leave
-    tiles wholly inside the window) and bidirectional, the last tiles
-    ragged, and T != S both ways; each line counts the elements that
+    256, causal, windowed (40, 160, 300 and 2048 keys: see
+    ``FLASH_BF16_CASES`` for which leave tiles wholly inside the window)
+    and bidirectional, the last tiles ragged, T != S both ways, S shorter
+    than a KV tile, two batch rows; each line counts the elements that
     differ from the mirror."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     out = {}
-    for hd, T, S, causal, window in FLASH_BF16_CASES:
+    for hd, B, T, S, causal, window in FLASH_BF16_CASES:
         mk = lambda *s_: torch.randn(*s_, generator=g, device=dev).to(
             torch.bfloat16)
-        q, k, v = mk(1, T, 4, hd), mk(1, S, 2, hd), mk(1, S, 2, hd)
+        q, k, v = mk(B, T, 4, hd), mk(B, S, 2, hd), mk(B, S, 2, hd)
         kw = dict(causal=causal, window=window)
         got = FL.flash_attention(q, k, v, **kw)
         mirror, slack = FL.flash_attention_mirror(q, k, v, with_slack=True,
@@ -1989,12 +2024,14 @@ def flash_bf16_phase(torch, np, FL):
         dp = float((got.float() - plain.float()).abs().max())
         label = f"hd{hd} {'causal' if causal else 'bidirectional'}" + (
             f" window {window}" if window else "") + (
-            f" T={T} S={S}" if T != S else f" T={T}")
+            f" T={T} S={S}" if T != S else f" T={T}") + (
+            f" B={B}" if B > 1 else "")
         out[label] = dict(vs_mirror=float(d.max()), differing=int(
             (d > 0).sum()), elements=d.numel(), of_bound=of_bound,
             vs_plain=dp)
-        print(f"[kernel] flash_attention bfloat16 mirror {label}: q (1, {T}, "
-              f"4, {hd}) k,v (1, {S}, 2, {hd}) vs mirror max {d.max():.3e}, "
+        print(f"[kernel] flash_attention bfloat16 mirror {label}: q ({B}, "
+              f"{T}, 4, {hd}) k,v ({B}, {S}, 2, {hd}) vs mirror max "
+              f"{d.max():.3e}, "
               f"{int((d > 0).sum())} of {d.numel()} elements differ, "
               f"{of_bound:.3f} of the bound; vs plain {dp:.3e} (<= "
               f"{FL.BF16_PLAIN_TOL:g})", flush=True)
@@ -2078,6 +2115,15 @@ def bf16_serve_phase(torch, np, mod, all_launches, f32_qwen3):
             lambda seen, arch=arch: {"flash_attention": flash_hold(
                 torch, np, FL, seen, arch + " bfloat16 ")},
             dtype=torch.bfloat16)
+        rec, kern = out[arch][2], out[arch][0]["flash_attention"]
+        was_s, was_ms = BF16_MMA_SYNC[arch]
+        rec["recorded_mma_sync_design"] = dict(prefill_s=was_s,
+                                               kernel_ms=was_ms)
+        print(f"[main] {arch} bfloat16 prefill {rec['prefill_s']:.3f} s, "
+              f"flash_attention {kern['ms']:.4f} ms a launch (this run); "
+              f"recorded with the kernel's earlier mma.sync design, not "
+              f"measured here: {was_s:.3f} s, {was_ms:.4f} ms (NVIDIA H100 "
+              f"80GB HBM3, 700 W)", flush=True)
     rec = out["qwen3-4b"][2]
     d = float((rec["last_logits"] - f32_qwen3["last_logits"]).abs().max())
     same = np.array(rec["tokens"]) == np.array(f32_qwen3["tokens"])
@@ -3058,7 +3104,8 @@ def main() -> int:
 
     # 1. build
     t = time.perf_counter()
-    names = ["binomial_step", "rz_step", "lru_scan", "flash_attention"]
+    names = ["binomial_step", "rz_step", "lru_scan", "flash_attention",
+             "flash_attention_bf16"]
     logs = build.build_all(names)
     print(f"[build] nvcc x{len(names)} in parallel: "
           f"{time.perf_counter() - t:.1f} s", flush=True)
@@ -3380,7 +3427,7 @@ def main() -> int:
         rec = recs["flash_attention"]
         kernels.append(dict(
             name="flash_attention.bfloat16" + (f".{arch}" if i else ""),
-            route="cuda", source=src + "flash_attention.cu",
+            route="cuda", source=src + "flash_attention_bf16.cu",
             replaces=notes["flash_attention"][0],
             launches=calls["flash_attention"], max_abs_err=rec["max_abs_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
@@ -3388,6 +3435,7 @@ def main() -> int:
             main_path=f"{arch} serve bfloat16",
             mirror_max_abs=rec["mirror_max_abs"],
             mirror_of_bound=rec["mirror_of_bound"],
+            bound_share=rec["bound_share"],
             bound_note="4*hd operations per live (query, key) pair, one "
                        "bfloat16 MMA each, over 989 TFLOP/s"))
     for arch, (recs, _, calls) in bf16_pre.items():
@@ -3395,7 +3443,7 @@ def main() -> int:
             kernels.append(dict(
                 name=f"flash_attention.bfloat16.{arch}"
                 + kind.removeprefix("flash_attention"),
-                route="cuda", source=src + "flash_attention.cu",
+                route="cuda", source=src + "flash_attention_bf16.cu",
                 replaces=notes["flash_attention"][0], launches=calls[kind],
                 max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
@@ -3403,6 +3451,7 @@ def main() -> int:
                 main_path=f"{arch} prefill bfloat16",
                 mirror_max_abs=rec["mirror_max_abs"],
                 mirror_of_bound=rec["mirror_of_bound"],
+                bound_share=rec["bound_share"],
                 bound_note="4*hd operations per live (query, key) pair, one "
                            "bfloat16 MMA each, over 989 TFLOP/s"))
     summary = dict(card=card, build_ok=True,

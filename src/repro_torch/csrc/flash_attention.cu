@@ -1,6 +1,6 @@
 // GQA flash attention in float32 (causal or not, optionally sliding-window)
 // on Hopper's tensor cores.  Instances for head_dim 64, 128 and 256, causal
-// and not.
+// and not.  The bfloat16 instance lives in flash_attention_bf16.cu.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
 // _fa_kernel (entry flash_attention): one q block per grid step, an online
@@ -456,392 +456,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 256:
       return launch_hd<256>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
                             scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The bfloat16 instance: q, k, v and out in bfloat16, everything else in
-// float32, as the TPU kernel and the JAX package's _attn_flash compute for
-// bfloat16 inputs: s = q.k^T summed in float32 (the products of bfloat16
-// values are exact in float32), scaled and masked (-1e30); m and l in
-// float32; p = exp(s - m) rounded to bfloat16 for P.V (p.astype(v.dtype)),
-// while l sums the unrounded float32 p; P.V summed in float32; out =
-// acc / max(l, 1e-30) rounded to bfloat16 (out.astype(q.dtype)).
-//
-// What bounds it on the H100: operations, 4*hd a live (query, key) pair on
-// the tensor cores' bfloat16 rate (989 TFLOP/s dense): 0.556 ms at
-// qwen3-4b's prefill (q (4, 4096, 32, 128), causal), 0.278 ms a layer at
-// chameleon-34b's (q (1, 4096, 64, 128), KVH 8).  bfloat16 is the tensor
-// cores' native input, so a product is one MMA (no split, as the float32
-// instance needs three).
-//
-// Design: mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from
-// shared memory (ldmatrix.trans for V), K and V streamed through a
-// two-stage cp.async ring.  One 128-thread block (4 warps) a (b*H + h,
-// 64-row q tile); each warp owns 16 query rows and all hd columns of O in
-// its accumulators (hd/2 registers a thread), so no two warps exchange
-// scores.  Half the bytes of the float32 instance let a tile hold twice
-// the keys: BKV 64 at hd 64 and 128, 32 at hd 256 (where O alone takes 128
-// registers a thread):
-//   hd 64:  BKV 64, 46 KB, up to 4 blocks an SM;
-//   hd 128: BKV 64, 87 KB, 2 blocks an SM;
-//   hd 256: BKV 32, 101 KB, 2 blocks an SM.
-// Shared rows are padded by 8 bfloat16 (16 bytes), which keeps ldmatrix's
-// eight 16-byte row reads of a matrix on distinct banks.  S's accumulators
-// become P's A fragments in registers (the m16n8 C layout of two adjacent
-// n-tiles is the m16k16 A layout), rounded to bfloat16 pairwise.  The tile
-// walk, masks, base-2 softmax and -1e30 conventions are the float32
-// instance's (kernels/flash_attention.py::kv_tile_range with the bfloat16
-// tiles); the output is acc / l in float32 (a correctly rounded division),
-// then rounded to bfloat16 to nearest even.  Not yet: wgmma, TMA.
-// ---------------------------------------------------------------------------
-#include <cuda_bf16.h>
-#include <string.h>
-
-namespace {
-
-constexpr int BF_WARPS = 4;
-constexpr int BF_THREADS = 32 * BF_WARPS;
-constexpr int BF_BQ = 16 * BF_WARPS;
-
-template <int HD> struct BfTile;
-template <> struct BfTile<64> { static constexpr int BKV = 64, MIN_BLOCKS = 4; };
-template <> struct BfTile<128> { static constexpr int BKV = 64, MIN_BLOCKS = 2; };
-template <> struct BfTile<256> { static constexpr int BKV = 32, MIN_BLOCKS = 2; };
-
-template <int HD>
-struct BfLayout {
-  static constexpr int BKV = BfTile<HD>::BKV;
-  static constexpr int STAGES = 2;
-  static constexpr int LD = HD + 8;        // padded row, in bfloat16
-  static constexpr int Q_ELEMS = BF_BQ * LD;
-  static constexpr int KV_ELEMS = BKV * LD;
-  static constexpr int SMEM_BYTES =
-      2 * (Q_ELEMS + 2 * STAGES * KV_ELEMS);
-};
-
-__device__ __forceinline__ void cp_async16_bf(__nv_bfloat16* dst,
-                                              const __nv_bfloat16* src,
-                                              bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;            // 0 source bytes: zero fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-// rows [row0, row0 + NROWS) of a (rows, HD) bfloat16 slab with row stride
-// `stride` (elements) into a padded shared tile; rows at or past `nvalid`
-// read as zeros
-template <int HD, int NROWS>
-__device__ __forceinline__ void load_tile_bf(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* __restrict__ src,
-                                             size_t stride, int row0,
-                                             int nvalid) {
-  constexpr int CH = HD / 8;               // 16-byte chunks a row
-  constexpr int LD = HD + 8;
-  static_assert(NROWS * CH % BF_THREADS == 0, "tile not a multiple of a pass");
-#pragma unroll
-  for (int it = 0; it < NROWS * CH / BF_THREADS; ++it) {
-    const int idx = threadIdx.x + it * BF_THREADS;
-    const int r = idx / CH;
-    const int c = (idx % CH) * 8;
-    const bool ok = row0 + r < nvalid;
-    cp_async16_bf(dst + r * LD + c,
-                  src + (size_t)(ok ? row0 + r : 0) * stride + c, ok);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// d += a*b: a 16x16 (row), b 16x8 (col), bfloat16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two float32 values rounded to bfloat16 to nearest even, lo in the low
-// half (the lower column of an MMA fragment)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-
-template <int HD, bool CAUSAL>
-__global__ void __launch_bounds__(BF_THREADS, BfTile<HD>::MIN_BLOCKS)
-flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int T, int S,
-                            int H, int KVH, int window, float scale) {
-  using L = BfLayout<HD>;
-  constexpr int BKV = L::BKV;
-  constexpr int STAGES = L::STAGES;
-  constexpr int LD = L::LD;
-  constexpr int NT = BKV / 8;              // n-tiles of S (8 keys each)
-  constexpr int NO = HD / 8;               // n-tiles of O (8 columns each)
-  extern __shared__ float4 smem_bf4[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_bf4);
-  __nv_bfloat16* ks = qs + L::Q_ELEMS;
-  __nv_bfloat16* vs = ks + STAGES * L::KV_ELEMS;
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int lr = lane & 7;                 // ldmatrix: row within a matrix
-  const int lm = lane >> 3;                // ldmatrix: which matrix
-  const int nq = (T + BF_BQ - 1) / BF_BQ;
-  const int q0 = (CAUSAL ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x) * BF_BQ;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / KVH);
-  const size_t q_stride = (size_t)H * HD;
-  const size_t kv_stride = (size_t)KVH * HD;
-  const __nv_bfloat16* qb = q + ((size_t)b * T * H + h) * HD;
-  const __nv_bfloat16* kb = k + ((size_t)b * S * KVH + kvh) * HD;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * KVH + kvh) * HD;
-  __nv_bfloat16* ob = out + ((size_t)b * T * H + h) * HD;
-
-  const int q_last = min(q0 + BF_BQ, T) - 1;
-  int j_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) j_lo = (q0 - window + 1) / BKV;
-  int j_hi = (S + BKV - 1) / BKV - 1;
-  if (CAUSAL) j_hi = min(j_hi, q_last / BKV);
-
-  load_tile_bf<HD, BF_BQ>(qs, qb, q_stride, q0, T);
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (j_lo + st <= j_hi) {
-      load_tile_bf<HD, BKV>(ks + st * L::KV_ELEMS, kb, kv_stride,
-                            (j_lo + st) * BKV, S);
-      load_tile_bf<HD, BKV>(vs + st * L::KV_ELEMS, vb, kv_stride,
-                            (j_lo + st) * BKV, S);
-    }
-    cp_async_commit();
-  }
-
-  const int row0 = q0 + warp * 16 + g;     // this lane's rows: row0, row0 + 8
-  const float scale_log2 = scale * 1.4426950408889634f;
-  // ldmatrix row addresses: Q (A: rows of the warp, matrices 1 and 3 the
-  // lower 8 rows, 2 and 3 the upper 8 dims of a k-step)
-  const __nv_bfloat16* qa =
-      qs + (warp * 16 + lr + 8 * (lm & 1)) * LD + 8 * (lm >> 1);
-  float o[NO][4];
-#pragma unroll
-  for (int c = 0; c < NO; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
-  float m[2] = {NEG, NEG};
-  float l[2] = {0.f, 0.f};
-
-  for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
-    const int jn = j + STAGES - 1;
-    if (jn <= j_hi) {
-      const int st = (it + STAGES - 1) % STAGES;
-      load_tile_bf<HD, BKV>(ks + st * L::KV_ELEMS, kb, kv_stride, jn * BKV,
-                            S);
-      load_tile_bf<HD, BKV>(vs + st * L::KV_ELEMS, vb, kv_stride, jn * BKV,
-                            S);
-    }
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + (it % STAGES) * L::KV_ELEMS;
-    const __nv_bfloat16* vt = vs + (it % STAGES) * L::KV_ELEMS;
-
-    // S = Q K^T: rows (row0, row0 + 8), keys j*BKV + 8n + 2t + (0, 1);
-    // K as B: matrices 0, 1 the keys of n-tile 2p (dims 0-7, 8-15 of the
-    // k-step), 2, 3 those of n-tile 2p + 1
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    const __nv_bfloat16* kw = kt + (lr + 8 * (lm >> 1)) * LD + 8 * (lm & 1);
-#pragma unroll
-    for (int d0 = 0; d0 < HD; d0 += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, qa + d0);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bb[4];
-        ldmatrix_x4(bb, kw + 16 * np * LD + d0);
-        mma_bf16(s[2 * np], a, bb[0], bb[1]);
-        mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-
-    // online softmax in base 2 (scores scaled by scale * log2(e)); a row's
-    // scores live in the 4 lanes of a quad.  Only the tiles that the causal
-    // diagonal, the window's edge or the end of S cut need the mask.
-    const int k0 = j * BKV;
-    float mt[2] = {NEG, NEG};
-    if (k0 + BKV <= S && (!CAUSAL || k0 + BKV - 1 <= q0) &&
-        (window <= 0 || q0 + BF_BQ - 1 - k0 < window)) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] *= scale_log2;
-          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
-        }
-    } else {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int pq = row0 + 8 * (e >> 1);
-          const int pk = k0 + 8 * n + 2 * t + (e & 1);
-          const bool live = pk < S && (!CAUSAL || pq >= pk) &&
-                            (window <= 0 || pq - pk < window);
-          s[n][e] = live ? s[n][e] * scale_log2 : NEG;
-          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
-        }
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float m_new = fmaxf(m[i], mt[i]);
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-        rs[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int c = 0; c < NO; ++c) {
-      o[c][0] *= corr[0];
-      o[c][1] *= corr[0];
-      o[c][2] *= corr[1];
-      o[c][3] *= corr[1];
-    }
-
-    // O += P V, one 16-key k-step per pair of S n-tiles; V as B through
-    // ldmatrix.trans: matrices 0, 1 keys 0-7, 8-15 of O's n-tile 2p, 2, 3
-    // those of n-tile 2p + 1
-    const __nv_bfloat16* vw = vt + (lr + 8 * (lm & 1)) * LD + 8 * (lm >> 1);
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t bb[4];
-        ldmatrix_x4_trans(bb, vw + 16 * kk * LD + 16 * np);
-        mma_bf16(o[2 * np], a, bb[0], bb[1]);
-        mma_bf16(o[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = row0 + 8 * i;
-    if (row >= T) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = ob + (size_t)row * q_stride + 2 * t;
-#pragma unroll
-    for (int c = 0; c < NO; ++c) {
-      const uint32_t u =
-          pack_bf16(o[c][2 * i] / den, o[c][2 * i + 1] / den);
-      *reinterpret_cast<uint32_t*>(orow + 8 * c) = u;
-    }
-  }
-}
-
-template <int HD, bool CAUSAL>
-int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* out, int B, int T,
-                int S, int H, int KVH, int window, float scale,
-                cudaStream_t stream) {
-  constexpr int smem = BfLayout<HD>::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<HD, CAUSAL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BF_BQ - 1) / BF_BQ, B * H);
-  flash_attention_bf16_kernel<HD, CAUSAL><<<grid, BF_THREADS, smem, stream>>>(
-      q, k, v, out, T, S, H, KVH, window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int HD>
-int launch_bf16_hd(int causal, const __nv_bfloat16* q,
-                   const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   __nv_bfloat16* out, int B, int T, int S, int H, int KVH,
-                   int window, float scale, cudaStream_t stream) {
-  return causal ? launch_bf16<HD, true>(q, k, v, out, B, T, S, H, KVH, window,
-                                        scale, stream)
-                : launch_bf16<HD, false>(q, k, v, out, B, T, S, H, KVH,
-                                         window, scale, stream);
-}
-
-}  // namespace
-
-// The bfloat16 instance: q, k, v, out bfloat16; the same arguments and
-// conventions as flash_attention_launch.
-extern "C" int flash_attention_launch_bf16(const void* q, const void* k,
-                                           const void* v, void* out, int B,
-                                           int T, int S, int H, int KVH,
-                                           int hd, int causal, int window,
-                                           float scale, void* stream) {
-  const __nv_bfloat16* qh = (const __nv_bfloat16*)q;
-  const __nv_bfloat16* kh = (const __nv_bfloat16*)k;
-  const __nv_bfloat16* vh = (const __nv_bfloat16*)v;
-  __nv_bfloat16* oh = (__nv_bfloat16*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 64:
-      return launch_bf16_hd<64>(causal, qh, kh, vh, oh, B, T, S, H, KVH,
-                                window, scale, st);
-    case 128:
-      return launch_bf16_hd<128>(causal, qh, kh, vh, oh, B, T, S, H, KVH,
-                                 window, scale, st);
-    case 256:
-      return launch_bf16_hd<256>(causal, qh, kh, vh, oh, B, T, S, H, KVH,
-                                 window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

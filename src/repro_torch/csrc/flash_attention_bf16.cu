@@ -1,0 +1,745 @@
+// GQA flash attention in bfloat16 on Hopper (causal or not, optionally
+// sliding-window): q, k, v and out bfloat16, everything else float32, as
+// the TPU kernel and the JAX package's _attn_flash compute for bfloat16
+// inputs: s = q.k^T summed in float32 (the products of bfloat16 values are
+// exact in float32), scaled and masked (-1e30); m and l in float32; p =
+// exp(s - m) rounded to bfloat16 for P.V (p.astype(v.dtype)), while l sums
+// the unrounded float32 p; P.V summed in float32; out = acc / max(l, 1e-30)
+// rounded to bfloat16 (out.astype(q.dtype)).  Instances for head_dim 64,
+// 128 and 256, causal and not.
+//
+// Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
+// _fa_kernel (entry flash_attention) for bfloat16 inputs; the float32
+// instance lives in flash_attention.cu.
+//
+// What bounds it on the H100: operations, 4*hd a live (query, key) pair on
+// the tensor cores' bfloat16 rate (989 TFLOP/s dense): 0.556 ms at
+// qwen3-4b's prefill (q (4, 4096, 32, 128), causal), 0.278 ms a layer at
+// chameleon-34b's (q (1, 4096, 64, 128), KVH 8).  Beside the products, each
+// live pair costs one exp2 on the special-function units (16 a clock an
+// SM) and about six float32 instructions of the online softmax: at hd 128
+// one exp2 per 512 MMA operations, about half the MMA time unless the two
+// overlap; at hd 64 as long as the MMAs.  mma.sync fed by ldmatrix reads
+// each K and V tile once for every 16 query rows (13 operations a
+// shared-memory byte, which caps it near 0.4 of the tensor rate); a wgmma
+// of 64 rows reads it once for all 64.
+//
+// Design (warp-specialised, as FlashAttention-3):
+// * A persistent grid, one block of three warpgroups (384 threads) an
+//   SM, walks the (b*H + h, 128-row q tile) tiles: rounds of one tile a
+//   block, every other round in reverse (tile_index), so that causal
+//   tiles' unequal walks even out and the blocks in flight share a few KV
+//   heads in L2; a tile's start (Q's load, the pipeline's fill) overlaps
+//   the last one's drain.  Warpgroup 0 is the producer: it gives up
+//   registers (setmaxnreg 40) and one thread starts TMA loads, a tile's Q
+//   once (as soon as both consumers have taken their last S of the tile
+//   before, so that it loads during their epilogue), then each live KV
+//   tile's K and V into a ring of STAGES stages that runs on across
+//   tiles, each with full and empty mbarriers (K and V apart, so that S
+//   can start before V arrives).  Warpgroups 1 and 2 are consumers of 64
+//   query rows each (setmaxnreg 232).
+// * S = Q K^T by wgmma m64n{BKV}k16 from shared memory (Q and K K-major,
+//   128-byte swizzle, as TMA writes them): hd/16 instructions in order, one
+//   aligned sum of 16 products each, as mma.sync's k-steps.  A wgmma of 64
+//   rows reads each K byte once for all 64 rows.
+// * O += P V by wgmma m64n{hd}k16 with P in registers: S's float32
+//   accumulators rounded pairwise to bfloat16 are the A fragment (the
+//   m64nN accumulator layout of two adjacent 8-key groups is the m64k16 A
+//   layout); V is the MN-major B operand (the descriptor's transpose bit),
+//   BKV/16 instructions in order.
+// * Each consumer starts S(j+1) and P(j) V(j) together, then runs the
+//   softmax of tile j+1 while P(j) V(j) is in flight; two named barriers
+//   alternate the consumers' turns (ping-pong), so that one's softmax runs
+//   while the other's products do.
+// * Tiles: BQ 128 (64 a consumer), BKV 128 at hd 64 and 128, 64 at hd 256
+//   (O alone takes 128 registers a thread there); shared memory
+//   2 * (BQ + 2 * STAGES * BKV) * hd bytes:
+//     hd 64:  BKV 128, 2 stages, 80 KB;
+//     hd 128: BKV 128, 2 stages, 160 KB;
+//     hd 256: BKV 64, 2 stages, 192 KB.
+// * exp2 is ex2.approx.ftz: the special-function unit's MUFU.EX2, as
+//   exp2f, without exp2f's fix-up for results below 2^-126 (a p that small
+//   is lost in any float32 sum of the tile).
+// * TMA tensor maps are 4-D (hd, heads, rows, batch), so rows past T or S
+//   read as zeros within each batch row; a 128-byte swizzled box holds 64
+//   bfloat16 columns, so a tile is hd/64 boxes.  The maps are encoded on
+//   the host at each launch (cuTensorMapEncodeTiled, looked up through
+//   the CUDA runtime).
+// The tile walk, masks, base-2 softmax and -1e30 conventions are the
+// float32 instance's (kernels/flash_attention.py::kv_tile_range with the
+// bfloat16 tiles); only the tiles that the diagonal, the window's edge or
+// the end of S cut are masked (decided for each consumer's 64 rows);
+// causal q tiles come longest first.  The output is acc / l in
+// float32 (a correctly rounded division), rounded to bfloat16 to nearest
+// even and stored from registers.
+// On NVIDIA H100 80GB HBM3 at 700 W it reaches 0.55-0.59 of the bound at hd
+// 128 and 256, 0.63-0.72 with the softmax taken out (its ablation in
+// tools/flash_bf16_ablation.py), 0.38-0.41 at hd 64.
+// Not yet: the query heads of one KV head packed into a block, TMA
+// multicast of K and V over a cluster, a dynamic tile scheduler, a TMA
+// store of the output.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int WG_THREADS = 128;            // a warpgroup
+constexpr int THREADS = 3 * WG_THREADS;    // the producer and two consumers
+constexpr int WG_ROWS = 64;                // q rows a consumer
+constexpr int BQ = 2 * WG_ROWS;
+constexpr int BOX = 64;                    // bfloat16 columns of a TMA box
+constexpr int ROW_BYTES = 2 * BOX;         // a box row: one 128-byte swizzle
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr float NEG = -1e30f;
+
+template <int HD> struct Tile;
+template <> struct Tile<64> {
+  static constexpr int BKV = 128, STAGES = 2;
+};
+template <> struct Tile<128> {
+  static constexpr int BKV = 128, STAGES = 2;
+};
+template <> struct Tile<256> { static constexpr int BKV = 64, STAGES = 2; };
+
+// shared memory: the Q tile, the K ring, the V ring (each tile hd/64 boxes
+// of 128-byte rows, every box 1024-byte aligned as the swizzle needs), then
+// the mbarriers: Q full and empty, and K full, K empty, V full, V empty a
+// stage
+template <int HD>
+struct Layout {
+  static constexpr int BKV = Tile<HD>::BKV;
+  static constexpr int STAGES = Tile<HD>::STAGES;
+  static constexpr int BOXES = HD / BOX;
+  static constexpr int Q_BOX = BQ * ROW_BYTES;
+  static constexpr int KV_BOX = BKV * ROW_BYTES;
+  static constexpr int KV_TILE = BOXES * KV_BOX;
+  static constexpr int K_OFF = BOXES * Q_BOX;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
+  static constexpr int BARS = 2 + 4 * STAGES;
+  static constexpr int SMEM_BYTES = 1024 + BAR_OFF + 8 * BARS;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D map at (column, head, row, batch) into shared memory,
+// completing `bytes` on the mbarrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the consumers' turns: warpgroup w waits on barrier 1 + w, which the
+// other warpgroup's arrival completes
+__device__ __forceinline__ void turn_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// registers that an asynchronous wgmma reads or writes: no instruction
+// that uses them moves across this point
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// a wgmma operand in shared memory, 128-byte swizzle: `lbo` the byte
+// stride between 64-column boxes along M or N (MN-major operands only),
+// `sbo` the byte stride between groups of 8 rows
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define D8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A B, m64nNk16, A and B K-major in shared memory; acc = 0 sets d
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int acc);
+
+// d += A B, m64nNk16, A in registers, B MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;"
+      "\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, "
+      "p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+        D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef D8
+
+// S = Q K^T for a consumer's 64 rows: hd/16 k-steps in order, the first
+// setting S.  `q` the consumer's first row in the Q tile's first box, `k`
+// the K tile; a k-step is 32 bytes into a 128-byte swizzled row.
+template <int HD>
+__device__ __forceinline__ void qk_gemm(float (&s)[Tile<HD>::BKV / 2],
+                                        uint32_t q, uint32_t k) {
+  using L = Layout<HD>;
+  hold(s);
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    const uint32_t col = (ks % 4) * 32;
+    wgmma_ss<L::BKV>(s, desc(q + (ks / 4) * L::Q_BOX + col, 16, 1024),
+                     desc(k + (ks / 4) * L::KV_BOX + col, 16, 1024), ks > 0);
+  }
+  wg_commit();
+  hold(s);
+}
+
+// O += P V: BKV/16 k-steps of 16 keys in order; V MN-major (hd contiguous
+// within a box, boxes KV_BOX bytes apart, 8 keys 1024 bytes apart)
+template <int HD>
+__device__ __forceinline__ void pv_gemm(float (&o)[HD / 2],
+                                        uint32_t (&p)[Tile<HD>::BKV / 4],
+                                        uint32_t v) {
+  using L = Layout<HD>;
+  hold(o);
+  hold(p);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::BKV / 16; ++kk)
+    wgmma_rs<HD>(o, p + 4 * kk,
+                 desc(v + kk * 16 * ROW_BYTES, L::KV_BOX, 1024));
+  wg_commit();
+  hold(o);
+  hold(p);
+}
+
+// 2^x on the special-function unit, results below 2^-126 flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two float32 values rounded to bfloat16 to nearest even, lo in the low
+// half (the lower column of an MMA fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+// The online softmax of one KV tile in base 2 (scores scaled by scale *
+// log2(e)) for this lane's rows row0 and row0 + 8: s[4n + e] holds key
+// k0 + 8n + 2t + (e & 1) of row row0 + 8 (e >> 1).  A row's scores live in
+// the 4 lanes of a quad.  Only the tiles that the causal diagonal, the
+// window's edge or the end of S cut for the rows qw..qw+63 need the mask.
+// Leaves p in s and the old-to-new rescale of O in corr.
+template <int BKV, bool CAUSAL>
+__device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, int qw,
+                                             int row0, int t, int S,
+                                             int window, float scale_log2) {
+  float mt[2] = {NEG, NEG};
+  if (k0 + BKV <= S && (!CAUSAL || k0 + BKV - 1 <= qw) &&
+      (window <= 0 || qw + WG_ROWS - 1 - k0 < window)) {
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      s[i] *= scale_log2;
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int pq = row0 + 8 * ((i >> 1) & 1);
+      const int pk = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const bool live = pk < S && (!CAUSAL || pq >= pk) &&
+                        (window <= 0 || pq - pk < window);
+      s[i] = live ? s[i] * scale_log2 : NEG;
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+    }
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float m_new = fmaxf(m[r], mt[r]);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) {
+    s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    rs[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+}
+
+// A q tile's work: tile t is (b * H + h) * nq + its index among the
+// head's q tiles, causal ones longest first; the KV tiles that hold a live
+// key for some of its rows (kernels/flash_attention.py::kv_tile_range)
+struct Work {
+  int q0, b, h, j_lo, n;                       // n >= 1: the wrapper's check
+};
+
+template <int BKV, bool CAUSAL>
+__device__ __forceinline__ Work tile_work(int t, int nq, int T, int S, int H,
+                                          int window) {
+  const int bh = t / nq;
+  const int qt = t % nq;
+  Work w;
+  w.q0 = (CAUSAL ? nq - 1 - qt : qt) * BQ;
+  w.b = bh / H;
+  w.h = bh % H;
+  const int q_last = min(w.q0 + BQ, T) - 1;
+  w.j_lo = 0;
+  if (window > 0 && w.q0 - window + 1 > 0) w.j_lo = (w.q0 - window + 1) / BKV;
+  int j_hi = (S + BKV - 1) / BKV - 1;
+  if (CAUSAL) j_hi = min(j_hi, q_last / BKV);
+  w.n = j_hi - w.j_lo + 1;
+  return w;
+}
+
+// the k-th tile of block p of a grid of G: rounds of G consecutive tiles,
+// every other round in reverse, which evens out the unequal walks of
+// causal q tiles while the blocks in flight share a few KV heads in L2
+__device__ __forceinline__ int tile_index(int k, int p, int G) {
+  return k * G + ((k & 1) ? G - 1 - p : p);
+}
+
+template <int HD, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            __nv_bfloat16* __restrict__ out, int B, int T,
+                            int S, int H, int KVH, int window, float scale) {
+  using L = Layout<HD>;
+  constexpr int BKV = L::BKV;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + L::K_OFF;
+  const uint32_t sv = sq + L::V_OFF;
+  const uint32_t q_full = sq + L::BAR_OFF;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8;          // + 8 * stage
+  const uint32_t k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES;
+  const uint32_t v_empty = v_full + 8 * STAGES;
+  const int nq = (T + BQ - 1) / BQ;
+  const int n_tiles = nq * B * H;
+  const int p = blockIdx.x;
+  const int G = gridDim.x;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2);                     // one arrival a consumer
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, 2);
+      mbar_init(v_empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG_THREADS) {
+    // the producer: one thread starts every load, the next tile's Q as
+    // soon as both consumers have taken their last S of this one
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      uint32_t g = 0;                          // K/V tiles loaded
+      for (int k = 0;; ++k) {
+        const int t = tile_index(k, p, G);
+        if (t >= n_tiles) break;
+        const Work w = tile_work<BKV, CAUSAL>(t, nq, T, S, H, window);
+        const int kvh = w.h / (H / KVH);
+        mbar_wait(q_empty, (k & 1) ^ 1);
+        mbar_expect_tx(q_full, L::BOXES * L::Q_BOX);
+#pragma unroll
+        for (int x = 0; x < L::BOXES; ++x)
+          tma_load(sq + x * L::Q_BOX, &tq, q_full, x * BOX, w.h, w.q0, w.b);
+        for (int it = 0; it < w.n; ++it, ++g) {
+          const int st = g % STAGES;
+          const uint32_t ph = (g / STAGES) & 1;
+          const int k0 = (w.j_lo + it) * BKV;
+          mbar_wait(k_empty + 8 * st, ph ^ 1);
+          mbar_expect_tx(k_full + 8 * st, L::KV_TILE);
+#pragma unroll
+          for (int x = 0; x < L::BOXES; ++x)
+            tma_load(sk + st * L::KV_TILE + x * L::KV_BOX, &tk,
+                     k_full + 8 * st, x * BOX, kvh, k0, w.b);
+          mbar_wait(v_empty + 8 * st, ph ^ 1);
+          mbar_expect_tx(v_full + 8 * st, L::KV_TILE);
+#pragma unroll
+          for (int x = 0; x < L::BOXES; ++x)
+            tma_load(sv + st * L::KV_TILE + x * L::KV_BOX, &tv,
+                     v_full + 8 * st, x * BOX, kvh, k0, w.b);
+        }
+      }
+    }
+  } else {
+    // a consumer: 64 query rows of each of the block's tiles
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int wg = threadIdx.x / WG_THREADS - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int lrow = WG_ROWS * wg + 16 * (tid >> 5) + ((tid & 31) >> 2);
+    const int t = tid & 3;
+    const float scale_log2 = scale * 1.4426950408889634f;
+    const uint32_t q_rows = sq + wg * WG_ROWS * ROW_BYTES;
+    float s[BKV / 2];                          // S, then p, of one KV tile
+    uint32_t p_[BKV / 4];                      // p as bfloat16 A fragments
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+    if (wg == 0) turn_arrive(1);               // consumer 0 goes first
+
+    uint32_t g = 0;                            // K/V tiles consumed
+    for (int k = 0;; ++k) {
+      const int tile = tile_index(k, p, G);
+      if (tile >= n_tiles) break;
+      const Work w = tile_work<BKV, CAUSAL>(tile, nq, T, S, H, window);
+      const int qw = w.q0 + WG_ROWS * wg;      // this consumer's first row
+      const int row0 = w.q0 + lrow;            // this lane's: row0, row0 + 8
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      float m[2] = {NEG, NEG};
+      float l[2] = {0.f, 0.f};
+      float corr[2];
+
+      int st = g % STAGES;
+      uint32_t ph = (g / STAGES) & 1;
+      mbar_wait(q_full, k & 1);
+      mbar_wait(k_full + 8 * st, ph);
+      turn_sync(1 + wg);
+      qk_gemm<HD>(s, q_rows, sk + st * L::KV_TILE);
+      turn_arrive(2 - wg);
+      wg_wait<0>();
+      hold(s);
+      if (tid == 0) {
+        mbar_arrive(k_empty + 8 * st);
+        if (w.n == 1) mbar_arrive(q_empty);
+      }
+      softmax_tile<BKV, CAUSAL>(s, m, l, corr, w.j_lo * BKV, qw, row0, t, S,
+                                window, scale_log2);
+#pragma unroll
+      for (int i = 0; i < BKV / 4; ++i)
+        p_[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+      for (int it = 1; it < w.n; ++it) {
+        // S of KV tile it and P V of tile it - 1 in one turn; tile it's
+        // softmax while P V runs
+        const int sn = (g + it) % STAGES;
+        const uint32_t pn = ((g + it) / STAGES) & 1;
+        mbar_wait(k_full + 8 * sn, pn);
+        turn_sync(1 + wg);
+        qk_gemm<HD>(s, q_rows, sk + sn * L::KV_TILE);
+        mbar_wait(v_full + 8 * st, ph);
+        pv_gemm<HD>(o, p_, sv + st * L::KV_TILE);
+        turn_arrive(2 - wg);
+        wg_wait<1>();
+        hold(s);
+        if (tid == 0) {
+          mbar_arrive(k_empty + 8 * sn);
+          if (it == w.n - 1) mbar_arrive(q_empty);
+        }
+        softmax_tile<BKV, CAUSAL>(s, m, l, corr, (w.j_lo + it) * BKV, qw,
+                                  row0, t, S, window, scale_log2);
+        wg_wait<0>();
+        hold(o);
+        hold(p_);
+        if (tid == 0) mbar_arrive(v_empty + 8 * st);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < BKV / 4; ++i)
+          p_[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+        st = sn;
+        ph = pn;
+      }
+      mbar_wait(v_full + 8 * st, ph);
+      pv_gemm<HD>(o, p_, sv + st * L::KV_TILE);
+      wg_wait<0>();
+      hold(o);
+      if (tid == 0) mbar_arrive(v_empty + 8 * st);
+      g += w.n;
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = row0 + 8 * r;
+        if (row >= T) continue;
+        const float den = fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* orow =
+            out + (((size_t)w.b * T + row) * H + w.h) * HD + 2 * t;
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c)
+          *reinterpret_cast<uint32_t*>(orow + 8 * c) =
+              pack_bf16(o[4 * c + 2 * r] / den, o[4 * c + 2 * r + 1] / den);
+      }
+    }
+    if (wg == 0) turn_sync(1);                 // consumer 1's last arrival
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// a (B, rows, heads, HD) bfloat16 tensor as the 4-D map (HD, heads, rows,
+// B) of boxes (64, 1, box_rows, 1) with the 128-byte swizzle; a box's rows
+// past `rows` read as zeros
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
+              int rows, int heads, int hd, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)rows * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)BOX, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int T, int S, int H, int KVH, int window, float scale,
+           cudaStream_t stream) {
+  using L = Layout<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, encode, q, B, T, H, HD, BQ) ||
+      !make_map(&tk, encode, k, B, S, KVH, HD, L::BKV) ||
+      !make_map(&tv, encode, v, B, S, KVH, HD, L::BKV))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = L::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<HD, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // persistent: one block an SM walks the tiles (a block a tile where
+  // there are fewer tiles than SMs)
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long tiles = (long)((T + BQ - 1) / BQ) * B * H;
+  const int grid = (int)(tiles > sms ? (long)sms : tiles);
+  flash_attention_bf16_kernel<HD, CAUSAL><<<grid, THREADS, smem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, B, T, S, H, KVH, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(int causal, const void* q, const void* k, const void* v,
+              void* out, int B, int T, int S, int H, int KVH, int window,
+              float scale, cudaStream_t stream) {
+  return causal ? launch<HD, true>(q, k, v, out, B, T, S, H, KVH, window,
+                                   scale, stream)
+                : launch<HD, false>(q, k, v, out, B, T, S, H, KVH, window,
+                                    scale, stream);
+}
+
+}  // namespace
+
+// q (B, T, H, hd), k and v (B, S, KVH, hd), out like q, all bfloat16,
+// contiguous and 16-byte aligned.  causal != 0 masks keys after the query;
+// window <= 0 means no window.  head_dim must be 64, 128 or 256; returns
+// cudaErrorInvalidValue for another.
+extern "C" int flash_attention_launch_bf16(const void* q, const void* k,
+                                           const void* v, void* out, int B,
+                                           int T, int S, int H, int KVH,
+                                           int hd, int causal, int window,
+                                           float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 64:
+      return launch_hd<64>(causal, q, k, v, out, B, T, S, H, KVH, window,
+                           scale, st);
+    case 128:
+      return launch_hd<128>(causal, q, k, v, out, B, T, S, H, KVH, window,
+                            scale, st);
+    case 256:
+      return launch_hd<256>(causal, q, k, v, out, B, T, S, H, KVH, window,
+                            scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

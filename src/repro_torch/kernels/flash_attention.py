@@ -28,16 +28,18 @@ tile walk, its k-step order, the base-2 softmax): the kernel is held to it at th
 2e-6 (``kernels/contracts.py``), the bound between two lowerings of one
 algorithm.
 
-The bfloat16 instance (``flash_attention_launch_bf16``) computes what
-``_fa_kernel`` and ``_attn_flash`` compute for bfloat16 inputs: float32
-scores, ``m``, ``l`` and PV sums, ``p`` rounded to bfloat16 for PV while
-``l`` sums the unrounded ``p``, the output rounded to bfloat16.  Its
-products are single bfloat16 MMAs (``mma.sync.m16n8k16``), its tiles
-``KERNEL_TILES_BF16``.  The plain version takes bfloat16 inputs with the
-same rounding (``flash_attention_plain``), and so does the mirror, which
-follows the kernel's tiles, k-steps and base-2 softmax and gives, beside
-its output, the slack that bounds the kernel's distance from it
-(``mirror_bound_bf16``).  Its bounds stand beside the wrapper:
+The bfloat16 instance (``flash_attention_launch_bf16`` in
+``csrc/flash_attention_bf16.cu``) computes what ``_fa_kernel`` and
+``_attn_flash`` compute for bfloat16 inputs: float32 scores, ``m``,
+``l`` and PV sums, ``p`` rounded to bfloat16 for PV while ``l`` sums the
+unrounded ``p``, the output rounded to bfloat16.  Its products are
+single bfloat16 ``wgmma`` k-steps of 16 (K and V through TMA, a producer
+warpgroup and two consumer warpgroups of 64 rows in ping-pong, one
+persistent block an SM), its tiles ``KERNEL_TILES_BF16``.  The plain version takes bfloat16 inputs
+with the same rounding (``flash_attention_plain``), and so does the
+mirror, which follows the kernel's tiles, k-steps and base-2 softmax and
+gives, beside its output, the slack that bounds the kernel's distance
+from it (``mirror_bound_bf16``).  Its bounds stand beside the wrapper:
 ``BF16_PLAIN_TOL`` (JAX's own bfloat16 kernel test) and the mirror's
 derived bound; the registry (``kernels/contracts.py``) keeps JAX's
 float32-only entry.
@@ -62,9 +64,9 @@ LAUNCHES = {"flash_attention": 0, "flash_attention.bfloat16": 0}
 # (q rows, keys) of a tile of the kernel, per head_dim
 KERNEL_TILES = {64: (64, 32), 128: (64, 32), 256: (64, 32)}
 KERNEL_HEAD_DIMS = tuple(KERNEL_TILES)
-# the bfloat16 instance's tiles: half the bytes hold twice the keys, but
-# at hd 256, where O takes 128 registers a thread
-KERNEL_TILES_BF16 = {64: (64, 64), 128: (64, 64), 256: (64, 32)}
+# the bfloat16 instance's tiles: 128 q rows (64 a consumer warpgroup), 128
+# keys but at hd 256, where O takes 128 registers a thread
+KERNEL_TILES_BF16 = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
 _MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
 # the bfloat16 instance against its plain version: the bound of the JAX
 # package's own bfloat16 kernel test (tests/test_kernels_attention.py:20)
@@ -83,13 +85,16 @@ MIRROR_REL_BF16 = 2.0 ** -14
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-_SIGNATURES = {"flash_attention_launch": _ARGS,
-               "flash_attention_launch_bf16": _ARGS}
+# the entry points of each source (csrc/<name>.cu)
+_SIGNATURES = {"flash_attention": {"flash_attention_launch": _ARGS},
+               "flash_attention_bf16": {"flash_attention_launch_bf16": _ARGS}}
 
 
-# the C entry and the launch count of each instance
-_ENTRIES = {torch.float32: ("flash_attention_launch", "flash_attention"),
-            torch.bfloat16: ("flash_attention_launch_bf16",
+# the source, the C entry and the launch count of each instance
+_ENTRIES = {torch.float32: ("flash_attention", "flash_attention_launch",
+                            "flash_attention"),
+            torch.bfloat16: ("flash_attention_bf16",
+                             "flash_attention_launch_bf16",
                              "flash_attention.bfloat16")}
 
 
@@ -257,7 +262,9 @@ def mirror_bound_bf16(got, want, slack):
 def _mma16(acc, a, b, tensor_core: bool):
     """``acc + a @ b`` over one k-step of 16 bfloat16 products: as the
     tensor cores round an MMA (:func:`_mma`, the 16 products in one
-    alignment), or summed in float32 and added to nearest."""
+    alignment; a ``wgmma`` k16 step rounds as ``mma.sync``'s does: the
+    card holds the wgmma kernel to this mirror within its bound), or
+    summed in float32 and added to nearest."""
     if tensor_core:
         return _mma(acc.double(), a, b).float()
     return acc + a @ b
@@ -459,8 +466,8 @@ def _launch(q, k, v, causal: bool, window):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("the flash_attention kernel takes contiguous, "
                              "16-byte aligned tensors")
-    entry, _ = _ENTRIES[q.dtype]
-    lib = _build.load("flash_attention", _SIGNATURES)
+    source, entry, _ = _ENTRIES[q.dtype]
+    lib = _build.load(source, _SIGNATURES[source])
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, entry)(
@@ -484,7 +491,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
                        q, k, v)
     if q.device.type == "cuda":
         out = _launch(q, k, v, causal, window)
-        LAUNCHES[_ENTRIES[q.dtype][1]] += 1
+        LAUNCHES[_ENTRIES[q.dtype][2]] += 1
         return out
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -205,6 +205,11 @@ def test_init_lm_stores_the_float32_draw_rounded():
 FLASH_CASES = ((40, 40, 4, 2, 64, True, None), (48, 48, 2, 1, 128, True, 16),
                (40, 40, 2, 2, 64, False, None),
                (24, 56, 4, 2, 64, False, None))
+# cases past one tile at the kernel's bfloat16 tiles: three 128-row q
+# tiles over three 128-key KV tiles (a window edge inside them), and four
+# 64-key KV tiles at hd 256, S < T
+FLASH_MULTI_TILE = ((300, 300, 4, 2, 64, True, 160),
+                    (300, 200, 2, 1, 256, False, None))
 
 
 def _flash_inputs(T_, S_, H, KVH, hd, seed=0):
@@ -235,22 +240,31 @@ def test_flash_plain_bf16_matches_jax_attn_flash(case):
         LAYER_FLIP_SHARE
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_MULTI_TILE)
 def test_flash_mirror_bf16_matches_plain(case):
-    """The mirror walks the kernel's 64-row tiles and its KV tiles, so
-    its ``p`` is rounded against each tile's running max: within the
-    plain version's bound.  Its two MMA roundings (the tensor cores' and
-    to-nearest) differ from each other only within its own bound."""
+    """The mirror walks the kernel's 128-row q tiles and its KV tiles
+    (``KERNEL_TILES_BF16``: 128 keys, 64 at hd 256), so its ``p`` is
+    rounded against each tile's running max: within the plain version's
+    bound, and past one tile (``FLASH_MULTI_TILE``) within the same
+    bound of JAX's ``_attn_flash`` too.  Its two MMA roundings (the
+    tensor cores' and to-nearest) differ from each other only within
+    its own bound."""
     T_, S_, H, KVH, hd, causal, window = case
-    q, k, v = (convert.to_torch(np.asarray(a))
-               for a in _flash_inputs(T_, S_, H, KVH, hd, seed=1))
+    jq, jk, jv = _flash_inputs(T_, S_, H, KVH, hd, seed=1)
+    q, k, v = (convert.to_torch(np.asarray(a)) for a in (jq, jk, jv))
     kw = dict(causal=causal, window=window)
     plain = FL.flash_attention_plain(q, k, v, **kw)
     near, slack = FL.flash_attention_mirror(q, k, v, tensor_core=False,
                                             with_slack=True, **kw)
     assert near.dtype == BF16
     assert _gap(near, plain) <= FL.BF16_PLAIN_TOL
-    if case == FLASH_CASES[1]:
+    if case in FLASH_MULTI_TILE:
+        want = JL._attn_flash(jq.reshape(1, T_, KVH, H // KVH, hd), jk, jv,
+                              jnp.arange(T_), jnp.arange(S_), causal=causal,
+                              window=window)
+        assert _gap(near, np.asarray(want).reshape(near.shape)) <= \
+            FL.BF16_PLAIN_TOL
+    if case == FLASH_CASES[1] or case in FLASH_MULTI_TILE:
         tc = FL.flash_attention_mirror(q, k, v, **kw)
         d = (tc.float() - near.float()).abs()
         assert (d <= FL.mirror_bound_bf16(tc, near, slack)).all()
@@ -267,10 +281,11 @@ def test_mirror_rows_are_the_whole_mirrors_rows(dtype):
     kw = dict(causal=True, window=100, tensor_core=False)
     if dtype == BF16:
         kw["with_slack"] = True
+    bq = (FL.KERNEL_TILES_BF16 if dtype == BF16 else FL.KERNEL_TILES)[64][0]
     whole = FL.flash_attention_mirror(q, k, v, **kw)
-    part = FL.flash_attention_mirror(q, k, v, rows=(64, 150), **kw)
+    part = FL.flash_attention_mirror(q, k, v, rows=(bq, 150), **kw)
     for w, p in zip(whole, part) if dtype == BF16 else ((whole, part),):
-        assert p.shape == (1, 86, 2, 64) and torch.equal(w[:, 64:], p)
+        assert p.shape == (1, 150 - bq, 2, 64) and torch.equal(w[:, bq:], p)
     with pytest.raises(ValueError, match="q tile"):
         FL.flash_attention_mirror(q, k, v, rows=(32, 150), **kw)
 

@@ -117,10 +117,15 @@ _PLANS = [(T, S, c, w) for T, S in ((150, 150), (64, 200), (300, 100))
           if w is None or T - w < S]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("T,S,causal,window", _PLANS)
-def test_tile_plan_visits_exactly_the_live_tiles(hd, T, S, causal, window):
-    bq, bkv = TF.KERNEL_TILES[hd]
+def test_tile_plan_visits_exactly_the_live_tiles(hd, T, S, causal, window,
+                                                 dtype):
+    """Each instance's tiles (``KERNEL_TILES``, ``KERNEL_TILES_BF16``)."""
+    bq, bkv = (TF.KERNEL_TILES_BF16 if dtype == torch.bfloat16
+               else TF.KERNEL_TILES)[hd]
     pk = np.arange(S)
     for q0 in range(0, T, bq):
         pq = np.arange(q0, min(q0 + bq, T))[:, None]
@@ -131,7 +136,7 @@ def test_tile_plan_visits_exactly_the_live_tiles(hd, T, S, causal, window):
             live &= pq - pk < window
         want = sorted({int(x) // bkv for x in np.nonzero(live.any(0))[0]})
         got = list(TF.kv_tile_range(q0, T, S, hd, causal=causal,
-                                    window=window))
+                                    window=window, dtype=dtype))
         assert got == want, (q0, got, want)
 
 

@@ -856,19 +856,27 @@ def _bf16_kernel_holds(dev, B, T, S, H, KVH, hd, causal, window, seed):
     for c, w in ((True, None), (True, 40), (False, None))] + [
     (hd, 300, 300, True, 160) for hd in (64, 128, 256)] + [
     (64, 100, 230, False, None), (128, 230, 100, False, None),
-    (128, 517, 517, True, None), (256, 2200, 2200, True, 2048)])
+    (128, 517, 517, True, None), (256, 2200, 2200, True, 2048)] + [
+    (hd, 700, 700, True, 300) for hd in (64, 128, 256)] + [
+    (128, 2400, 2400, True, 2048), (64, 100, 90, False, None),
+    (256, 200, 40, False, None)])
 def test_flash_bf16_kernel_matches_plain_and_mirror(bf16_sums, hd, T, S,
                                                     causal, window):
-    """Small shapes: every head_dim; causal, bidirectional, T != S both
-    ways; a window of 40 keys (it cuts every tile it touches) and ones of
-    160 and 2048 keys at T > window + 64, which leave tiles wholly inside
-    the window that the kernel takes without a mask."""
+    """Small shapes, two batch rows: every head_dim; causal,
+    bidirectional, T != S both ways; T off the 128-row q tile; S shorter
+    than one KV tile (90 of 128 keys, 40 of 64 at hd 256), so that TMA's
+    zero fill holds within each batch row; a window of 40 keys (it cuts
+    every tile it touches) and ones of 300 and 2048 keys at T > window +
+    2 * 128, which leave KV tiles wholly inside the window for a consumer
+    warpgroup's 64 rows (the kernel takes those without a mask; a window
+    of 160 keys does so at hd 256 only)."""
     _bf16_kernel_holds(bf16_sums, 2, T, S, 4, 2, hd, causal, window, hd + T)
 
 
 @pytest.mark.parametrize("shape", [
     ("recurrentgemma-2b local", 4, 4096, 4096, 10, 1, 256, True, 2048),
     ("qwen3-4b", 4, 4096, 4096, 32, 8, 128, True, None),
+    ("qwen2.5-14b", 4, 4096, 4096, 40, 8, 128, True, None),
     ("chameleon-34b", 1, 4096, 4096, 64, 8, 128, True, None),
     ("seamless-m4t-medium encoder", 4, 4000, 4000, 16, 16, 64, False, None),
     ("seamless-m4t-medium self", 4, 1000, 1000, 16, 16, 64, True, None),
@@ -877,7 +885,8 @@ def test_flash_bf16_kernel_matches_plain_and_mirror(bf16_sums, hd, T, S,
 def test_flash_bf16_kernel_at_main_path_shapes(bf16_sums, shape):
     """The shapes a full-width bfloat16 prefill of these archs gives the
     kernel (recurrentgemma-2b's rows past position 2048 walk a full
-    window), on seeded inputs."""
+    window; qwen2.5-14b's five query heads a KV head), on seeded
+    inputs."""
     _bf16_kernel_holds(bf16_sums, *shape[1:], seed=shape[2] + shape[4])
 
 

@@ -180,8 +180,28 @@ launcher``, ``[main] serve --ckpt``).  In bfloat16 (``param_dtype``
 with a float32 master): the reduced step card vs CPU within twice the
 CPU's own bfloat16 distance from float32 (``[check] train step bfloat16
 card vs cpu``) and the full-width step (``[main] recurrentgemma-2b train
-bfloat16``).  The script prints its total time
-(``[time]``).
+bfloat16``).
+
+Then training through ``flash_attention``: its backward kernel
+(``csrc/flash_attention_bwd.cu``, float32 and bfloat16) against
+``flash_attention_backward_plain`` taken in float64 from the same tensors
+and the forward kernel's own ``out`` and ``lse``, each gradient's max
+abs gap over its max |g| within 2e-5 (float32) or 2e-2 (bfloat16), with
+``out`` bit-equal with and without ``lse`` (``[kernel] flash_attention
+backward [bfloat16] ...``: qwen3-0.6b's training shape, recurrentgemma-
+2b's window, seamless-m4t-medium's encoder and cross attention, each
+timed beside its bound and SDPA's backward, and 13 small shapes); one
+``make_train_step`` step of qwen3-0.6b reduced to 3 layers (head dim 16:
+the padded instances) with ``impl="flash"`` card vs CPU (``[check] train
+step flash card vs cpu`` at the float32 check's bars; ``... flash
+bfloat16 ...`` in the distance form, the loss token by token);
+qwen3-0.6b at its published width and depth (batch 2 x 4096, remat
+full) in float32 and with bfloat16 weights, 56 forward and 28 backward
+flash launches a step, beside the same step with ``impl="naive"``
+(``[main] qwen3-0.6b train flash [bfloat16]``); and ``python -m
+repro_torch.launch.serve --arch qwen3-0.6b --reduced --device cuda``,
+JAX's own example, its tokens an engine's on the same draws (``[main]
+serve --reduced``).  The script prints its total time (``[time]``).
 
 Each launcher runs in a session of its own and fails the script if any
 process of that session outlives it; at the end the script stops the
@@ -465,11 +485,13 @@ def print_ptxas(source, log):
             # anonymous namespace is letters, digits and _ too), then its
             # template arguments
             k = next((k for k in re.finditer(
-                r"(?=(\d+)([a-z]\w*?_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?)",
+                r"(?=(\d+)([a-z]\w*?_kernel)"
+                r"(?:I((?:f|13__nv_bfloat16|Li\d+E|Lb\dE)+)E)?)",
                 m.group(1)) if len(k.group(2)) == int(k.group(1))), None)
-            args = [] if k is None else [x for x in k.groups()[2:] if x]
-            if len(args) == 2:
-                args[1] = "true" if args[1] == "1" else "false"
+            args = [] if k is None or not k.group(3) else [
+                {"f": "float", "13__nv_bfloat16": "bf16", "Lb1E": "true",
+                 "Lb0E": "false"}.get(a, a.strip("LiE")) for a in
+                re.findall(r"f|13__nv_bfloat16|Li\d+E|Lb\dE", k.group(3))]
             entry = (m.group(1) if k is None else
                      k.group(2) + (f"<{', '.join(args)}>" if args else ""))
             facts = []
@@ -2677,6 +2699,31 @@ BF16_GAP_FACTOR = 2.0
 # the scan's backward beside its forward: the training shape and the
 # forward's edge shapes (LRU_EDGES)
 LRU_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 2560)
+# training through flash_attention and its backward kernel: qwen3-0.6b at
+# its published width and depth (its float32 weights, gradients and AdamW
+# moments are about 12 GB, the batch's logits and their gradient about 10
+# GB), batch 2 x 4096, remat full, the rest as the recurrentgemma-2b step;
+# its reduced config (head dim 16) held card vs CPU
+FLASH_TRAIN_ARCH, FLASH_TRAIN_BATCH, FLASH_TRAIN_SEQ = "qwen3-0.6b", 2, 4096
+# the backward kernel against its plain version in float64: (label, B, T,
+# S, H, KVH, hd, causal, window), the slice's shape first (timed, with the
+# forward), recurrentgemma-2b's local window and seamless-m4t-medium's
+# encoder and cross attention (timed beside SDPA's backward); then small
+# shapes: T off the tiles, S under one tile, G in {1, 2, 5}, head dims 16,
+# 24 and 32 through the padding, a row of one query
+FLASH_BWD_MAIN = (
+    ("qwen3-0.6b train", 2, 4096, 4096, 16, 8, 128, True, None),
+    ("recurrentgemma-2b window", 4, 4096, 4096, 10, 1, 256, True, 2048),
+    ("seamless-m4t-medium encoder", 4, 4000, 4000, 16, 16, 64, False, None),
+    ("seamless-m4t-medium cross", 4, 1000, 4000, 16, 16, 64, False, None))
+FLASH_BWD_SMALL = (
+    (2, 150, 150, 4, 2, 64, True, None), (1, 150, 150, 4, 2, 128, True, 40),
+    (2, 100, 100, 10, 2, 256, True, 70), (1, 120, 120, 5, 1, 64, False, None),
+    (2, 100, 230, 4, 2, 64, False, None), (1, 230, 100, 8, 2, 128, False, None),
+    (1, 300, 300, 5, 1, 256, True, 160), (2, 129, 129, 2, 1, 128, True, None),
+    (1, 1, 9, 2, 1, 64, False, None), (1, 70, 70, 2, 1, 16, True, None),
+    (1, 70, 70, 4, 2, 24, True, 30), (2, 90, 40, 4, 4, 32, False, None),
+    (1, 517, 517, 4, 4, 128, True, None))
 
 
 def lru_backward_phase(torch, LS):
@@ -2739,45 +2786,251 @@ def lru_backward_phase(torch, LS):
     return recs
 
 
-def train_check_phase(torch, mod):
-    """One ``make_train_step`` step of recurrentgemma-2b reduced to 3
-    layers (two RG-LRU, one local attention) on the card (the scan
-    kernels, forward and backward) and on the CPU (the plain versions),
-    from the same weights and batch (two microbatches).  The loss within
-    1e-5 relative; every gradient (the clipped one AdamW read) within 1e-4
-    of its leaf's largest value."""
+def sdpa_backward_call(torch, q, k, v, dout, kw):
+    """The library's attention backward on the inputs of
+    ``flash_attention(q, k, v, **kw)``: ``scaled_dot_product_attention``
+    with heads first, the KV head repeated for every query head (the
+    repeated tensors are the leaves, so no reduction over the heads is
+    timed) and the same mask, its gradients for ``dout``."""
+    import torch.nn.functional as F
+    T, H, S = q.shape[1], q.shape[2], k.shape[1]
+    G = H // k.shape[2]
+    qs = q.transpose(1, 2).detach().requires_grad_()
+    ks = k.transpose(1, 2).repeat_interleave(G, dim=1).requires_grad_()
+    vs = v.transpose(1, 2).repeat_interleave(G, dim=1).requires_grad_()
+    if kw["window"] is None:
+        out = F.scaled_dot_product_attention(qs, ks, vs,
+                                             is_causal=kw["causal"])
+    else:
+        pos_q = torch.arange(T, device=q.device)[:, None]
+        pos_k = torch.arange(S, device=q.device)[None, :]
+        mask = pos_q - pos_k < kw["window"]
+        if kw["causal"]:
+            mask &= pos_q >= pos_k
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    do = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+
+def flash_backward_phase(torch, np, FL):
+    """``flash_attention``'s backward kernel, float32 and bfloat16, on
+    seeded inputs from the forward kernel's own ``out`` and ``lse``,
+    against ``flash_attention_backward_plain`` taken in float64 from the
+    same tensors (each gradient's max abs gap over its max |g|, within
+    ``BWD_F32_TOL`` or ``BWD_BF16_TOL``), at ``FLASH_BWD_MAIN`` and
+    ``FLASH_BWD_SMALL``; ``out`` bit-equal with and without ``lse`` at each.
+    The main shapes are timed beside the plain version (float32 formulas),
+    the bound (10*hd operations a live pair: S again, dP, dV, dK, dQ) and
+    SDPA's backward; at the slice's shape the forward with ``lse`` is timed
+    too.  Returns ``{dtype: {label: record}}``."""
+    dev = torch.device("cuda")
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tol = FL.BWD_BF16_TOL if bf16 else FL.BWD_F32_TOL
+        tag = " bfloat16" if bf16 else ""
+        out_recs = recs[str(dtype).removeprefix("torch.")] = {}
+        g = torch.Generator(device=dev).manual_seed(21)
+        for case in FLASH_BWD_MAIN + FLASH_BWD_SMALL:
+            main = isinstance(case[0], str)
+            label = case[0] if main else "small"
+            B_, T_, S_, H_, KVH_, hd, causal, window = case[1:] if main \
+                else case
+            mk = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(
+                dtype)
+            q, k, v = mk(B_, T_, H_, hd), mk(B_, S_, KVH_, hd), \
+                mk(B_, S_, KVH_, hd)
+            dout = mk(B_, T_, H_, hd)
+            kw = dict(causal=causal, window=window)
+            out, lse = FL.flash_attention_with_lse(q, k, v, **kw)
+            same = torch.equal(out, FL.flash_attention(q, k, v, **kw))
+            got = FL.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+            want = FL.flash_attention_backward_plain(
+                *(x.double() for x in (q, k, v, out, lse, dout)), **kw)
+            torch.cuda.synchronize()
+            gaps = {n: (float((x.double() - w).abs().max()),
+                        float(w.abs().max()))
+                    for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+            del want, got
+            rel = max(d / max(m, 1e-30) for d, m in gaps.values())
+            shape = (f"q {(B_, T_, H_, hd)} k,v {(B_, S_, KVH_, hd)} "
+                     f"causal={causal} window={window}")
+            line = (f"[kernel] flash_attention backward{tag} {label}: {shape}"
+                    + "".join(f"; {n} max abs gap {d:.3e} of max |g| {m:.3e}"
+                              f" ({d / max(m, 1e-30):.2e})"
+                              for n, (d, m) in gaps.items())
+                    + f" (bound {tol:g} of max |g|); out with and without "
+                      f"lse bit-equal {same}")
+            check(rel <= tol, f"flash_attention backward{tag} {shape}: "
+                  f"{gaps} beyond {tol} of max |g|")
+            check(same, f"flash_attention{tag} {shape}: out differs with lse")
+            rec = dict(shape=[B_, T_, S_, H_, KVH_, hd], causal=causal,
+                       window=window, gaps=gaps, max_rel_err=rel,
+                       max_abs_err=max(d for d, _ in gaps.values()),
+                       out_bit_equal_with_lse=same)
+            if main:
+                bwd = lambda: FL.flash_attention_backward(q, k, v, out, lse,
+                                                          dout, **kw)
+                ms = cuda_ms(torch, bwd, 5)
+                plain_ms = cuda_ms(torch, lambda: FL.flash_attention_backward_plain(
+                    q, k, v, out, lse, dout, **kw), 1)
+                sdpa = sdpa_backward_call(torch, q, k, v, dout, kw)
+                lib_ms = cuda_ms(torch, sdpa, 5)
+                del sdpa
+                pairs = live_pairs(np, T_, S_, causal, window) * B_ * H_
+                ops = 10 * hd * pairs
+                t_ops = ops / BF16_OPS_PER_S if bf16 else \
+                    SPLIT_TF32_MMAS * ops / TF32_OPS_PER_S
+                # q, out, dout read and dq written; k, v read, dk, dv
+                # written; lse read
+                nbytes = 4 * (q.numel() + k.numel()) * q.element_size() \
+                    + 4 * lse.numel()
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                bound = max(t_ops, t_bytes) * 1e3
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound, bound_share=bound / ms,
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes", live_pairs=pairs, ops=ops,
+                           bytes=nbytes)
+                line += (f"; live_pairs={pairs} ms={ms:.4f} plain_ms="
+                         f"{plain_ms:.4f} bound_ms={bound:.4f} ("
+                         + ("bfloat16 on the tensor cores" if bf16 else
+                            "split TF32 on the tensor cores")
+                         + f"; {bound / ms:.3f} of it reached) "
+                         f"sdpa_backward_ms={lib_ms:.4f}")
+                if label == FLASH_BWD_MAIN[0][0]:
+                    # the forward at the training shape, against its plain
+                    # version at the flash holds' bounds
+                    f_tol = FL.BF16_PLAIN_TOL if bf16 else FLASH_TOL
+                    f_err = float((out.float() - FL.flash_attention_plain(
+                        q, k, v, **kw).float()).abs().max())
+                    check(f_err <= f_tol, f"flash_attention{tag} {shape}: "
+                          f"kernel vs plain {f_err} > {f_tol}")
+                    fwd = lambda: FL.flash_attention_with_lse(q, k, v, **kw)
+                    f_ms = cuda_ms(torch, fwd, 5)
+                    f_plain = cuda_ms(torch, lambda: FL.flash_attention_plain(
+                        q, k, v, return_lse=True, **kw), 1)
+                    f_lib = cuda_ms(torch, sdpa_call(torch, q, k, v, kw), 5)
+                    f_ops = 4 * hd * pairs
+                    f_bound = max(f_ops / BF16_OPS_PER_S if bf16 else
+                                  SPLIT_TF32_MMAS * f_ops / TF32_OPS_PER_S,
+                                  2 * (q.numel() + k.numel())
+                                  * q.element_size() / HBM_BYTES_PER_S) * 1e3
+                    rec["forward"] = dict(
+                        ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                        bound_ms=f_bound, bound_share=f_bound / f_ms,
+                        bound_by="operations", max_abs_err=f_err)
+                    line += (f"; forward with lse max_abs_err={f_err:.3e} "
+                             f"(tol {f_tol:g}) ms={f_ms:.4f} plain_ms="
+                             f"{f_plain:.4f} bound_ms={f_bound:.4f} "
+                             f"({f_bound / f_ms:.3f} of it) sdpa_ms="
+                             f"{f_lib:.4f}")
+                out_recs[label] = rec
+            else:
+                out_recs.setdefault("small", []).append(rec)
+            print(line, flush=True)
+            del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return recs
+
+
+def serve_reduced_phase(torch, np, mod):
+    """``python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced
+    --device cuda``, the JAX package's own docstring example
+    (``src/repro/launch/serve.py:3``) on the card: the reduced config's
+    head dim 16 runs flash's padded instance in prefill.  Its tokens must
+    be an engine's on the launcher's draws (the same seeded generator on
+    the card), run here, whose prefill launches flash once a layer."""
     T_, cfgs = mod("models.transformer"), mod("configs")
-    LS, data = mod("kernels.lru_scan"), mod("data.pipeline")
+    FL = mod("kernels.flash_attention")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           FLASH_TRAIN_ARCH, "--reduced", "--device", "cuda"]
+    t = time.perf_counter()
+    r = run_alone(cmd)
+    s = time.perf_counter() - t
+    check(r.returncode == 0, f"serve --reduced exit {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    served = np.array([json.loads(ln.split(":", 1)[1]) for ln in
+                       r.stdout.splitlines() if ln.startswith("seq ")])
+    cfg = cfgs.reduced_config(cfgs.get_config(FLASH_TRAIN_ARCH))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = T_.init_lm(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device=dev)
+    n = FL.LAUNCHES["flash_attention"]
+    with torch.inference_mode():
+        want = mod("serve.engine").LMEngine(
+            model, cfg, T_.RunCfg(dtype=torch.float32), batch=2,
+            max_len=24).generate(prompt.cpu().numpy(), 8)
+    launched = FL.LAUNCHES["flash_attention"] - n
+    same = served.shape == want.shape and bool((served == want).all())
+    tail = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    print(f"[main] serve --reduced: {' '.join(cmd[1:])}: exit "
+          f"{r.returncode} in {s:.1f} s ({tail}); head dim "
+          f"{cfg.resolved_head_dim} (the kernel's {FL.instance_head_dim(cfg.resolved_head_dim)} "
+          f"instance, zero-padded); served tokens {served.shape} equal an "
+          f"engine's on the launcher's draws {same}; flash launches in that "
+          f"engine's prefill {launched}", flush=True)
+    check(same and launched == cfg.n_layers, f"serve --reduced: tokens "
+          f"equal {same}, flash launches {launched}")
+    return dict(returncode=r.returncode, wall_s=s, tokens_equal=same,
+                head_dim=cfg.resolved_head_dim, flash_launches=launched)
+
+
+def kernel_counts(mod):
+    """Every kernel's launch count of the LM path, one dict."""
+    return {**mod("kernels.lru_scan").LAUNCHES,
+            **mod("kernels.flash_attention").LAUNCHES}
+
+
+def train_check_phase(torch, mod, arch=TRAIN_ARCH, impl="naive"):
+    """One ``make_train_step`` step of ``arch`` reduced to 3 layers on the
+    card (the kernels, forward and backward) and on the CPU (the plain
+    versions), from the same weights and batch (two microbatches):
+    recurrentgemma-2b (two RG-LRU, one local attention) with
+    ``impl="naive"``, or qwen3-0.6b (head dim 16: flash's padded
+    instances) with ``impl="flash"``.  The loss within 1e-5 relative;
+    every gradient (the clipped one AdamW read) within 1e-4 of its leaf's
+    largest value."""
+    T_, cfgs = mod("models.transformer"), mod("configs")
+    data = mod("data.pipeline")
     step_mod, opt = mod("train.step"), mod("optim.adamw")
-    cfg = cfgs.reduced_config(cfgs.get_config(TRAIN_ARCH), n_layers=3)
-    run = T_.RunCfg(impl="naive", dtype=torch.float32)
+    cfg = cfgs.reduced_config(cfgs.get_config(arch), n_layers=3)
+    run = T_.RunCfg(impl=impl, dtype=torch.float32)
     batch = data.SyntheticSource(cfg.vocab, 4, 100, n_micro=2).batch(0)
     out = {}
     for dev in ("cpu", "cuda"):
         model = T_.init_lm(cfg, torch.Generator().manual_seed(1),
                            device="cpu").to(dev)
         step = step_mod.make_train_step(cfg, run, opt.AdamWConfig())
-        before = dict(LS.LAUNCHES)
+        before = kernel_counts(mod)
         _, m = step(step_mod.train_state(model), data.to_device(batch, dev))
         out[dev] = (float(m["loss"]), {k: p.grad.cpu() for k, p in
                                        model.named_parameters()},
-                    {k: LS.LAUNCHES[k] - before[k] for k in before})
+                    {k: v - before[k] for k, v in kernel_counts(mod).items()
+                     if v != before[k]})
     (want, gw, _), (got, gg, n) = out["cpu"], out["cuda"]
     rel = abs(got - want) / abs(want)
     gaps = grad_gaps(gg, gw)
     worst = max(gaps, key=gaps.get)
-    print(f"[check] train step card vs cpu: {TRAIN_ARCH} reduced to "
-          f"{cfg.n_layers} layers ({cfg.block_pattern}), batch 2 x 2 "
+    flash = " flash" if impl == "flash" else ""
+    print(f"[check] train step{flash} card vs cpu: {arch} reduced to "
+          f"{cfg.n_layers} layers ({cfg.block_pattern}, head dim "
+          f"{cfg.resolved_head_dim}), batch 2 x 2 "
           f"microbatches x 100 tokens: loss {got:.7f} vs {want:.7f} (rel "
           f"{rel:.3e}, tol {TRAIN_LOSS_RTOL}); largest gradient gap "
           f"{gaps[worst]:.3e} of its leaf's max |g| ({worst}; tol "
           f"{TRAIN_GRAD_TOL}) over {len(gaps)} leaves; card launches "
           f"{json.dumps(n)}", flush=True)
-    check(rel <= TRAIN_LOSS_RTOL, f"train step loss card vs cpu {rel}")
-    check(gaps[worst] <= TRAIN_GRAD_TOL, f"train step gradient {worst} "
+    check(rel <= TRAIN_LOSS_RTOL, f"train step{flash} loss card vs cpu {rel}")
+    check(gaps[worst] <= TRAIN_GRAD_TOL, f"train step{flash} gradient {worst} "
           f"card vs cpu {gaps[worst]}")
-    check(n["lru_scan"] == 4 and n["lru_scan_backward"] == 4,
-          f"train step launches {n}: want 4 forward, 4 backward")
+    kinds = ("flash_attention", "flash_attention_backward") if flash else \
+        ("lru_scan", "lru_scan_backward")
+    check(n == {k: 2 * 3 if flash else 4 for k in kinds},
+          f"train step{flash} launches {n}: want {kinds} "
+          f"{'6 each (3 layers x 2 microbatches)' if flash else '4 each'}")
     return dict(loss_rel=rel, grad_gap=gaps[worst], grad_gap_leaf=worst,
                 launches=n)
 
@@ -2789,8 +3042,24 @@ def grad_gaps(got, want):
             for k, w in want.items()}
 
 
-def train_check_bf16_phase(torch, mod):
-    """The same reduced step with ``param_dtype=bfloat16`` weights (drawn
+def token_nll(torch, mod, model, tokens, targets, cfg, run):
+    """Each token's cross entropy of a decoder-only model before the
+    mean that ``lm_loss`` takes, as ``lm_loss`` computes it (its blocks,
+    the head's logits in ``run.dtype``, the log-sum-exp in float32)."""
+    T_, L = mod("models.transformer"), mod("models.layers")
+    with torch.no_grad():
+        x = T_.embed_tokens(model, tokens, run.dtype)
+        for blk in model.blocks:
+            x, _ = T_._train_block(blk, x, cfg, run, True, None)
+        logits = T_._logits(model, L.rmsnorm(model.final_norm, x,
+                                             cfg.norm_eps), run.dtype)
+        true = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - true).float().cpu()
+
+
+def train_check_bf16_phase(torch, mod, arch=TRAIN_ARCH, impl="naive"):
+    """The same reduced step (``arch``, ``impl``) with
+    ``param_dtype=bfloat16`` weights (drawn
     in float32 and rounded), ``master_fp32`` and bfloat16 compute, on the
     card and on the CPU, one microbatch (so each parameter's ``.grad``
     holds the bfloat16 gradient AdamW read).  The bound is the float32
@@ -2800,11 +3069,20 @@ def train_check_bf16_phase(torch, mod):
     CPU), times ``BF16_GAP_FACTOR``; the loss's reference distance
     floored at 2**-16 of it.  A card that computed in float32 would pass
     those, so the prefill's logits before the step must be bfloat16
-    values, as the head rounds them."""
+    values, as the head rounds them.
+
+    With ``impl="flash"`` the loss is held token by token instead: each
+    token's cross entropy on the weights before the step (the largest
+    card-vs-CPU gap within ``BF16_GAP_FACTOR`` times the largest CPU
+    bfloat16-vs-float32 gap).  The mean of 400 tokens' rounding errors
+    cancels by chance: on the CPU alone two bfloat16 losses of the same
+    reduced qwen3-0.6b step (flash and naive attention) differ by 7.1e-4
+    while either one's distance from float32 is 1.1e-4 or 8.2e-4, so a
+    bound of twice one such distance holds nothing steady."""
     T_, cfgs = mod("models.transformer"), mod("configs")
-    LS, data = mod("kernels.lru_scan"), mod("data.pipeline")
+    data = mod("data.pipeline")
     step_mod, opt = mod("train.step"), mod("optim.adamw")
-    cfg = cfgs.reduced_config(cfgs.get_config(TRAIN_ARCH), n_layers=3)
+    cfg = cfgs.reduced_config(cfgs.get_config(arch), n_layers=3)
     bf = torch.bfloat16
     batch = data.SyntheticSource(cfg.vocab, 4, 100, n_micro=1).batch(0)
     out = {}
@@ -2812,13 +3090,17 @@ def train_check_bf16_phase(torch, mod):
                             ("cpu float32", "cpu", torch.float32)):
         model = T_.init_lm(cfg, torch.Generator().manual_seed(1),
                            device="cpu", dtype=bf).to(dev, dtype)
-        run = T_.RunCfg(impl="naive", dtype=dtype)
+        run = T_.RunCfg(impl=impl, dtype=dtype)
         ocfg = opt.AdamWConfig(master_fp32=dtype == bf)
         if dev == "cuda":
             with torch.no_grad():
                 logits, _ = T_.prefill(model, {"tokens": data.to_device(
                     batch, dev)["tokens"][0]}, cfg, run)
-        before = dict(LS.LAUNCHES)
+        on_dev = data.to_device(batch, dev)
+        nll = token_nll(torch, mod, model, on_dev["tokens"][0],
+                        on_dev["targets"][0], cfg, run) if impl == "flash" \
+            else None
+        before = kernel_counts(mod)
         if dtype == bf:
             step = step_mod.make_train_step(cfg, run, ocfg)
             _, m = step(step_mod.train_state(model, ocfg),
@@ -2833,8 +3115,9 @@ def train_check_bf16_phase(torch, mod):
             loss = float(loss.detach())
         out[key] = (loss, {k: p.grad.cpu() for k, p in
                            model.named_parameters()},
-                    {k: LS.LAUNCHES[k] - before[k] for k in before})
-    (want, gw, _), (got, gg, n), (ref, gr, _) = (
+                    {k: v - before[k] for k, v in kernel_counts(mod).items()
+                     if v != before[k]}, nll)
+    (want, gw, _, nw), (got, gg, n, ng), (ref, gr, _, nr) = (
         out["cpu"], out["cuda"], out["cpu float32"])
     # the card's prefill logits, which the head rounds to bfloat16: a
     # float32 path's would not be bfloat16 values.  Their bits are not
@@ -2843,14 +3126,25 @@ def train_check_bf16_phase(torch, mod):
     # as many bits as the float32 path's (PERF.md)
     rounded = torch.equal(logits, logits.to(bf).float())
     loss_tol = BF16_GAP_FACTOR * max(abs(want - ref), 2.0 ** -16 * abs(want))
+    if nw is not None:       # flash: token by token
+        tok_gap = float((ng - nw).abs().max())
+        tok_tol = BF16_GAP_FACTOR * float((nw - nr).abs().max())
     cpu_gaps, gaps = grad_gaps(gw, gr), grad_gaps(gg, gw)
     grad_tol = BF16_GAP_FACTOR * max(cpu_gaps.values())
     worst = max(gaps, key=gaps.get)
-    print(f"[check] train step bfloat16 card vs cpu: {TRAIN_ARCH} reduced "
-          f"to {cfg.n_layers} layers, param_dtype bfloat16, master_fp32, "
-          f"batch 2 x 100 tokens: loss {got:.7f} vs {want:.7f} (|d| "
-          f"{abs(got - want):.3e}, tol {loss_tol:.3e} = {BF16_GAP_FACTOR} x "
-          f"the CPU's bfloat16-vs-float32 {abs(want - ref):.3e}, floored); "
+    flash = " flash" if impl == "flash" else ""
+    print(f"[check] train step{flash} bfloat16 card vs cpu: {arch} reduced "
+          f"to {cfg.n_layers} layers (head dim {cfg.resolved_head_dim}), "
+          f"param_dtype bfloat16, master_fp32, "
+          f"batch 4 x 100 tokens: loss {got:.7f} vs {want:.7f} (|d| "
+          f"{abs(got - want):.3e}, " + (
+              f"tol {loss_tol:.3e} = {BF16_GAP_FACTOR} x the CPU's "
+              f"bfloat16-vs-float32 {abs(want - ref):.3e}, floored); "
+              if nw is None else
+              f"the CPU's bfloat16-vs-float32 {abs(want - ref):.3e}; held "
+              f"token by token: largest token gap {tok_gap:.3e}, tol "
+              f"{tok_tol:.3e} = {BF16_GAP_FACTOR} x the CPU's largest "
+              f"bfloat16-vs-float32 {tok_tol / BF16_GAP_FACTOR:.3e}); ") +
           f"largest gradient gap {gaps[worst]:.3e} of its leaf's max |g| "
           f"({worst}; tol {grad_tol:.3e} = {BF16_GAP_FACTOR} x the CPU's "
           f"bfloat16-vs-float32 {max(cpu_gaps.values()):.3e}) over "
@@ -2858,50 +3152,98 @@ def train_check_bf16_phase(torch, mod):
           f"card launches {json.dumps(n)}", flush=True)
     check(all(p.dtype == bf for p in gg.values()), "bfloat16 gradients")
     check(rounded, "bfloat16 train check: prefill logits not bfloat16 values")
-    check(abs(got - want) <= loss_tol, f"bfloat16 train step loss card vs "
-          f"cpu {abs(got - want)} > {loss_tol}")
+    if nw is None:
+        check(abs(got - want) <= loss_tol, f"bfloat16 train step loss card "
+              f"vs cpu {abs(got - want)} > {loss_tol}")
+    else:
+        check(tok_gap <= tok_tol, f"bfloat16 train step{flash} token losses "
+              f"card vs cpu {tok_gap} > {tok_tol}")
     check(gaps[worst] <= grad_tol, f"bfloat16 train step gradient {worst} "
           f"card vs cpu {gaps[worst]} > {grad_tol}")
-    check(n["lru_scan"] == 2 and n["lru_scan_backward"] == 2,
-          f"bfloat16 train step launches {n}: want 2 forward, 2 backward")
-    return dict(loss_abs=abs(got - want), loss_tol=loss_tol,
+    kinds = ("flash_attention.bfloat16", "flash_attention_backward.bfloat16") \
+        if flash else ("lru_scan", "lru_scan_backward")
+    check(n == {k: 3 if flash else 2 for k in kinds},
+          f"bfloat16 train step{flash} launches {n}: want {kinds} "
+          f"{'3 each' if flash else '2 each'}")
+    return dict(loss_abs=abs(got - want),
+                loss_tol=loss_tol if nw is None else None,
+                token_loss_gap=None if nw is None else tok_gap,
+                token_loss_tol=None if nw is None else tok_tol,
                 grad_gap=gaps[worst], grad_tol=grad_tol, grad_gap_leaf=worst,
                 logits_bfloat16=rounded,
                 launches=n)
 
 
-def train_main_phase(torch, mod, all_launches, dtype=None):
-    """``make_train_step`` on recurrentgemma-2b at its published width and
-    depth: batch 2 x 1024 synthetic tokens (``SyntheticSource``), remat
-    full, one microbatch, AdamW's defaults, through the scan kernels
-    forward and backward (attention naive, as JAX's trainer).  One
+def train_state_and_step(torch, mod, cfg, run, ocfg, bf16, dev):
+    """A fresh full-width train state (seed 0) and its step function."""
+    step_mod = mod("train.step")
+    state, init_s = wall(torch, lambda: step_mod.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+        param_dtype=torch.bfloat16 if bf16 else None, opt_cfg=ocfg))
+    return state, step_mod.make_train_step(cfg, run, ocfg), init_s
+
+
+def naive_beside(torch, mod, cfg, run, ocfg, bf16, dev, src):
+    """The same step with ``impl="naive"`` from the same weights (seed 0)
+    and first batch, once (the smoke's time is kept to the earlier
+    slices'): its loss, its time (a first step: it pays the naive
+    attention's first calls) and the peak memory; ``fits=False`` where
+    the (B, H, T, S) scores do not fit the card."""
+    import dataclasses
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    holder = {}
+    try:
+        holder["state"], step_fn, _ = train_state_and_step(
+            torch, mod, cfg, dataclasses.replace(run, impl="naive"), ocfg,
+            bf16, dev)
+        data = mod("data.pipeline")
+        (holder["state"], m), t = wall(torch, lambda: step_fn(
+            holder["state"], data.to_device(src.batch(0), dev)))
+        out = dict(first_loss=float(m["loss"]), step_s=t,
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    except torch.cuda.OutOfMemoryError as exc:
+        out = dict(fits=False, error=str(exc).splitlines()[0][:200])
+    holder.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_main_phase(torch, mod, all_launches, dtype=None, arch=TRAIN_ARCH,
+                     impl="naive", batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """``make_train_step`` on ``arch`` at its published width and depth:
+    batch x seq synthetic tokens (``SyntheticSource``), remat full, one
+    microbatch, AdamW's defaults: recurrentgemma-2b (batch 2 x 1024)
+    through the scan kernels forward and backward with attention naive,
+    as JAX's trainer, or qwen3-0.6b (batch 2 x 4096) through
+    ``flash_attention`` and its backward kernel (``impl="flash"``).  One
     warm-up step, ``TRAIN_STEPS`` timed steps with the launches counted
-    from 0, then one profiled step for the device's idle share.  Writes
-    no checkpoint (the state is 53 GB).  ``dtype=bfloat16``:
-    ``init_train_state(param_dtype=bfloat16)`` with ``master_fp32`` and
-    bfloat16 compute (the scan stays float32, as in JAX)."""
+    from 0, then one profiled step for the device's idle share; for
+    ``impl="flash"`` then the same step with ``impl="naive"`` beside it
+    (:func:`naive_beside`), its first loss held to the flash step's
+    within ``TRAIN_LOSS_RTOL`` in float32.  Writes no checkpoint.
+    ``dtype=bfloat16``: ``init_train_state(param_dtype=bfloat16)`` with
+    ``master_fp32`` and bfloat16 compute (the scan stays float32, as in
+    JAX)."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     import numpy as np
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     T_, cfgs = mod("models.transformer"), mod("configs")
-    LS, FL = mod("kernels.lru_scan"), mod("kernels.flash_attention")
-    data, step_mod, opt = mod("data.pipeline"), mod("train.step"), \
-        mod("optim.adamw")
+    data, opt = mod("data.pipeline"), mod("optim.adamw")
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = cfgs.get_config(TRAIN_ARCH)
-    run = T_.RunCfg(impl="naive", remat="full", dtype=dtype)
+    cfg = cfgs.get_config(arch)
+    run = T_.RunCfg(impl=impl, remat="full", dtype=dtype)
     ocfg = opt.AdamWConfig(master_fp32=bf16)
-    (state, init_s) = wall(torch, lambda: step_mod.init_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
-        param_dtype=dtype if bf16 else None, opt_cfg=ocfg))
+    state, step_fn, init_s = train_state_and_step(torch, mod, cfg, run, ocfg,
+                                                  bf16, dev)
     n_params = sum(p.numel() for p in state.params.parameters())
-    step_fn = step_mod.make_train_step(cfg, run, ocfg)
-    src = data.SyntheticSource(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
-    label = f"{TRAIN_ARCH} train{' bfloat16' if bf16 else ''}"
+    src = data.SyntheticSource(cfg.vocab, batch, seq)
+    flash = " flash" if impl == "flash" else ""
+    label = f"{arch} train{flash}{' bfloat16' if bf16 else ''}"
     state_gb = (n_params * (2 + 3 * 4) if bf16 else 3 * n_params * 4) / 1e9
     print(f"[lm] {label}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters, "
@@ -2916,6 +3258,7 @@ def train_main_phase(torch, mod, all_launches, dtype=None):
                                      data.to_device(src.batch(i), dev))
         return m
     m, warm_s = wall(torch, lambda: one(0))
+    first_loss = float(m["loss"])
     zero_counts(all_launches)
     times, losses, norms = [], [], []
     for i in range(1, TRAIN_STEPS + 1):
@@ -2923,48 +3266,72 @@ def train_main_phase(torch, mod, all_launches, dtype=None):
         times.append(s)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-    launches = {"lru_scan": LS.LAUNCHES["lru_scan"],
-                "lru_scan_backward": LS.LAUNCHES["lru_scan_backward"],
-                "flash_attention": FL.LAUNCHES["flash_attention"]}
+    launches = kernel_counts(mod)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     wall_s, n_kernels, kernels = profile_window(
         torch, lambda: one(TRAIN_STEPS + 1))
     busy = sum(t for _, t in kernels)
     idle = 1.0 - busy / wall_s if busy else None
     step_s = sum(times) / len(times)
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    tok_s = batch * seq / step_s
     n_rec = sum(cfg.block_kind(i) in ("rglru", "mamba")
                 for i in range(cfg.n_layers))
+    n_attn = sum(cfg.block_kind(i) in ("attn", "local")
+                 for i in range(cfg.n_layers))
     per = {k: v / TRAIN_STEPS for k, v in launches.items()}
     top = ", ".join(f"{n[:50]} {t * 1e3:.1f} ms" for n, t in kernels[:5])
+    kept = {p.dtype for p in holder["state"].params.parameters()}
+    holder.clear()
+    torch.cuda.empty_cache()
+    beside = (naive_beside(torch, mod, cfg, run, ocfg, bf16, dev, src)
+              if flash else None)
     print(f"[main] {label} ({cfg.n_layers} layers, full width): "
-          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat full, AdamW "
+          f"batch {batch} x {seq} tokens, remat full, AdamW "
           f"defaults{', master_fp32' if bf16 else ''}: {step_s:.3f} s/step (steps {', '.join(f'{t:.3f}' for t in times)}; "
           f"warm-up {warm_s:.3f} s), {tok_s:.1f} tokens/s; losses "
           f"{losses}, grad_norm {norms}; peak device memory {peak_gb:.3f} "
-          f"GB; launches a step {json.dumps(per)}", flush=True)
+          f"GB; launches a step "
+          f"{json.dumps({k: v for k, v in per.items() if v})}", flush=True)
+    if beside is not None:
+        rel = (abs(beside["first_loss"] - first_loss) / abs(first_loss)
+               if "first_loss" in beside else None)
+        print(f"[main] {label} beside impl=naive: " + (
+            f"{beside['step_s']:.3f} s for its first step, peak device "
+            f"memory {beside['peak_device_gb']:.3f} GB; "
+            f"first step's loss {beside['first_loss']:.7f} vs flash "
+            f"{first_loss:.7f} (rel {rel:.3e}"
+            + (f", tol {TRAIN_LOSS_RTOL})" if not bf16 else
+               ", bfloat16: not held here, the reduced check holds it)")
+            if rel is not None else
+            f"does not fit the card ({beside['error']})"), flush=True)
+        if rel is not None and not bf16:
+            check(rel <= TRAIN_LOSS_RTOL, f"{label}: first loss flash "
+                  f"{first_loss} vs naive {beside['first_loss']}")
     print(f"[profile] {label} step: {n_kernels} kernels, device "
           f"busy {busy:.3f} s of {wall_s:.3f} s under the profiler (idle "
           f"share {'not measured' if idle is None else f'{idle:.3f}'}); top "
           f"kernels: {top}", flush=True)
-    check(all(np.isfinite(x) for x in losses + norms),
+    check(all(np.isfinite(x) for x in losses + norms + [first_loss]),
           "train losses and grad norms finite")
     check(peak_gb < 80.0, f"train peak memory {peak_gb} GB")
-    check(per == {"lru_scan": 2 * n_rec, "lru_scan_backward": n_rec,
-                  "flash_attention": 0},
-          f"train launches a step {per}: want {2 * n_rec} forward (remat "
-          f"full runs each forward twice), {n_rec} backward, no flash")
-    kept = {p.dtype for p in holder["state"].params.parameters()}
+    sfx = ".bfloat16" if bf16 else ""
+    want = {"flash_attention" + sfx: 2 * n_attn,
+            "flash_attention_backward" + sfx: n_attn} if flash else {
+        "lru_scan": 2 * n_rec, "lru_scan_backward": n_rec}
+    want = {k: want.get(k, 0) for k in per}
+    check(per == want, f"{label} launches a step {per}: want {want} (remat "
+          f"full runs each forward twice)")
     check(kept == {dtype}, f"{label}: parameters stored in {kept}")
-    holder.clear()
-    torch.cuda.empty_cache()
-    return dict(dtype=str(dtype).removeprefix("torch."),
+    return dict(dtype=str(dtype).removeprefix("torch."), arch=arch,
+                impl=impl, batch=batch, seq=seq,
                 step_s=step_s, steps_s=times, warmup_s=warm_s,
                 tokens_per_s=tok_s, losses=losses, grad_norms=norms,
+                first_loss=first_loss,
                 peak_device_gb=peak_gb, launches=launches,
                 launches_per_step=per, idle_share=idle,
                 profiled_wall_s=wall_s, device_busy_s=busy,
-                kernels_in_step=n_kernels, params=n_params, init_s=init_s)
+                kernels_in_step=n_kernels, params=n_params, init_s=init_s,
+                top_kernels=kernels[:8], naive=beside)
 
 
 def train_launcher_phase(torch, mod):
@@ -3102,15 +3469,25 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)} torch={torch.__version__} "
           f"cuda={torch.version.cuda}", flush=True)
 
+    # each phase's wall time, printed as it ends ([time] lines)
+    laps, t_lap = {}, [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        laps[label] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"[time] {label}: {laps[label]:.1f} s", flush=True)
+
     # 1. build
     t = time.perf_counter()
     names = ["binomial_step", "rz_step", "lru_scan", "flash_attention",
-             "flash_attention_bf16"]
+             "flash_attention_bf16", "flash_attention_bwd"]
     logs = build.build_all(names)
     print(f"[build] nvcc x{len(names)} in parallel: "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for name in names:
         print_ptxas(name, logs[name])
+    lap("build")
 
     put_cfg, notc_cfg = cfgs.PAPER_PUT, cfgs.PAPER_NOTC
     capacity = put_cfg.capacity
@@ -3130,6 +3507,7 @@ def main() -> int:
     fmirror = flash_mirror_phase(torch, np, mod("kernels.flash_attention"),
                                  contracts)
     fbf16 = flash_bf16_phase(torch, np, mod("kernels.flash_attention"))
+    lap("kernel holds")
 
     # 3. the main path, through the public API with the default backend
     zero_counts((B.LAUNCHES, RS.LAUNCHES))
@@ -3233,6 +3611,7 @@ def main() -> int:
     # the float32 main paths (each with its launches counted from 0)
     main32 = float32_main_phase(torch, np, mod, cfgs, ops, R, tc_grid, tc, one,
                                 (B.LAUNCHES, RS.LAUNCHES))
+    lap("pricing grids")
 
     # the LSMC engine's main lines, the sharded layouts and the launcher
     pricing_launches = (B.LAUNCHES, RS.LAUNCHES)
@@ -3241,8 +3620,10 @@ def main() -> int:
                           capacity, pricing_launches)
     node = node_axis_phase(torch, np, mod, cfgs, pricing_launches)
     launcher = launcher_phase()
+    lap("LSMC, layouts, node axis, launcher")
     serving = serving_phase(torch, np, mod, cfgs, pricing_launches)
     serve_launcher = serve_launcher_phase()
+    lap("pricing service")
 
     # 4. the language models' serve paths at full width
     FL, LS = mod("kernels.flash_attention"), mod("kernels.lru_scan")
@@ -3281,10 +3662,12 @@ def main() -> int:
 
     # the bfloat16 serves (chameleon-34b and qwen2.5-14b's first on the
     # card), qwen3-4b beside its float32 serve
+    lap("float32 LM serves")
     bf16 = bf16_serve_phase(torch, np, mod, all_launches, gqa)
     # the bfloat16 kernel at recurrentgemma-2b's and seamless-m4t-medium's
     # main-path shapes, on their bfloat16 prefills' inputs
     bf16_pre = bf16_prefill_phase(torch, np, mod, all_launches)
+    lap("bfloat16 LM serves")
 
     # 5. training: the scan's backward kernel, a reduced step card vs CPU,
     # the full-width step, the launchers' restart and serve --ckpt; the
@@ -3296,6 +3679,24 @@ def main() -> int:
     train_bf16 = train_main_phase(torch, mod, all_launches,
                                   dtype=torch.bfloat16)
     train_launch = train_launcher_phase(torch, mod)
+    lap("recurrentgemma-2b training")
+    # 6. training through flash_attention's backward kernel: the kernel
+    # against its plain version, a reduced qwen3-0.6b step (head dim 16)
+    # card vs CPU, the full-width step in float32 and bfloat16 beside
+    # impl="naive"; then serve --reduced on the card (the padded instance)
+    fbwd = flash_backward_phase(torch, np, FL)
+    lap("flash backward holds")
+    train_chk_flash = train_check_phase(torch, mod, FLASH_TRAIN_ARCH, "flash")
+    flash_train = dict(arch=FLASH_TRAIN_ARCH, impl="flash",
+                       batch=FLASH_TRAIN_BATCH, seq=FLASH_TRAIN_SEQ)
+    train_flash = train_main_phase(torch, mod, all_launches, **flash_train)
+    train_chk_flash_bf16 = train_check_bf16_phase(torch, mod,
+                                                  FLASH_TRAIN_ARCH, "flash")
+    train_flash_bf16 = train_main_phase(torch, mod, all_launches,
+                                        dtype=torch.bfloat16, **flash_train)
+    lap("qwen3-0.6b training through flash")
+    serve_red = serve_reduced_phase(torch, np, mod)
+    lap("serve --reduced")
     for rec in [lm, mamba, gqa] + [r for *_, r in more] + [
             r for _, _, r in bf16.values()]:
         rec.pop("last_logits")
@@ -3454,6 +3855,49 @@ def main() -> int:
                 bound_share=rec["bound_share"],
                 bound_note="4*hd operations per live (query, key) pair, one "
                            "bfloat16 MMA each, over 989 TFLOP/s"))
+    # the training path through flash: the backward kernel (no TPU kernel
+    # stands behind it: JAX differentiates _attn_flash) and the forward at
+    # the training shape, each with the full-width run's launches
+    # (TRAIN_STEPS steps); times at the slice's shape
+    for sfx, rec_d, run_rec in (("", fbwd["float32"], train_flash),
+                                (".bfloat16", fbwd["bfloat16"],
+                                 train_flash_bf16)):
+        rec = rec_d[FLASH_BWD_MAIN[0][0]]
+        main_path = (f"{FLASH_TRAIN_ARCH} train flash"
+                     f"{' bfloat16' if sfx else ''} ({TRAIN_STEPS} steps, "
+                     "remat full)")
+        kernels.append(dict(
+            name="flash_attention_backward" + sfx, route="cuda",
+            source=src + "flash_attention_bwd.cu",
+            replaces=notes["flash_attention"][0],
+            launches=run_rec["launches"]["flash_attention_backward" + sfx],
+            max_abs_err=rec["max_abs_err"], max_rel_err=rec["max_rel_err"],
+            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            bound_share=rec["bound_share"], main_path=main_path,
+            other_shapes={k: {x: v[x] for x in ("ms", "bound_ms",
+                                                "library_ms", "max_rel_err")}
+                          for k, v in rec_d.items()
+                          if k not in ("small", FLASH_BWD_MAIN[0][0])},
+            replaces_note="no TPU kernel: the gradient of _fa_kernel's "
+                          "attention, which JAX takes by autodiff of "
+                          "src/repro/models/layers.py:142 (_attn_flash)",
+            bound_note="10*hd operations per live (query, key) pair (S "
+                       "again, dP, dV, dK, dQ), " + (
+                           "one bfloat16 MMA each, over 989 TFLOP/s" if sfx
+                           else "three TF32 MMAs each, over 495 TFLOP/s")))
+        fwd = rec["forward"]
+        kernels.append(dict(
+            name=f"flash_attention{sfx}.{FLASH_TRAIN_ARCH}-train",
+            route="cuda", source=src + ("flash_attention_bf16.cu" if sfx
+                                        else "flash_attention.cu"),
+            replaces=notes["flash_attention"][0],
+            launches=run_rec["launches"]["flash_attention" + sfx],
+            max_abs_err=fwd["max_abs_err"],
+            ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+            bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+            bound_share=fwd["bound_share"], main_path=main_path,
+            bound_note="4*hd operations per live pair, with lse written"))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
@@ -3483,7 +3927,12 @@ def main() -> int:
                                                calls=calls)
                                     for arch, (recs, n, calls)
                                     in bf16_pre.items()},
-                   train_check_bf16=train_chk_bf16, train_bf16=train_bf16)
+                   train_check_bf16=train_chk_bf16, train_bf16=train_bf16,
+                   flash_backward=fbwd, train_check_flash=train_chk_flash,
+                   train_flash=train_flash,
+                   train_check_flash_bf16=train_chk_flash_bf16,
+                   train_flash_bf16=train_flash_bf16,
+                   serve_reduced=serve_red)
     # 5. no process the script started outlives it: the gateways closed
     # their workers; the helper process spawning them started goes too
     mod("serve.procpool").stop_spawn_helper()
@@ -3491,6 +3940,7 @@ def main() -> int:
     print(f"[procs] child processes left: {left or 'none'}", flush=True)
     check(not left, f"child processes left: {left}")
     summary["total_s"] = time.perf_counter() - t_start
+    summary["phase_s"] = laps
     print(f"[time] smoke total {summary['total_s']:.1f} s", flush=True)
     print("[summary] " + json.dumps(summary), flush=True)
     print(card, flush=True)

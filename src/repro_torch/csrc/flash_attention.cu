@@ -65,6 +65,10 @@
 // q and KV tile itself (rows past T are not stored, keys past S are masked
 // and read as zeros).  The row sum l is kept per lane and summed over the
 // quad once, at the end.
+// With a non-null `lse` the kernel also writes each row's log-sum-exp of its
+// scaled live scores, (m + log2(l)) * ln(2) in float32 ((B, H, T)), which the
+// backward (flash_attention_bwd.cu) reads to recompute P; `out` is the same
+// with and without it.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -174,8 +178,9 @@ __global__ void __launch_bounds__(THREADS, Tile<HD>::MIN_BLOCKS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
-                       float* __restrict__ out, int T, int S, int H, int KVH,
-                       int window, float scale) {
+                       float* __restrict__ out, float* __restrict__ lse,
+                       int T, int S, int H, int KVH, int window,
+                       float scale) {
   using L = Layout<HD>;
   constexpr int BKV = L::BKV;
   constexpr int STAGES = L::STAGES;
@@ -390,6 +395,8 @@ flash_attention_kernel(const float* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int row = row0 + 8 * i;
     if (row >= T) continue;
+    if (lse != nullptr && half == 0 && t == 0)
+      lse[(size_t)bh * T + row] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     float* orow = ob + (size_t)row * q_stride + half * HH + 8 * t;
 #pragma unroll
@@ -407,9 +414,9 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 template <int HD, bool CAUSAL>
-int launch(const float* q, const float* k, const float* v, float* out, int B,
-           int T, int S, int H, int KVH, int window, float scale,
-           cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* out,
+           float* lse, int B, int T, int S, int H, int KVH, int window,
+           float scale, cudaStream_t stream) {
   constexpr int smem = Layout<HD>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<HD, CAUSAL>,
@@ -417,45 +424,47 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + BQ - 1) / BQ, B * H);
   flash_attention_kernel<HD, CAUSAL><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, T, S, H, KVH, window, scale);
+      q, k, v, out, lse, T, S, H, KVH, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_hd(int causal, const float* q, const float* k, const float* v,
-              float* out, int B, int T, int S, int H, int KVH, int window,
-              float scale, cudaStream_t stream) {
-  return causal ? launch<HD, true>(q, k, v, out, B, T, S, H, KVH, window,
-                                   scale, stream)
-                : launch<HD, false>(q, k, v, out, B, T, S, H, KVH, window,
-                                    scale, stream);
+              float* out, float* lse, int B, int T, int S, int H, int KVH,
+              int window, float scale, cudaStream_t stream) {
+  return causal ? launch<HD, true>(q, k, v, out, lse, B, T, S, H, KVH,
+                                   window, scale, stream)
+                : launch<HD, false>(q, k, v, out, lse, B, T, S, H, KVH,
+                                    window, scale, stream);
 }
 
 }  // namespace
 
 // causal != 0 masks keys after the query; window <= 0 means no window.
-// head_dim must be 64, 128 or 256; returns cudaErrorInvalidValue for
-// another.
+// lse may be null.  head_dim must be 64, 128 or 256 (the wrapper zero-pads
+// smaller ones and passes their own scale); returns cudaErrorInvalidValue
+// for another.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int T,
-                                      int S, int H, int KVH, int hd,
-                                      int causal, int window, float scale,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int T, int S, int H, int KVH,
+                                      int hd, int causal, int window,
+                                      float scale, void* stream) {
   const float* qf = (const float*)q;
   const float* kf = (const float*)k;
   const float* vf = (const float*)v;
   float* of = (float*)out;
+  float* lf = (float*)lse;
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 64:
-      return launch_hd<64>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
-                           scale, st);
+      return launch_hd<64>(causal, qf, kf, vf, of, lf, B, T, S, H, KVH,
+                           window, scale, st);
     case 128:
-      return launch_hd<128>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
-                            scale, st);
+      return launch_hd<128>(causal, qf, kf, vf, of, lf, B, T, S, H, KVH,
+                            window, scale, st);
     case 256:
-      return launch_hd<256>(causal, qf, kf, vf, of, B, T, S, H, KVH, window,
-                            scale, st);
+      return launch_hd<256>(causal, qf, kf, vf, of, lf, B, T, S, H, KVH,
+                            window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

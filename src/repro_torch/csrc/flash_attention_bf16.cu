@@ -75,6 +75,10 @@
 // On NVIDIA H100 80GB HBM3 at 700 W it reaches 0.55-0.59 of the bound at hd
 // 128 and 256, 0.63-0.72 with the softmax taken out (its ablation in
 // tools/flash_bf16_ablation.py), 0.38-0.41 at hd 64.
+// With a non-null `lse` each consumer warpgroup also writes its 64 rows'
+// log-sum-exp of the scaled live scores in its epilogue, (m + log2(l)) *
+// ln(2) in float32 ((B, H, T)), for the backward (flash_attention_bwd.cu);
+// `out` is the same with and without it.
 // Not yet: the query heads of one KV head packed into a block, TMA
 // multicast of K and V over a cluster, a dynamic tile scheduler, a TMA
 // store of the output.
@@ -457,8 +461,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ out, int B, int T,
-                            int S, int H, int KVH, int window, float scale) {
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int B, int T, int S,
+                            int H, int KVH, int window, float scale) {
   using L = Layout<HD>;
   constexpr int BKV = L::BKV;
   constexpr int STAGES = L::STAGES;
@@ -472,8 +477,6 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t k_empty = k_full + 8 * STAGES;
   const uint32_t v_full = k_empty + 8 * STAGES;
   const uint32_t v_empty = v_full + 8 * STAGES;
-  const int nq = (T + BQ - 1) / BQ;
-  const int n_tiles = nq * B * H;
   const int p = blockIdx.x;
   const int G = gridDim.x;
 
@@ -494,6 +497,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // the producer: one thread starts every load, the next tile's Q as
     // soon as both consumers have taken their last S of this one
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    // the tile count is computed in each branch: computed before it, it
+    // lived across setmaxnreg and spilled
+    const int nq = (T + BQ - 1) / BQ;
+    const int n_tiles = nq * B * H;
     if (threadIdx.x == 0) {
       uint32_t g = 0;                          // K/V tiles loaded
       for (int k = 0;; ++k) {
@@ -528,6 +535,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     // a consumer: 64 query rows of each of the block's tiles
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int nq = (T + BQ - 1) / BQ;
+    const int n_tiles = nq * B * H;
     const int wg = threadIdx.x / WG_THREADS - 1;
     const int tid = threadIdx.x % WG_THREADS;
     const int lrow = WG_ROWS * wg + 16 * (tid >> 5) + ((tid & 31) >> 2);
@@ -617,6 +626,9 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         const int row = row0 + 8 * r;
         if (row >= T) continue;
+        if (lse != nullptr && t == 0)
+          lse[((size_t)w.b * H + w.h) * T + row] =
+              (m[r] + log2f(l[r])) * 0.6931471805599453f;
         const float den = fmaxf(l[r], 1e-30f);
         __nv_bfloat16* orow =
             out + (((size_t)w.b * T + row) * H + w.h) * HD + 2 * t;
@@ -677,8 +689,8 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
 }
 
 template <int HD, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int T, int S, int H, int KVH, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int T, int S, int H, int KVH, int window, float scale,
            cudaStream_t stream) {
   using L = Layout<HD>;
   const EncodeTiled encode = encode_tiled();
@@ -703,42 +715,45 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const long tiles = (long)((T + BQ - 1) / BQ) * B * H;
   const int grid = (int)(tiles > sms ? (long)sms : tiles);
   flash_attention_bf16_kernel<HD, CAUSAL><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, B, T, S, H, KVH, window, scale);
+      tq, tk, tv, (__nv_bfloat16*)out, lse, B, T, S, H, KVH, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_hd(int causal, const void* q, const void* k, const void* v,
-              void* out, int B, int T, int S, int H, int KVH, int window,
-              float scale, cudaStream_t stream) {
-  return causal ? launch<HD, true>(q, k, v, out, B, T, S, H, KVH, window,
-                                   scale, stream)
-                : launch<HD, false>(q, k, v, out, B, T, S, H, KVH, window,
-                                    scale, stream);
+              void* out, float* lse, int B, int T, int S, int H, int KVH,
+              int window, float scale, cudaStream_t stream) {
+  return causal ? launch<HD, true>(q, k, v, out, lse, B, T, S, H, KVH,
+                                   window, scale, stream)
+                : launch<HD, false>(q, k, v, out, lse, B, T, S, H, KVH,
+                                    window, scale, stream);
 }
 
 }  // namespace
 
 // q (B, T, H, hd), k and v (B, S, KVH, hd), out like q, all bfloat16,
-// contiguous and 16-byte aligned.  causal != 0 masks keys after the query;
-// window <= 0 means no window.  head_dim must be 64, 128 or 256; returns
-// cudaErrorInvalidValue for another.
+// contiguous and 16-byte aligned; lse (B, H, T) float32 or null.  causal !=
+// 0 masks keys after the query; window <= 0 means no window.  head_dim must
+// be 64, 128 or 256 (the wrapper zero-pads smaller ones and passes their own
+// scale); returns cudaErrorInvalidValue for another.
 extern "C" int flash_attention_launch_bf16(const void* q, const void* k,
-                                           const void* v, void* out, int B,
-                                           int T, int S, int H, int KVH,
-                                           int hd, int causal, int window,
-                                           float scale, void* stream) {
+                                           const void* v, void* out,
+                                           void* lse, int B, int T, int S,
+                                           int H, int KVH, int hd, int causal,
+                                           int window, float scale,
+                                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  float* lf = (float*)lse;
   switch (hd) {
     case 64:
-      return launch_hd<64>(causal, q, k, v, out, B, T, S, H, KVH, window,
-                           scale, st);
+      return launch_hd<64>(causal, q, k, v, out, lf, B, T, S, H, KVH,
+                           window, scale, st);
     case 128:
-      return launch_hd<128>(causal, q, k, v, out, B, T, S, H, KVH, window,
-                            scale, st);
+      return launch_hd<128>(causal, q, k, v, out, lf, B, T, S, H, KVH,
+                            window, scale, st);
     case 256:
-      return launch_hd<256>(causal, q, k, v, out, B, T, S, H, KVH, window,
-                            scale, st);
+      return launch_hd<256>(causal, q, k, v, out, lf, B, T, S, H, KVH,
+                            window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

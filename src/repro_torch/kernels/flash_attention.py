@@ -10,9 +10,13 @@ live for a query if ``pos_q >= pos_k`` (``causal``) and
 
 On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``: split
 TF32 products on the tensor cores, K and V streamed through a cp.async
-ring, head_dim 64, 128 or 256, causal or not; it raises for anything
-else.  The kernel's tiles (``KERNEL_TILES``) and the KV tiles it walks
-for a q tile (:func:`kv_tile_range`) are written out here as well, so
+ring, instances for head_dim 64, 128 and 256, causal or not.  A smaller
+head dim is zero-padded to the next instance (:func:`instance_head_dim`)
+and run with its own scale ``1/sqrt(hd)``: the zero columns add exact
+zeros to the float32 sums, so the result is an ``hd``-wide kernel's, and
+the output is sliced back; above 256 it raises.  The kernel's tiles
+(``KERNEL_TILES``) and the KV tiles it walks for a q tile
+(:func:`kv_tile_range`) are written out here as well, so
 that the CPU tests can hold its schedule.  On a CPU tensor the wrapper
 runs the plain version below: the online-softmax loop of the JAX
 package's ``models/layers.py::_attn_flash`` written out in PyTorch
@@ -43,6 +47,21 @@ from it (``mirror_bound_bf16``).  Its bounds stand beside the wrapper:
 ``BF16_PLAIN_TOL`` (JAX's own bfloat16 kernel test) and the mirror's
 derived bound; the registry (``kernels/contracts.py``) keeps JAX's
 float32-only entry.
+
+``flash_attention`` is a ``torch.autograd.Function`` where an input
+requires grad: the forward also returns each row's log-sum-exp of its
+scaled live scores (``lse``, natural log, float32, ``(B, H, T)``), which
+both kernels write on request, and saves ``q, k, v, out, lse``; the
+backward is ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's three
+passes, no atomics: ``D = rowsum(dO O)``, dK and dV a KV tile at a time
+over the G query heads of its KV head, dQ a q tile at a time) on a CUDA
+tensor, counted under ``LAUNCHES["flash_attention_backward"]`` or
+``["flash_attention_backward.bfloat16"]``, and
+:func:`flash_attention_backward_plain` on a CPU tensor.  No TPU kernel
+stands behind it: JAX differentiates ``models/layers.py::_attn_flash``.
+Like ``lru_scan_backward`` it has no entry in ``kernels/contracts.py``
+(JAX's registry has none); its bounds stand beside it
+(``BWD_F32_TOL``, ``BWD_BF16_TOL``).
 """
 from __future__ import annotations
 
@@ -50,23 +69,37 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_with_lse", "flash_attention_backward",
+           "flash_attention_backward_plain",
            "flash_attention_mirror", "mirror_bound_bf16", "bf16_ulp",
-           "mask_bias", "kv_tile_range", "tf32", "split_tf32", "mma3_steps",
-           "qk_steps", "LAUNCHES", "KERNEL_HEAD_DIMS", "KERNEL_TILES",
-           "KERNEL_TILES_BF16", "BF16_PLAIN_TOL", "MIRROR_REL_BF16"]
+           "mask_bias", "kv_tile_range", "q_tile_range", "instance_head_dim",
+           "tf32", "split_tf32", "mma3_steps", "qk_steps", "LAUNCHES",
+           "KERNEL_HEAD_DIMS", "KERNEL_TILES", "KERNEL_TILES_BF16",
+           "BWD_TILES", "BF16_PLAIN_TOL", "BWD_F32_TOL", "BWD_BF16_TOL",
+           "MIRROR_REL_BF16"]
 
-# kernel launches by instance (never bumped by the plain version)
-LAUNCHES = {"flash_attention": 0, "flash_attention.bfloat16": 0}
+# kernel launches by instance, forward and backward apart (never bumped by
+# the plain versions); a backward call is one count for its three launches
+LAUNCHES = {"flash_attention": 0, "flash_attention.bfloat16": 0,
+            "flash_attention_backward": 0,
+            "flash_attention_backward.bfloat16": 0}
 # (q rows, keys) of a tile of the kernel, per head_dim
 KERNEL_TILES = {64: (64, 32), 128: (64, 32), 256: (64, 32)}
 KERNEL_HEAD_DIMS = tuple(KERNEL_TILES)
 # the bfloat16 instance's tiles: 128 q rows (64 a consumer warpgroup), 128
 # keys but at hd 256, where O takes 128 registers a thread
 KERNEL_TILES_BF16 = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
+# the backward's tiles (csrc/flash_attention_bwd.cu): (rows a block, the
+# other side's rows a step) per dtype and head_dim; the dQ walk takes q
+# tiles of the first and KV tiles of the second, the dK/dV walk KV tiles of
+# the first and q tiles of the second
+BWD_TILES = {torch.float32: {64: (64, 64), 128: (64, 32), 256: (64, 32)},
+             torch.bfloat16: {64: (64, 64), 128: (64, 64), 256: (64, 32)}}
 _MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
 # the bfloat16 instance against its plain version: the bound of the JAX
 # package's own bfloat16 kernel test (tests/test_kernels_attention.py:20)
@@ -81,13 +114,32 @@ BF16_PLAIN_TOL = 2e-2
 # where p lies this close to a rounding boundary (one bfloat16 ulp of p,
 # times |v| / l).  Rounding the output to bfloat16 adds one ulp.
 MIRROR_REL_BF16 = 2.0 ** -14
+# the backward kernel against its plain version taken in float64 from the
+# same inputs, each gradient's max abs gap over its max |g|.  float32: the
+# split-TF32 products keep about float32's precision (the dropped
+# small*small term is 2**-22 of a product), the sums run over up to S keys
+# or T * G queries in another order, and P is recomputed from a float32 lse
+# (a relative error of |s * scale| * 2**-24 in each p); 2e-5 leaves a
+# decade above that.  bfloat16: P and dS are rounded to bfloat16 (2**-9
+# relative) for their products, and the gradients to bfloat16: the bound of
+# JAX's own bfloat16 kernel test (tests/test_kernels_attention.py:20),
+# taken relative
+BWD_F32_TOL = 2e-5
+BWD_BF16_TOL = 2e-2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_F = ctypes.c_float
+# q, k, v, out, lse; B, T, S, H, KVH, hd, causal, window; scale; stream
+_ARGS = [_P] * 5 + [_I] * 8 + [_F, _P]
+# q, k, v, out, dout, lse, delta, dq, dk, dv; the same ints; scale; stream
+_BWD_ARGS = [_P] * 10 + [_I] * 8 + [_F, _P]
 # the entry points of each source (csrc/<name>.cu)
 _SIGNATURES = {"flash_attention": {"flash_attention_launch": _ARGS},
-               "flash_attention_bf16": {"flash_attention_launch_bf16": _ARGS}}
+               "flash_attention_bf16": {"flash_attention_launch_bf16": _ARGS},
+               "flash_attention_bwd": {
+                   "flash_attention_backward_launch": _BWD_ARGS,
+                   "flash_attention_backward_launch_bf16": _BWD_ARGS}}
 
 
 # the source, the C entry and the launch count of each instance
@@ -96,25 +148,63 @@ _ENTRIES = {torch.float32: ("flash_attention", "flash_attention_launch",
             torch.bfloat16: ("flash_attention_bf16",
                              "flash_attention_launch_bf16",
                              "flash_attention.bfloat16")}
+_BWD_ENTRIES = {torch.float32: ("flash_attention_backward_launch",
+                                "flash_attention_backward"),
+                torch.bfloat16: ("flash_attention_backward_launch_bf16",
+                                 "flash_attention_backward.bfloat16")}
+
+
+def instance_head_dim(hd: int) -> int:
+    """The kernels' instance that runs head_dim ``hd``: the smallest of
+    ``KERNEL_HEAD_DIMS`` that holds it (``hd`` is zero-padded to it)."""
+    for n in KERNEL_HEAD_DIMS:
+        if 1 <= hd <= n:
+            return n
+    raise ValueError(f"the flash_attention kernels take head_dim 1 to "
+                     f"{KERNEL_HEAD_DIMS[-1]} (instances {KERNEL_HEAD_DIMS}, "
+                     f"smaller ones zero-padded), got {hd}")
+
+
+def _pad(x, n: int):
+    """``x`` zero-padded along its last axis to ``n`` (``x`` itself where
+    it is that wide already)."""
+    return x if x.shape[-1] == n else F.pad(x, (0, n - x.shape[-1]))
 
 
 def _tiles(hd: int, dtype=torch.float32):
     return (KERNEL_TILES_BF16 if dtype == torch.bfloat16
-            else KERNEL_TILES)[hd]
+            else KERNEL_TILES)[instance_head_dim(hd)]
 
 
 def kv_tile_range(q0: int, T: int, S: int, hd: int, *, causal: bool,
-                  window, dtype=torch.float32) -> range:
+                  window, dtype=torch.float32, tiles=None) -> range:
     """The KV tiles that the kernel's ``dtype`` instance walks at head_dim
     ``hd`` for the q tile of rows ``q0..`` (cut at ``T``): all but those
     that the causal triangle, the window or the end of ``S`` leave
-    without a live key for any of its rows."""
-    bq, bkv = _tiles(hd, dtype)
+    without a live key for any of its rows.  ``tiles=(bq, bkv)`` takes
+    other tiles (the backward's dQ walk: ``BWD_TILES``)."""
+    bq, bkv = tiles or _tiles(hd, dtype)
     q_last = min(q0 + bq, T) - 1
     lo = (q0 - window + 1) // bkv if window and q0 - window + 1 > 0 else 0
     hi = -(-S // bkv) - 1
     if causal:
         hi = min(hi, q_last // bkv)
+    return range(lo, hi + 1)
+
+
+def q_tile_range(k0: int, T: int, S: int, hd: int, *, causal: bool,
+                 window, dtype=torch.float32) -> range:
+    """The q tiles that the backward's dK/dV walk takes for the KV tile of
+    keys ``k0..`` (``BWD_TILES``, cut at ``S``): all but those that the
+    causal triangle, the window or the end of ``T`` leave without a live
+    query for any of its keys (the transpose of :func:`kv_tile_range`)."""
+    bk, bq = BWD_TILES[dtype][instance_head_dim(hd)]
+    nq = -(-T // bq)
+    k_last = min(k0 + bk, S) - 1
+    lo = (k0 // bq if k0 <= T - 1 else nq) if causal else 0
+    hi = nq - 1
+    if window is not None:
+        hi = min(hi, (k_last + window - 1) // bq)
     return range(lo, hi + 1)
 
 
@@ -130,13 +220,15 @@ def mask_bias(pos_q, pos_k, *, causal: bool, window, neg: float = _MASK_NEG):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
-                          q_chunk: int = 1024, kv_chunk: int = 1024):
+                          q_chunk: int = 1024, kv_chunk: int = 1024,
+                          return_lse: bool = False):
     """Plain PyTorch version: ``_attn_flash``'s online softmax over KV
     chunks, one q chunk at a time (a ragged last chunk is allowed).  For
     bfloat16 inputs, ``_attn_flash``'s rounding: float32 scores, ``m``,
     ``l`` and PV sums (the operands upcast: their products are exact in
     float32), ``p`` rounded to ``v``'s type for PV while ``l`` sums it
-    unrounded, the output rounded to ``q``'s type."""
+    unrounded, the output rounded to ``q``'s type.  ``return_lse``: also
+    each row's ``m + log(l)``, float32 ``(B, H, T)``."""
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -145,6 +237,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
     pos_q = torch.arange(T, device=q.device)
     pos_k = torch.arange(S, device=q.device)
     out = torch.empty_like(qg)
+    lse = torch.empty((B, KVH, G, T), dtype=torch.float32, device=q.device)
     for q0 in range(0, T, q_chunk):
         qi = qg[:, q0:q0 + q_chunk].float()
         cq = qi.shape[1]
@@ -168,7 +261,54 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
             m = m_new
         l = torch.clamp_min(l, 1e-30)
         out[:, q0:q0 + cq] = acc / l.permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, T, H, hd)
+        lse[..., q0:q0 + cq] = m + torch.log(l)
+    out = out.reshape(B, T, H, hd)
+    return (out, lse.reshape(B, H, T)) if return_lse else out
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, *,
+                                   causal: bool = True, window=None,
+                                   q_chunk: int = 1024):
+    """Plain PyTorch version of the gradient, in dense formulas one q
+    chunk at a time: with ``P = exp(scale * Q K^T + mask - lse)`` (0 on
+    masked pairs), ``dP = dO V^T``, ``D = rowsum(dO * out)`` and ``dS =
+    P (dP - D)``: ``dV = P^T dO``, ``dK = scale dS^T Q``, ``dQ = scale dS
+    K``, each KV head's summed over its G query heads.  It computes in
+    float64 for float64 inputs, else in float32 (bfloat16 inputs upcast,
+    nothing rounded between), and returns ``(dq, dk, dv)`` in ``q``'s
+    type."""
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    wt = torch.promote_types(q.dtype, torch.float32)
+    dev = q.device
+    qg = q.to(wt).reshape(B, T, KVH, G, hd)
+    dog = dout.to(wt).reshape(B, T, KVH, G, hd)
+    og = out.to(wt).reshape(B, T, KVH, G, hd)
+    kf, vf = k.to(wt), v.to(wt)
+    lseg = lse.to(wt).reshape(B, KVH, G, T)
+    pos_q = torch.arange(T, device=dev)
+    pos_k = torch.arange(S, device=dev)
+    dq = torch.empty_like(qg)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for q0 in range(0, T, q_chunk):
+        qi, doi = qg[:, q0:q0 + q_chunk], dog[:, q0:q0 + q_chunk]
+        live = mask_bias(pos_q[q0:q0 + q_chunk], pos_k, causal=causal,
+                         window=window) == 0
+        s = torch.einsum("bqkgh,bskh->bkgqs", qi, kf) * scale
+        p = torch.where(live, torch.exp(s - lseg[..., q0:q0 + q_chunk, None]),
+                        0.0)
+        dp = torch.einsum("bqkgh,bskh->bkgqs", doi, vf)
+        d = (doi * og[:, q0:q0 + q_chunk]).sum(-1).permute(0, 2, 3, 1)
+        ds = p * (dp - d[..., None])
+        dv += torch.einsum("bkgqs,bqkgh->bskh", p, doi)
+        dk += torch.einsum("bkgqs,bqkgh->bskh", ds, qi) * scale
+        dq[:, q0:q0 + q_chunk] = torch.einsum("bkgqs,bskh->bqkgh", ds,
+                                              kf) * scale
+    return (dq.reshape(B, T, H, hd).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -280,8 +420,8 @@ def _row_span(rows, T: int, bq: int):
     return r0, r1
 
 
-def _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack,
-                 rows=None):
+def _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack, rows,
+                 scale):
     """The bfloat16 instance's arithmetic: ``KERNEL_TILES_BF16`` tiles,
     the KV tiles of :func:`kv_tile_range`, S in k-steps of 16 dims, the
     base-2 softmax in float32, ``p`` rounded to bfloat16 (nearest even)
@@ -299,7 +439,7 @@ def _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack,
     dev = q.device
     neg = _MASK_NEG
     rel = MIRROR_REL_BF16
-    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    scale_log2 = (torch.tensor(scale, dtype=torch.float32)
                   * torch.tensor(math.log2(math.e), dtype=torch.float32)
                   ).to(dev)
     qg = q.float().reshape(B, T, KVH, G, hd).permute(0, 2, 3, 1, 4)
@@ -378,11 +518,26 @@ def flash_attention_mirror(q, k, v, *, causal: bool = True, window=None,
     hd summed apart and then added, as the kernel's warp pairs do.
     ``rows=(r0, r1)`` computes query rows ``r0..r1-1`` only (``r0`` at
     the start of a q tile), as the kernel computes them in the whole
-    ``q``.  A Python loop over tiles: slow, for small shapes or a few
-    rows."""
+    ``q``.  A head dim below an instance's is zero-padded to it
+    (:func:`instance_head_dim`) with the scale of its own, as the wrapper
+    runs it, and the result sliced back.  A Python loop over tiles: slow,
+    for small shapes or a few rows."""
+    hd = q.shape[-1]
+    n = instance_head_dim(hd)
+    scale = 1.0 / math.sqrt(hd)
+    q, k, v = (_pad(x, n) for x in (q, k, v))
     if q.dtype == torch.bfloat16:
-        return _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack,
-                            rows)
+        got = _mirror_bf16(q, k, v, causal, window, tensor_core, with_slack,
+                           rows, scale)
+        return (tuple(x[..., :hd] for x in got) if with_slack
+                else got[..., :hd])
+    return _mirror_f32(q, k, v, causal, window, split, tensor_core, rows,
+                       scale)[..., :hd]
+
+
+def _mirror_f32(q, k, v, causal, window, split, tensor_core, rows, scale):
+    """The float32 instance's arithmetic (:func:`flash_attention_mirror`)
+    at an instance's head dim."""
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -390,7 +545,7 @@ def flash_attention_mirror(q, k, v, *, causal: bool = True, window=None,
     r0, r1 = _row_span(rows, T, bq)
     dev = q.device
     neg = _MASK_NEG
-    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    scale_log2 = (torch.tensor(scale, dtype=torch.float32)
                   * torch.tensor(math.log2(math.e), dtype=torch.float32)
                   ).to(dev)
     steps_qk = qk_steps(hd)
@@ -453,29 +608,127 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
-def _launch(q, k, v, causal: bool, window):
+def _ready(what: str, *xs):
+    for x in xs:
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"the {what} kernel takes contiguous, 16-byte "
+                             f"aligned tensors")
+
+
+def _launch(q, k, v, causal: bool, window, with_lse: bool = False):
+    """The forward kernel: ``(out, lse or None)``, ``q``, ``k``, ``v``
+    zero-padded to the instance's head dim where they are narrower."""
     B, T, H, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    n = instance_head_dim(hd)
     if S == 0 or (window is not None and T - window >= S):
         raise ValueError(f"the flash_attention kernel needs a live key for "
                          f"every query row (T={T}, S={S}, window={window})")
-    for x in (q, k, v):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError("the flash_attention kernel takes contiguous, "
-                             "16-byte aligned tensors")
+    _ready("flash_attention", q, k, v)
+    q, k, v = (_pad(x, n) for x in (q, k, v))
     source, entry, _ = _ENTRIES[q.dtype]
     lib = _build.load(source, _SIGNATURES[source])
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H,
-        KVH, hd, int(bool(causal)), 0 if window is None else int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, T, S, H, KVH, n,
+        int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(hd), stream)
     _build.check(err, entry)
-    return out
+    return (out if n == hd else out[..., :hd].contiguous()), lse
+
+
+def _launch_backward(q, k, v, out, lse, dout, causal: bool, window):
+    """The backward kernel's three launches: ``(dq, dk, dv)``, the inputs
+    zero-padded to the instance's head dim where they are narrower (the
+    padded columns of the gradients are zeros and are sliced off)."""
+    B, T, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    n = instance_head_dim(hd)
+    q, k, v, out, dout = (_pad(x, n) for x in (q, k, v, out, dout))
+    _ready("flash_attention backward", q, k, v, out, lse, dout)
+    entry, _ = _BWD_ENTRIES[q.dtype]
+    lib = _build.load("flash_attention_bwd",
+                      _SIGNATURES["flash_attention_bwd"])
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, S, H, KVH, n, int(bool(causal)),
+        0 if window is None else int(window), 1.0 / math.sqrt(hd), stream)
+    _build.check(err, entry)
+    if n == hd:
+        return dq, dk, dv
+    return tuple(x[..., :hd].contiguous() for x in (dq, dk, dv))
+
+
+def _forward(q, k, v, causal: bool, window, with_lse: bool):
+    if q.device.type == "cuda":
+        out = _launch(q, k, v, causal, window, with_lse)
+        LAUNCHES[_ENTRIES[q.dtype][2]] += 1
+        return out
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     window=window), None
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True, window=None):
+    """``(out, lse)``: the forward as the autograd Function runs it (the
+    kernel on a CUDA tensor, counted as a forward launch; the plain
+    version on a CPU tensor), outside autograd."""
+    _check(q, k, v, window)
+    return _forward(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window=None):
+    """``(dq, dk, dv)`` of ``out = flash_attention(q, k, v)`` for the
+    output gradient ``dout``, from the forward's ``out`` and ``lse``: the
+    backward kernel on a CUDA tensor (counted under
+    ``LAUNCHES["flash_attention_backward"]`` or
+    ``["flash_attention_backward.bfloat16"]``), the plain version on a
+    CPU tensor."""
+    _check(q, k, v, window)
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} "
+                         f"and lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if q.device.type == "cuda":
+        grads = _launch_backward(q, k, v, out, lse, dout, causal, window)
+        LAUNCHES[_BWD_ENTRIES[q.dtype][1]] += 1
+        return grads
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                              causal=causal, window=window)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd may hand a strided gradient: the kernel wants a dense one
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
@@ -483,16 +736,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     the kernel's float32 or bfloat16 instance on a CUDA tensor (counted
     under ``LAUNCHES["flash_attention"]`` or
     ``["flash_attention.bfloat16"]``), the plain version on a CPU tensor.
-    It has no backward (JAX's Pallas kernel has none either), so it raises
-    on inputs that require grad in grad mode: a model trains with
-    ``RunCfg(impl="naive")``."""
+    Where an input requires grad (in grad mode) it runs as a
+    ``torch.autograd.Function``: the forward also keeps ``lse``, and the
+    backward is :func:`flash_attention_backward`."""
     _check(q, k, v, window)
-    _build.refuse_grad("flash_attention (train with RunCfg(impl='naive'))",
-                       q, k, v)
-    if q.device.type == "cuda":
-        out = _launch(q, k, v, causal, window)
-        LAUNCHES[_ENTRIES[q.dtype][2]] += 1
-        return out
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]

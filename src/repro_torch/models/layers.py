@@ -308,8 +308,9 @@ def attention(p: Attention, x, cfg: ModelConfig, *, kv=None, x_kv=None,
     cross attention against its cache passes False), and never to a
     cached K.  Returns ``(out, (k, v))`` so callers can build caches.
     ``impl="flash"`` with ``T > 1`` and no ``kv`` runs the flash kernel
-    over positions from 0; ``"naive"`` materialises the scores.  The
-    weights and a cached K/V are cast to ``dtype``."""
+    over positions from 0, in grad mode too (its backward is a kernel);
+    ``"naive"`` materialises the scores.  The weights and a cached K/V
+    are cast to ``dtype``."""
     if impl not in ("flash", "naive"):
         raise ValueError(f"impl must be 'flash' or 'naive', got {impl!r}")
     B, T, _ = x.shape

@@ -68,8 +68,12 @@ class RunCfg:
     float32 (``models/layers.py``).  A caller that means float32 says
     so, as JAX's launchers and trainer do.  The port defaults to
     ``impl="flash"`` so that prefill goes through the attention kernel
-    (the JAX package defaults to ``"naive"``).  The flash kernel has no
-    backward: training runs ``"naive"``, as JAX's trainer does.
+    (the JAX package defaults to ``"naive"``).  ``"flash"`` trains too:
+    with ``T > 1`` in grad mode ``flash_attention`` runs as an autograd
+    Function whose backward is a kernel (JAX differentiates
+    ``_attn_flash``); JAX's trainer and launcher, and the port's, keep
+    ``"naive"``, and ``train(..., run=RunCfg(impl="flash"))`` takes the
+    flash path.
     ``remat`` and ``moe_impl`` are JAX's training fields; expert
     dispatch needs a mesh, so ``lm_loss`` refuses ``"dispatch"``."""
     impl: str = "flash"            # attention: flash | naive

@@ -12,7 +12,9 @@ The port of the JAX package's ``train/trainer.py`` on one device:
     than ``straggler_factor`` times it is logged.
 
 The default ``RunCfg(impl="naive", dtype=torch.float32)`` is JAX's
-trainer's (the flash kernel has no backward).  Elastic re-meshing and
+trainer's; ``run=RunCfg(impl="flash", ...)`` trains through
+``flash_attention`` and its backward kernel, as JAX's ``train`` takes a
+flash ``RunCfg``.  Elastic re-meshing and
 compressed data-parallel gradients wait for the mesh slice (ROADMAP
 Queue A).
 """
@@ -60,7 +62,10 @@ def train(cfg: ModelConfig, tc: TrainerConfig, run: Optional[RunCfg] = None,
           log=print, device="cuda") -> dict:
     """Runs (or resumes) training on ``device``; returns final metrics:
     ``final_loss``, ``losses`` (this run's), ``last_step``,
-    ``grad_norm``."""
+    ``grad_norm``.  ``run`` defaults to JAX's trainer's
+    ``RunCfg(impl="naive", dtype=torch.float32)``; ``impl="flash"``
+    differentiates ``flash_attention`` (its backward kernel on the
+    card)."""
     run = run or RunCfg(impl="naive", dtype=torch.float32)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(tc.seed)

@@ -291,11 +291,23 @@ def test_mirror_rows_are_the_whole_mirrors_rows(dtype):
 
 
 def test_flash_bf16_refusals():
+    """Mixed types are refused; inputs that require grad get a bfloat16
+    gradient (the Function's plain backward here), within 2e-2 of its
+    max |g| of the float64 gradient of the same inputs."""
     q = torch.zeros(1, 8, 2, 64, dtype=BF16)
     with pytest.raises(TypeError, match="bfloat16"):
         FL.flash_attention(q, q.float(), q)
-    with pytest.raises(RuntimeError, match="no backward"):
-        FL.flash_attention(q.requires_grad_(), q.detach(), q.detach())
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(1, 8, 2, 64, generator=g).to(BF16)
+    k = torch.randn(1, 8, 1, 64, generator=g).to(BF16)
+    leaf = q.clone().requires_grad_()
+    FL.flash_attention(leaf, k, k).float().sum().backward()
+    assert leaf.grad.dtype == BF16
+    o, lse = FL.flash_attention_plain(q, k, k, return_lse=True)
+    want = FL.flash_attention_backward_plain(
+        *(x.double() for x in (q, k, k, o, lse, torch.ones_like(o))))[0]
+    assert (leaf.grad.double() - want).abs().max().item() <= \
+        FL.BWD_BF16_TOL * want.abs().max().item()
 
 
 # --------------------------------------------------------------------- #

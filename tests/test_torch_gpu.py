@@ -437,12 +437,30 @@ def test_lru_scan_gradient_on_card_equals_plain_autograd(cuda):
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
+    """The pricing kernels have no backward and raise on inputs that
+    require grad; ``flash_attention`` has one (an autograd Function whose
+    backward is the backward kernel): its output carries a ``grad_fn`` and
+    its gradient holds the float64 plain version's."""
     q = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
     k = torch.randn(1, 64, 1, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        TF.flash_attention(q, k, k)
+    out = TF.flash_attention(q, k, k)
+    assert out.grad_fn is not None
+    n = TF.LAUNCHES["flash_attention_backward"]
+    out.square().sum().backward()
+    assert TF.LAUNCHES["flash_attention_backward"] == n + 1
+    o, lse = TF.flash_attention_plain(q.detach(), k, k, return_lse=True)
+    want = TF.flash_attention_backward_plain(
+        *(x.double() for x in (q.detach(), k, k, o, lse, 2 * o)))[0]
+    assert (q.grad.double() - want).abs().max().item() <= \
+        TF.BWD_F32_TOL * want.abs().max().item()
     with torch.no_grad():
         assert TF.flash_attention(q, k, k).grad_fn is None
+    v = torch.zeros(1, 8, dtype=torch.float64, device=cuda,
+                    requires_grad=True)
+    sc = torch.tensor([[7.0, 0.5, 0.99, 1.0, 1.0, 0.1]], dtype=torch.float64,
+                      device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TB.lattice_round(v, sc, levels=2, block=8)
 
 
 def test_train_step_on_card_matches_cpu(no_tf32):
@@ -480,7 +498,8 @@ def test_train_step_on_card_matches_cpu(no_tf32):
 
 
 def test_flash_kernel_refuses_what_it_cannot_run(cuda):
-    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    """Head dims up to 256 run (padded to an instance); 288 does not."""
+    q = torch.zeros(1, 8, 2, 288, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros(1, 8, 2, 64, device=cuda)
@@ -892,7 +911,7 @@ def test_flash_bf16_kernel_at_main_path_shapes(bf16_sums, shape):
 
 def test_flash_bf16_kernel_refuses_what_it_cannot_run(cuda):
     bf = torch.bfloat16
-    q = torch.zeros(1, 8, 2, 96, device=cuda, dtype=bf)
+    q = torch.zeros(1, 8, 2, 288, device=cuda, dtype=bf)
     with pytest.raises(ValueError, match="head_dim"):
         TF.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=bf)
@@ -901,9 +920,20 @@ def test_flash_bf16_kernel_refuses_what_it_cannot_run(cuda):
                            q[:, :, :1], q[:, :, :1])
     with pytest.raises(TypeError, match="bfloat16"):
         TF.flash_attention(q, q[:, :, :1].float(), q[:, :, :1])
-    with pytest.raises(RuntimeError, match="no backward"):
-        TF.flash_attention(q.clone().requires_grad_(), q[:, :, :1],
-                           q[:, :, :1])
+    # a gradient, not a refusal: the bfloat16 backward kernel's
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 8, 2, 64, generator=g, device=cuda).to(bf)
+    k = torch.randn(1, 8, 1, 64, generator=g, device=cuda).to(bf)
+    leaf = q.clone().requires_grad_()
+    n = TF.LAUNCHES["flash_attention_backward.bfloat16"]
+    TF.flash_attention(leaf, k, k).float().sum().backward()
+    assert TF.LAUNCHES["flash_attention_backward.bfloat16"] == n + 1
+    assert leaf.grad.dtype == bf
+    o, lse = TF.flash_attention_plain(q, k, k, return_lse=True)
+    want = TF.flash_attention_backward_plain(
+        *(x.double() for x in (q, k, k, o, lse, torch.ones_like(o))))[0]
+    assert (leaf.grad.double() - want).abs().max().item() <= \
+        TF.BWD_BF16_TOL * want.abs().max().item()
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "qwen3-4b",
@@ -942,3 +972,159 @@ def test_reduced_lm_bf16_on_card_matches_cpu(bf16_sums, arch):
     # CPU's, and at d_model 256 the card's logits differ from the CPU's
     # in 0.73-0.87 of their bits, as many as the float32 path's do
     assert torch.equal(got, got.to(bf).float())
+
+
+# --------------------------------------------------------------------- #
+# flash_attention's backward kernel; head dims below the instances'
+# --------------------------------------------------------------------- #
+def _bwd_holds(dev, dtype, B, T, S, H, KVH, hd, causal, window, seed):
+    """The backward kernel on seeded inputs, from the forward kernel's own
+    ``out`` and ``lse``, against ``flash_attention_backward_plain`` taken
+    in float64 from the same tensors: each gradient's max abs gap within
+    ``BWD_F32_TOL`` (float32) or ``BWD_BF16_TOL`` (bfloat16) of its max
+    |g|, in the input's type; one backward launch counted."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    q, k, v = mk(B, T, H, hd), mk(B, S, KVH, hd), mk(B, S, KVH, hd)
+    dout = mk(B, T, H, hd)
+    kw = dict(causal=causal, window=window)
+    out, lse = TF.flash_attention_with_lse(q, k, v, **kw)
+    key = "flash_attention_backward" + (
+        ".bfloat16" if dtype == torch.bfloat16 else "")
+    n = TF.LAUNCHES[key]
+    got = TF.flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES[key] == n + 1
+    want = TF.flash_attention_backward_plain(
+        *(x.double() for x in (q, k, v, out, lse, dout)), **kw)
+    tol = TF.BWD_BF16_TOL if dtype == torch.bfloat16 else TF.BWD_F32_TOL
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        gap = (x.double() - w).abs().max().item()
+        assert gap <= tol * w.abs().max().item(), (name, gap)
+
+
+# (B, T, S, H, KVH, hd, causal, window): GQA G = 2 and 5 with ragged
+# tiles, windows of 40, 70 and 160 keys, bidirectional, cross T != S both
+# ways, S under one tile, T = 1 (a row of one live key has dS = 0, so
+# dQ is held where rows see several), and head dims 16, 24 and 32 through
+# the padding
+BWD_CASES = [
+    (2, 150, 150, 4, 2, 64, True, None), (1, 150, 150, 4, 2, 128, True, 40),
+    (2, 100, 100, 10, 2, 256, True, 70), (1, 120, 120, 4, 4, 64, False, None),
+    (2, 100, 230, 4, 2, 64, False, None), (1, 230, 100, 8, 2, 128, False, None),
+    (1, 300, 300, 5, 1, 256, True, 160), (2, 129, 129, 2, 1, 128, True, None),
+    (1, 1, 9, 2, 1, 64, False, None), (1, 70, 70, 2, 1, 16, True, None),
+    (1, 70, 70, 4, 2, 24, True, 30), (2, 90, 40, 4, 4, 32, False, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_kernel_matches_plain(no_tf32, dtype, case):
+    _bwd_holds(no_tf32, dtype, *case, seed=sum(case[:6]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,causal,window", [
+    (64, True, None), (128, True, 40), (256, False, None), (16, True, None)])
+def test_flash_out_is_bit_equal_with_and_without_lse(no_tf32, dtype, hd,
+                                                     causal, window):
+    """Asking the forward kernel for ``lse`` leaves ``out`` bit for bit as
+    it was; ``lse`` holds the plain version's (float32 sums in another
+    order: 1e-5 of max(1, |lse|))."""
+    g = torch.Generator(device=no_tf32).manual_seed(hd)
+    mk = lambda *s: torch.randn(*s, generator=g, device=no_tf32).to(dtype)
+    q, k, v = mk(2, 200, 4, hd), mk(2, 200, 2, hd), mk(2, 200, 2, hd)
+    kw = dict(causal=causal, window=window)
+    plain = TF.flash_attention(q, k, v, **kw)
+    out, lse = TF.flash_attention_with_lse(q, k, v, **kw)
+    _, want = TF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert lse.shape == (2, 4, 200) and lse.dtype == F32
+    assert (lse - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("hd", [16, 24, 32])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)],
+                         ids=["causal", "window", "bidirectional"])
+def test_flash_kernel_small_head_dims_match_mirror(bf16_sums, hd, causal,
+                                                   window):
+    """Head dims of the reduced configs, zero-padded to the 64 instance:
+    the float32 kernel within the contract's 2e-6 of its mirror (which
+    pads alike) and 2e-5 of the plain version; the bfloat16 kernel within
+    2e-2 of the plain version and its mirror's bound."""
+    g = torch.Generator(device=bf16_sums).manual_seed(hd + int(causal))
+    q = torch.randn(2, 150, 4, hd, generator=g, device=bf16_sums)
+    k = torch.randn(2, 150, 2, hd, generator=g, device=bf16_sums)
+    v = torch.randn(2, 150, 2, hd, generator=g, device=bf16_sums)
+    kw = dict(causal=causal, window=window)
+    got = TF.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    assert (got - TF.flash_attention_mirror(q, k, v, **kw)).abs().max() \
+        .item() <= CONTRACTS["flash_attention"].tolerance(F32)
+    assert (got - TF.flash_attention_plain(q, k, v, **kw)).abs().max() \
+        .item() <= 2e-5
+    _bf16_kernel_holds(bf16_sums, 2, 150, 150, 4, 2, hd, causal, window,
+                       hd + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_gradient_on_card_is_deterministic(no_tf32, dtype):
+    """Autograd through ``flash_attention`` on the card equals the direct
+    calls of the forward and backward kernels, and a second run, bit for
+    bit: no atomics, so training is reproducible."""
+    g = torch.Generator(device=no_tf32).manual_seed(4)
+    mk = lambda *s: torch.randn(*s, generator=g, device=no_tf32).to(dtype)
+    q, k, v = mk(2, 333, 8, 128), mk(2, 333, 2, 128), mk(2, 333, 2, 128)
+    w = mk(2, 333, 8, 128)
+    runs = []
+    for _ in range(2):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        (TF.flash_attention(*leaves, window=100) * w).float().sum().backward()
+        runs.append([x.grad for x in leaves])
+    out, lse = TF.flash_attention_with_lse(q, k, v, window=100)
+    direct = TF.flash_attention_backward(q, k, v, out, lse, w, window=100)
+    for a, b, c in zip(runs[0], runs[1], direct):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_train_step_flash_on_card_matches_cpu(no_tf32):
+    """One ``make_train_step`` step of qwen3-0.6b reduced to 3 layers
+    (head dim 16: the padded instances) with ``impl="flash"`` on the card
+    (the forward and backward kernels) and on the CPU (the plain
+    versions), same weights and batch: the loss within 1e-5 relative,
+    every gradient within 1e-4 of its leaf's largest |g|."""
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step, train_state
+    cfg = reduced_config(get_config("qwen3-0.6b"), n_layers=3)
+    assert cfg.resolved_head_dim == 16
+    run = TT.RunCfg(dtype=torch.float32, impl="flash")
+    batch = SyntheticSource(cfg.vocab, 2, 100, n_micro=1).batch(0)
+    out = {}
+    for dev in ("cpu", no_tf32):
+        model = TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                           device="cpu").to(dev)
+        step = make_train_step(cfg, run, AdamWConfig())
+        n = dict(TF.LAUNCHES)
+        _, m = step(train_state(model), to_device(batch, dev))
+        out[str(dev)] = (float(m["loss"]), {
+            k: p.grad.cpu() for k, p in model.named_parameters()})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert TF.LAUNCHES["flash_attention"] == n["flash_attention"] + 3
+            assert TF.LAUNCHES["flash_attention_backward"] == \
+                n["flash_attention_backward"] + 3
+    (want, gw), (got, gg) = out["cpu"], out[str(no_tf32)]
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for name, w in gw.items():
+        assert (gg[name] - w).abs().max().item() <= 1e-4 * max(
+            w.abs().max().item(), 1e-12), name

@@ -182,15 +182,19 @@ CPU's own bfloat16 distance from float32 (``[check] train step bfloat16
 card vs cpu``) and the full-width step (``[main] recurrentgemma-2b train
 bfloat16``).
 
-Then training through ``flash_attention``: its backward kernel
-(``csrc/flash_attention_bwd.cu``, float32 and bfloat16) against
+Then training through ``flash_attention``: its backward kernels
+(``csrc/flash_attention_bwd.cu``, float32, and
+``csrc/flash_attention_bwd_bf16.cu``, bfloat16) against
 ``flash_attention_backward_plain`` taken in float64 from the same tensors
 and the forward kernel's own ``out`` and ``lse``, each gradient's max
 abs gap over its max |g| within 2e-5 (float32) or 2e-2 (bfloat16), with
 ``out`` bit-equal with and without ``lse`` (``[kernel] flash_attention
 backward [bfloat16] ...``: qwen3-0.6b's training shape, recurrentgemma-
 2b's window, seamless-m4t-medium's encoder and cross attention, each
-timed beside its bound and SDPA's backward, and 13 small shapes); one
+timed beside its bound and SDPA's backward, each walk timed from the
+profiler's kernel names beside its own bound, each held to its time limit
+and printed beside the earlier design's recorded time; and 21 small
+shapes, eight of them at the walks' tile edges); one
 ``make_train_step`` step of qwen3-0.6b reduced to 3 layers (head dim 16:
 the padded instances) with ``impl="flash"`` card vs CPU (``[check] train
 step flash card vs cpu`` at the float32 check's bars; ``... flash
@@ -2723,7 +2727,36 @@ FLASH_BWD_SMALL = (
     (1, 300, 300, 5, 1, 256, True, 160), (2, 129, 129, 2, 1, 128, True, None),
     (1, 1, 9, 2, 1, 64, False, None), (1, 70, 70, 2, 1, 16, True, None),
     (1, 70, 70, 4, 2, 24, True, 30), (2, 90, 40, 4, 4, 32, False, None),
-    (1, 517, 517, 4, 4, 128, True, None))
+    (1, 517, 517, 4, 4, 128, True, None),
+    # the walks' tile edges: T and S one off the dK/dV key tile (64) and
+    # the dQ q tile (64 in float32, 128 in bfloat16), a window edge that
+    # cuts a key tile, G = 8, cross attention with S off the key tile
+    (2, 63, 63, 4, 2, 128, True, None), (1, 65, 65, 4, 1, 256, True, None),
+    (1, 127, 127, 4, 2, 64, True, 50), (1, 129, 129, 2, 2, 256, False, None),
+    (1, 300, 300, 4, 2, 128, True, 96), (1, 200, 200, 8, 1, 128, True, None),
+    (2, 128, 200, 4, 2, 64, False, None), (1, 130, 70, 2, 1, 256, False, None))
+# each main shape's backward ms a call as recorded with the backward's
+# earlier design (mma.sync in both dtypes, a grid axis over output columns
+# that formed S and dP again for each, synchronous loads), on NVIDIA H100
+# 80GB HBM3 at 700 W (printed beside this run's, never in the kernels'
+# record): (float32, bfloat16)
+FLASH_BWD_EARLIER = {"qwen3-0.6b train": (16.9693, 4.1760),
+                     "recurrentgemma-2b window": (77.9864, 17.2924),
+                     "seamless-m4t-medium encoder": (22.9331, 6.0799),
+                     "seamless-m4t-medium cross": (5.9678, 1.6623)}
+# this design's limits at the main shapes, ms a call (float32, bfloat16):
+# float32 at most 12.0 ms at qwen3-0.6b's shape and 40 ms at
+# recurrentgemma-2b's window, no slower than the earlier design at the
+# seamless shapes; bfloat16 at most 1.25 ms at qwen3-0.6b's and half the
+# earlier design's time at the other three
+FLASH_BWD_LIMIT_MS = {
+    "qwen3-0.6b train": (12.0, 1.25),
+    "recurrentgemma-2b window": (40.0, 17.2924 / 2),
+    "seamless-m4t-medium encoder": (22.9331, 6.0799 / 2),
+    "seamless-m4t-medium cross": (5.9678, 1.6623 / 2)}
+# operations a live (query, key) pair in each walk of the backward: the
+# dK/dV walk forms S^T, dP^T, dV and dK, the dQ walk S, dP and dQ
+FLASH_BWD_WALK_OPS = {"dkv": 8, "dq": 6}
 
 
 def lru_backward_phase(torch, LS):
@@ -2813,6 +2846,65 @@ def sdpa_backward_call(torch, q, k, v, dout, kw):
                                        retain_graph=True)
 
 
+def median_ms(torch, fn, reps=20, rounds=3):
+    """The median over ``rounds`` of ``cuda_ms(fn, reps)``."""
+    return sorted(cuda_ms(torch, fn, reps) for _ in range(rounds))[
+        rounds // 2]
+
+
+def bwd_walk_times(torch, fn, pairs, hd, bf16, reps=3):
+    """Each of the backward's launches timed by its kernel's name in a
+    profile of ``reps`` calls of ``fn`` (device ms, the mean of its
+    launches): the dK/dV walk (``dkv_kernel``), the dQ walk
+    (``dq_kernel``) and D (``delta_kernel``), the walks each beside its own
+    bound (``FLASH_BWD_WALK_OPS`` * hd operations a live pair on the
+    instance's tensor-core rate)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # late in the full run a profile of these few calls at times reported
+    # none of their kernels: the window is padded by half a second at each
+    # end and taken again, up to four times, while a kernel is missing
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.5)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+        # the mean of each kernel's launches (a dropped event leaves it)
+        times = {"dkv": [], "dq": [], "delta": []}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                for key, got in times.items():
+                    if f"{key}_kernel" in evt.name:
+                        got.append(evt.time_range.elapsed_us() / 1e3)
+        if all(times.values()):
+            break
+    rate = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S / SPLIT_TF32_MMAS
+    out = {}
+    for key, got in times.items():
+        ms = sum(got) / len(got) if got else None
+        out[key] = dict(ms=ms, launches=len(got))
+        if key in FLASH_BWD_WALK_OPS:
+            bound = FLASH_BWD_WALK_OPS[key] * hd * pairs / rate * 1e3
+            out[key].update(bound_ms=bound,
+                            bound_share=bound / ms if ms else None)
+    return out
+
+
+def walk_text(key, w):
+    """One walk of ``bwd_walk_times`` for a ``[kernel]`` line."""
+    if w["ms"] is None:
+        return f"{key} not captured by the profiler"
+    text = f"{key} {w['ms']:.4f}"
+    if key in FLASH_BWD_WALK_OPS:
+        text += (f" (bound {w['bound_ms']:.4f} at {FLASH_BWD_WALK_OPS[key]}"
+                 f"*hd a pair, {w['bound_share']:.3f} of it)")
+    return text
+
+
 def flash_backward_phase(torch, np, FL):
     """``flash_attention``'s backward kernel, float32 and bfloat16, on
     seeded inputs from the forward kernel's own ``out`` and ``lse``,
@@ -2872,11 +2964,15 @@ def flash_backward_phase(torch, np, FL):
             if main:
                 bwd = lambda: FL.flash_attention_backward(q, k, v, out, lse,
                                                           dout, **kw)
-                ms = cuda_ms(torch, bwd, 5)
+                # the median of three rounds of 20 calls, the library's
+                # alike: the card's speed drifts within a run by a few
+                # percent, and over 5 calls the first call's host work (the
+                # wrapper, the tensor maps) showed in a call's time
+                ms = median_ms(torch, bwd)
                 plain_ms = cuda_ms(torch, lambda: FL.flash_attention_backward_plain(
                     q, k, v, out, lse, dout, **kw), 1)
                 sdpa = sdpa_backward_call(torch, q, k, v, dout, kw)
-                lib_ms = cuda_ms(torch, sdpa, 5)
+                lib_ms = median_ms(torch, sdpa)
                 del sdpa
                 pairs = live_pairs(np, T_, S_, causal, window) * B_ * H_
                 ops = 10 * hd * pairs
@@ -2893,12 +2989,24 @@ def flash_backward_phase(torch, np, FL):
                            bound_by="operations" if t_ops >= t_bytes
                            else "bytes", live_pairs=pairs, ops=ops,
                            bytes=nbytes)
+                walks = bwd_walk_times(torch, bwd, pairs, hd, bf16)
+                earlier = FLASH_BWD_EARLIER[label][bf16]
+                limit = FLASH_BWD_LIMIT_MS[label][bf16]
+                rec.update(walks=walks, sdpa_ratio=ms / lib_ms,
+                           limit_ms=limit,
+                           recorded_earlier_design_ms=earlier)
                 line += (f"; live_pairs={pairs} ms={ms:.4f} plain_ms="
                          f"{plain_ms:.4f} bound_ms={bound:.4f} ("
                          + ("bfloat16 on the tensor cores" if bf16 else
                             "split TF32 on the tensor cores")
                          + f"; {bound / ms:.3f} of it reached) "
-                         f"sdpa_backward_ms={lib_ms:.4f}")
+                         f"sdpa_backward_ms={lib_ms:.4f} ({ms / lib_ms:.2f}x "
+                         f"its time); walks (profiler, device ms a call): "
+                         + ", ".join(walk_text(k, w)
+                                     for k, w in walks.items())
+                         + f"; limit {limit:.4f} ms; recorded with the "
+                           f"earlier design, not measured here: "
+                           f"{earlier:.4f} ms (NVIDIA H100 80GB HBM3, 700 W)")
                 if label == FLASH_BWD_MAIN[0][0]:
                     # the forward at the training shape, against its plain
                     # version at the flash holds' bounds
@@ -2930,6 +3038,10 @@ def flash_backward_phase(torch, np, FL):
             else:
                 out_recs.setdefault("small", []).append(rec)
             print(line, flush=True)
+            if main:
+                check(rec["ms"] <= rec["limit_ms"],
+                      f"flash_attention backward{tag} {label}: "
+                      f"{rec['ms']:.4f} ms > its limit {rec['limit_ms']} ms")
             del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return recs
@@ -3481,7 +3593,8 @@ def main() -> int:
     # 1. build
     t = time.perf_counter()
     names = ["binomial_step", "rz_step", "lru_scan", "flash_attention",
-             "flash_attention_bf16", "flash_attention_bwd"]
+             "flash_attention_bf16", "flash_attention_bwd",
+             "flash_attention_bwd_bf16"]
     logs = build.build_all(names)
     print(f"[build] nvcc x{len(names)} in parallel: "
           f"{time.perf_counter() - t:.1f} s", flush=True)
@@ -3868,15 +3981,18 @@ def main() -> int:
                      "remat full)")
         kernels.append(dict(
             name="flash_attention_backward" + sfx, route="cuda",
-            source=src + "flash_attention_bwd.cu",
+            source=src + ("flash_attention_bwd_bf16.cu" if sfx else
+                          "flash_attention_bwd.cu"),
             replaces=notes["flash_attention"][0],
             launches=run_rec["launches"]["flash_attention_backward" + sfx],
             max_abs_err=rec["max_abs_err"], max_rel_err=rec["max_rel_err"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             bound_share=rec["bound_share"], main_path=main_path,
+            walks=rec["walks"],
             other_shapes={k: {x: v[x] for x in ("ms", "bound_ms",
-                                                "library_ms", "max_rel_err")}
+                                                "library_ms", "max_rel_err",
+                                                "walks")}
                           for k, v in rec_d.items()
                           if k not in ("small", FLASH_BWD_MAIN[0][0])},
             replaces_note="no TPU kernel: the gradient of _fa_kernel's "

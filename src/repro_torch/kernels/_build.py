@@ -87,7 +87,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         if lib is None:
             path = _lib_path(name)
             src = CSRC / f"{name}.cu"
-            if not path.exists() or path.stat().st_mtime < src.stat().st_mtime:
+            newest = max(x.stat().st_mtime for x in
+                         [src, *CSRC.glob("*.cuh")])
+            if not path.exists() or path.stat().st_mtime < newest:
                 build_all([name])
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures.items():

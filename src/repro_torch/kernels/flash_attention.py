@@ -51,14 +51,20 @@ float32-only entry.
 ``flash_attention`` is a ``torch.autograd.Function`` where an input
 requires grad: the forward also returns each row's log-sum-exp of its
 scaled live scores (``lse``, natural log, float32, ``(B, H, T)``), which
-both kernels write on request, and saves ``q, k, v, out, lse``; the
-backward is ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's three
-passes, no atomics: ``D = rowsum(dO O)``, dK and dV a KV tile at a time
-over the G query heads of its KV head, dQ a q tile at a time) on a CUDA
-tensor, counted under ``LAUNCHES["flash_attention_backward"]`` or
-``["flash_attention_backward.bfloat16"]``, and
-:func:`flash_attention_backward_plain` on a CPU tensor.  No TPU kernel
-stands behind it: JAX differentiates ``models/layers.py::_attn_flash``.
+both kernels write on request, and saves ``q, k, v, out, lse``.  The
+backward is FlashAttention-2's three passes, no atomics (``D =
+rowsum(dO O)``, dK and dV a KV tile at a time over the G query heads of
+its KV head, dQ a q tile at a time), S and dP formed once per (key tile,
+q tile) pair in each walk: ``csrc/flash_attention_bwd.cu`` for float32
+(split TF32 on ``mma.sync``, the other side's tiles through a
+``cp.async`` ring in pre-split TF32 planes) and
+``csrc/flash_attention_bwd_bf16.cu`` for bfloat16 (``wgmma`` fed by TMA,
+a producer and two consumer warpgroups).  On a
+CUDA tensor it is counted under ``LAUNCHES["flash_attention_backward"]``
+or ``["flash_attention_backward.bfloat16"]``; on a CPU tensor it is
+:func:`flash_attention_backward_plain`.  Each walk's tiles are
+``BWD_TILES``.  No TPU kernel stands behind it: JAX differentiates
+``models/layers.py::_attn_flash``.
 Like ``lru_scan_backward`` it has no entry in ``kernels/contracts.py``
 (JAX's registry has none); its bounds stand beside it
 (``BWD_F32_TOL``, ``BWD_BF16_TOL``).
@@ -94,12 +100,20 @@ KERNEL_HEAD_DIMS = tuple(KERNEL_TILES)
 # the bfloat16 instance's tiles: 128 q rows (64 a consumer warpgroup), 128
 # keys but at hd 256, where O takes 128 registers a thread
 KERNEL_TILES_BF16 = {64: (128, 128), 128: (128, 128), 256: (128, 64)}
-# the backward's tiles (csrc/flash_attention_bwd.cu): (rows a block, the
-# other side's rows a step) per dtype and head_dim; the dQ walk takes q
-# tiles of the first and KV tiles of the second, the dK/dV walk KV tiles of
-# the first and q tiles of the second
-BWD_TILES = {torch.float32: {64: (64, 64), 128: (64, 32), 256: (64, 32)},
-             torch.bfloat16: {64: (64, 64), 128: (64, 64), 256: (64, 32)}}
+# the backward's tiles per dtype and head_dim, for each walk: "dq" is (q
+# rows a block, keys a step), "dkv" (keys a block, q rows a step).
+# float32 (csrc/flash_attention_bwd.cu): 64 rows a block, the other side's
+# tile as wide as shared memory holds beside its TF32 planes.  bfloat16
+# (csrc/flash_attention_bwd_bf16.cu): a dQ block is two consumer
+# warpgroups of 64 rows; a dK/dV block two of 64 keys, but one tile of 64
+# keys at hd 256, where the consumers split its products
+BWD_TILES = {
+    torch.float32: {64: {"dq": (64, 32), "dkv": (64, 32)},
+                    128: {"dq": (64, 32), "dkv": (64, 32)},
+                    256: {"dq": (64, 16), "dkv": (64, 16)}},
+    torch.bfloat16: {64: {"dq": (128, 128), "dkv": (128, 128)},
+                     128: {"dq": (128, 64), "dkv": (128, 64)},
+                     256: {"dq": (128, 32), "dkv": (64, 64)}}}
 _MASK_NEG = -1e30  # finite: keeps the online softmax NaN-free
 # the bfloat16 instance against its plain version: the bound of the JAX
 # package's own bfloat16 kernel test (tests/test_kernels_attention.py:20)
@@ -138,7 +152,8 @@ _BWD_ARGS = [_P] * 10 + [_I] * 8 + [_F, _P]
 _SIGNATURES = {"flash_attention": {"flash_attention_launch": _ARGS},
                "flash_attention_bf16": {"flash_attention_launch_bf16": _ARGS},
                "flash_attention_bwd": {
-                   "flash_attention_backward_launch": _BWD_ARGS,
+                   "flash_attention_backward_launch": _BWD_ARGS},
+               "flash_attention_bwd_bf16": {
                    "flash_attention_backward_launch_bf16": _BWD_ARGS}}
 
 
@@ -148,9 +163,11 @@ _ENTRIES = {torch.float32: ("flash_attention", "flash_attention_launch",
             torch.bfloat16: ("flash_attention_bf16",
                              "flash_attention_launch_bf16",
                              "flash_attention.bfloat16")}
-_BWD_ENTRIES = {torch.float32: ("flash_attention_backward_launch",
+_BWD_ENTRIES = {torch.float32: ("flash_attention_bwd",
+                                "flash_attention_backward_launch",
                                 "flash_attention_backward"),
-                torch.bfloat16: ("flash_attention_backward_launch_bf16",
+                torch.bfloat16: ("flash_attention_bwd_bf16",
+                                 "flash_attention_backward_launch_bf16",
                                  "flash_attention_backward.bfloat16")}
 
 
@@ -182,7 +199,7 @@ def kv_tile_range(q0: int, T: int, S: int, hd: int, *, causal: bool,
     ``hd`` for the q tile of rows ``q0..`` (cut at ``T``): all but those
     that the causal triangle, the window or the end of ``S`` leave
     without a live key for any of its rows.  ``tiles=(bq, bkv)`` takes
-    other tiles (the backward's dQ walk: ``BWD_TILES``)."""
+    other tiles (the backward's dQ walk: ``BWD_TILES[dtype][hd]["dq"]``)."""
     bq, bkv = tiles or _tiles(hd, dtype)
     q_last = min(q0 + bq, T) - 1
     lo = (q0 - window + 1) // bkv if window and q0 - window + 1 > 0 else 0
@@ -195,10 +212,11 @@ def kv_tile_range(q0: int, T: int, S: int, hd: int, *, causal: bool,
 def q_tile_range(k0: int, T: int, S: int, hd: int, *, causal: bool,
                  window, dtype=torch.float32) -> range:
     """The q tiles that the backward's dK/dV walk takes for the KV tile of
-    keys ``k0..`` (``BWD_TILES``, cut at ``S``): all but those that the
-    causal triangle, the window or the end of ``T`` leave without a live
-    query for any of its keys (the transpose of :func:`kv_tile_range`)."""
-    bk, bq = BWD_TILES[dtype][instance_head_dim(hd)]
+    keys ``k0..`` (``BWD_TILES[dtype][hd]["dkv"]``, cut at ``S``): all but
+    those that the causal triangle, the window or the end of ``T`` leave
+    without a live query for any of its keys (the transpose of
+    :func:`kv_tile_range`)."""
+    bk, bq = BWD_TILES[dtype][instance_head_dim(hd)]["dkv"]
     nq = -(-T // bq)
     k_last = min(k0 + bk, S) - 1
     lo = (k0 // bq if k0 <= T - 1 else nq) if causal else 0
@@ -650,9 +668,8 @@ def _launch_backward(q, k, v, out, lse, dout, causal: bool, window):
     n = instance_head_dim(hd)
     q, k, v, out, dout = (_pad(x, n) for x in (q, k, v, out, dout))
     _ready("flash_attention backward", q, k, v, out, lse, dout)
-    entry, _ = _BWD_ENTRIES[q.dtype]
-    lib = _build.load("flash_attention_bwd",
-                      _SIGNATURES["flash_attention_bwd"])
+    source, entry, _ = _BWD_ENTRIES[q.dtype]
+    lib = _build.load(source, _SIGNATURES[source])
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -705,7 +722,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
                          f"{tuple(q.shape)}")
     if q.device.type == "cuda":
         grads = _launch_backward(q, k, v, out, lse, dout, causal, window)
-        LAUNCHES[_BWD_ENTRIES[q.dtype][1]] += 1
+        LAUNCHES[_BWD_ENTRIES[q.dtype][2]] += 1
         return grads
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, lse, dout,

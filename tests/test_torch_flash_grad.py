@@ -4,8 +4,9 @@ JAX's ``impl="flash"`` attention is ``models/layers.py::_attn_flash``,
 plain jnp that JAX differentiates; the port's ``flash_attention`` is a
 ``torch.autograd.Function`` whose backward on the CPU is
 ``flash_attention_backward_plain`` (on the card the backward kernel of
-``csrc/flash_attention_bwd.cu``, held to that plain version by the card
-tests and ``chip_smoke.py``).  Here, on numpy inputs made from one seed:
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_bf16.cu``,
+held to that plain version by the card tests and ``chip_smoke.py``).
+Here, on numpy inputs made from one seed:
 
 * float32: the plain backward (from the plain forward's ``out`` and
   ``lse``) and the Function's gradient against ``jax.vjp`` of
@@ -16,13 +17,16 @@ tests and ``chip_smoke.py``).  Here, on numpy inputs made from one seed:
   ``GAP_FACTOR`` times JAX's own bfloat16-vs-float32 gradient gap on the
   same inputs (the form ``tests/test_torch_bf16.py`` holds the port to);
 * the backward's tile plans: the dQ walk's KV tiles and the dK/dV walk's
-  q tiles (``BWD_TILES``) are exactly the tiles with a live pair;
+  q tiles (``BWD_TILES``) are exactly the tiles with a live pair; each
+  instance's entry point is declared in the source its wrapper builds;
 * head dims below the kernels' instances: the mirrors pad to the
   instance (``instance_head_dim``) and hold JAX's ``_attn_flash``.
 
 Cases: causal GQA (G = 2), a 32-key window, bidirectional, cross T != S;
 head dims 16, 24 and 64.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,7 @@ import repro.core  # noqa: F401  (x64: the references get explicit float32)
 from repro.models.layers import _attn_flash
 
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FL
 
 GRAD_TOL = 1e-5
@@ -148,8 +153,9 @@ def test_backward_tile_plans_visit_exactly_the_live_tiles(T, S, causal,
                                                           window, hd, dtype):
     """The dQ walk's KV tiles for each q tile and the dK/dV walk's q tiles
     for each KV tile are exactly those holding a live (query, key)
-    pair, at the backward's tiles (``BWD_TILES``)."""
-    br, bc = FL.BWD_TILES[dtype][FL.instance_head_dim(hd)]
+    pair, each walk at its own tiles (``BWD_TILES``)."""
+    tiles = FL.BWD_TILES[dtype][FL.instance_head_dim(hd)]
+    br, bc = tiles["dq"]
     pq, pk = np.arange(T)[:, None], np.arange(S)[None, :]
     live = np.ones((T, S), bool)
     if causal:
@@ -162,12 +168,31 @@ def test_backward_tile_plans_visit_exactly_the_live_tiles(T, S, causal,
         got = list(FL.kv_tile_range(q0, T, S, hd, causal=causal,
                                     window=window, tiles=(br, bc)))
         assert got == want, ("dq", q0, got, want)
-    for k0 in range(0, S, br):
-        want = sorted({int(x) // bc for x in
-                       np.nonzero(live[:, k0:k0 + br].any(1))[0]})
+    bk, bq = tiles["dkv"]
+    for k0 in range(0, S, bk):
+        want = sorted({int(x) // bq for x in
+                       np.nonzero(live[:, k0:k0 + bk].any(1))[0]})
         got = list(FL.q_tile_range(k0, T, S, hd, causal=causal,
                                    window=window, dtype=dtype))
         assert got == want, ("dkv", k0, got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16],
+                         ids=["float32", "bfloat16"])
+def test_backward_entry_points_live_in_their_sources(dtype):
+    """Each instance's backward entry point is declared, with the
+    wrapper's number of arguments, in the source the wrapper builds and
+    binds for it; that source's local includes are in ``csrc/``; the
+    instance has its own launch count."""
+    source, entry, key = FL._BWD_ENTRIES[dtype]
+    assert FL._SIGNATURES[source] == {entry: FL._BWD_ARGS}
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    found = re.search(rf'extern "C" int {entry}\((.*?)\)\s*{{', text, re.S)
+    assert found, (source, entry)
+    assert found.group(1).count(",") + 1 == len(FL._BWD_ARGS)
+    for header in re.findall(r'#include "([^"]+)"', text):
+        assert (_build.CSRC / header).is_file(), header
+    assert key in FL.LAUNCHES
 
 
 @pytest.mark.parametrize("hd", [16, 24])

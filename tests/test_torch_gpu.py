@@ -1008,14 +1008,21 @@ def _bwd_holds(dev, dtype, B, T, S, H, KVH, hd, causal, window, seed):
 # tiles, windows of 40, 70 and 160 keys, bidirectional, cross T != S both
 # ways, S under one tile, T = 1 (a row of one live key has dS = 0, so
 # dQ is held where rows see several), and head dims 16, 24 and 32 through
-# the padding
+# the padding; then the walks' tile edges (BWD_TILES): T and S one below
+# and one above the dK/dV key tile (64) and the dQ q tile (64 in float32,
+# 128 in bfloat16), a window edge that cuts a key tile, G = 8 (a dK/dV
+# block walks all eight heads), cross attention with S off the key tile
 BWD_CASES = [
     (2, 150, 150, 4, 2, 64, True, None), (1, 150, 150, 4, 2, 128, True, 40),
     (2, 100, 100, 10, 2, 256, True, 70), (1, 120, 120, 4, 4, 64, False, None),
     (2, 100, 230, 4, 2, 64, False, None), (1, 230, 100, 8, 2, 128, False, None),
     (1, 300, 300, 5, 1, 256, True, 160), (2, 129, 129, 2, 1, 128, True, None),
     (1, 1, 9, 2, 1, 64, False, None), (1, 70, 70, 2, 1, 16, True, None),
-    (1, 70, 70, 4, 2, 24, True, 30), (2, 90, 40, 4, 4, 32, False, None)]
+    (1, 70, 70, 4, 2, 24, True, 30), (2, 90, 40, 4, 4, 32, False, None),
+    (2, 63, 63, 4, 2, 128, True, None), (1, 65, 65, 4, 1, 256, True, None),
+    (1, 127, 127, 4, 2, 64, True, 50), (1, 129, 129, 2, 2, 256, False, None),
+    (1, 300, 300, 4, 2, 128, True, 96), (1, 200, 200, 8, 1, 128, True, None),
+    (2, 128, 200, 4, 2, 64, False, None), (1, 130, 70, 2, 1, 256, False, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1077,21 +1084,25 @@ def test_flash_kernel_small_head_dims_match_mirror(bf16_sums, hd, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
-def test_flash_gradient_on_card_is_deterministic(no_tf32, dtype):
+@pytest.mark.parametrize("hd,causal,window", [
+    (128, True, 100), (64, True, None), (128, False, None), (256, True, 300)])
+def test_flash_gradient_on_card_is_deterministic(no_tf32, dtype, hd, causal,
+                                                 window):
     """Autograd through ``flash_attention`` on the card equals the direct
     calls of the forward and backward kernels, and a second run, bit for
     bit: no atomics, so training is reproducible."""
     g = torch.Generator(device=no_tf32).manual_seed(4)
     mk = lambda *s: torch.randn(*s, generator=g, device=no_tf32).to(dtype)
-    q, k, v = mk(2, 333, 8, 128), mk(2, 333, 2, 128), mk(2, 333, 2, 128)
-    w = mk(2, 333, 8, 128)
+    q, k, v = mk(2, 333, 8, hd), mk(2, 333, 2, hd), mk(2, 333, 2, hd)
+    w = mk(2, 333, 8, hd)
+    kw = dict(causal=causal, window=window)
     runs = []
     for _ in range(2):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        (TF.flash_attention(*leaves, window=100) * w).float().sum().backward()
+        (TF.flash_attention(*leaves, **kw) * w).float().sum().backward()
         runs.append([x.grad for x in leaves])
-    out, lse = TF.flash_attention_with_lse(q, k, v, window=100)
-    direct = TF.flash_attention_backward(q, k, v, out, lse, w, window=100)
+    out, lse = TF.flash_attention_with_lse(q, k, v, **kw)
+    direct = TF.flash_attention_backward(q, k, v, out, lse, w, **kw)
     for a, b, c in zip(runs[0], runs[1], direct):
         assert torch.equal(a, b) and torch.equal(a, c)
 

@@ -207,6 +207,21 @@ repro_torch.launch.serve --arch qwen3-0.6b --reduced --device cuda``,
 JAX's own example, its tokens an engine's on the same draws (``[main]
 serve --reduced``).  The script prints its total time (``[time]``).
 
+The mesh slice (``models/sharding.py``, ``launch/mesh.py``): a world-1
+process group in this process (NCCL for the card's tensors, gloo for the
+host's) and a 1 x 1 rank mesh.  On the weights of the dense dbrx-132b
+serve above, ``moe_dispatch``: its prefill at capacity ``E / top_k``,
+where nothing drops, against the dense prefill's last logits (``[check]
+dbrx-132b dispatch vs dense``, ``DISPATCH_REL_TOL`` of max |logit|), then
+the serve through ``LMEngine(rules=)`` at the config's capacity 1.25
+with each prefill layer's dropped share of (token, expert) slots and
+dense's times beside it (``[main] dbrx-132b serve dispatch``, with a
+profile).  After the flash training, one qwen3-0.6b step at full width
+through flash with the mesh's rules and without, bit for bit (``[main]
+qwen3-0.6b train flash on the 1 x 1 mesh``), and ``compressed_psum`` on
+the card against the host (``[check] compressed_psum``); ``[time] mesh
+slice in all``.
+
 Each launcher runs in a session of its own and fails the script if any
 process of that session outlives it; at the end the script stops the
 resource tracker that spawning the workers started and fails if a
@@ -265,6 +280,8 @@ GQA_SERVE = ("qwen3-4b", 4, 4096, 32)
 # (arch, batch, prompt, new tokens, encoder frames)
 MOE_SERVES = (("dbrx-132b", 1, 4096, 32, 3),
               ("llama4-scout-17b-a16e", 1, 4096, 32, 4))
+# the MoE arch also served through moe_dispatch on a 1 x 1 rank mesh
+DISPATCH_ARCH = "dbrx-132b"
 ENCDEC_SERVE = ("seamless-m4t-medium", 4, 1000, 32, 4000)
 # flash against its plain version: the bound JAX's own flash is held to.
 # lru_scan rounds as its plain version does (no fused multiply-add) and
@@ -1174,7 +1191,7 @@ def profile_window(torch, fn):
 
 
 def lm_profile(torch, T_, model, cfg, run, feed, prompt_len, timings,
-               n_dec=4):
+               n_dec=4, rules=None):
     """Where a full-width prefill and ``n_dec`` decode steps spend device
     time, and the device's idle share: 1 - device busy time over the
     host-clock time of the same profiled window.  The tracing slows the
@@ -1184,13 +1201,14 @@ def lm_profile(torch, T_, model, cfg, run, feed, prompt_len, timings,
 
     def do_prefill():
         state["last"], state["cache"] = T_.prefill(
-            model, feed(prompt_len), cfg, run, max_len=prompt_len + n_dec)
+            model, feed(prompt_len), cfg, run, max_len=prompt_len + n_dec,
+            rules=rules)
 
     def do_decode():
         tok = torch.argmax(state["last"], dim=-1)[:, None]
         for i in range(n_dec):
             logits, _ = T_.decode_step(model, state["cache"], tok,
-                                       prompt_len + i, cfg, run)
+                                       prompt_len + i, cfg, run, rules)
             tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
     out = {}
     for label, fn, steps, unprofiled_s in (
@@ -1206,7 +1224,8 @@ def lm_profile(torch, T_, model, cfg, run, feed, prompt_len, timings,
                           unprofiled_s=unprofiled_s, idle_share=idle,
                           kernels=n_kernels / steps, top_kernels_s=top)
         share = ", ".join(f"{n} {t * 1e3:.3f} ms" for n, t in top)
-        print(f"[profile] {cfg.name} {label} (per "
+        print(f"[profile] {cfg.name}"
+              f"{' ' + run.moe_impl if rules is not None else ''} {label} (per "
               f"{'step' if steps > 1 else 'call'}): "
               f"{n_kernels / steps:.0f} kernels, device busy "
               f"{busy_s * 1e3:.3f} ms of {profiled_s * 1e3:.3f} ms under the "
@@ -1250,7 +1269,7 @@ def route_flips(torch, pre, dec, full):
 
 
 def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
-             holds, n_layers=None, enc_frames=None, dtype=None):
+             holds, n_layers=None, enc_frames=None, dtype=None, then=None):
     """One architecture at its published width (and depth, or the first
     ``n_layers`` layers), its weights stored and computed in ``dtype``
     (``RunCfg(dtype=)``; float32 unless given): the prefill/decode
@@ -1264,7 +1283,10 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
     ``(kernel records, launches by kind, serve record)``, the record
     holding the served tokens and the checked prefill's last logits (a
     host tensor, ``last_logits``); the model is freed before it
-    returns."""
+    returns.  ``then(model, cfg, prompt, dense)``, where given, runs on
+    the same weights after the serve (``dense``: its prefill and decode
+    times and the checked prefill's last logits); its result is the
+    record's ``then``."""
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1405,7 +1427,13 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
           f"{arch} first served token vs the checked prefill's argmax")
     prof = lm_profile(torch, T_, model, cfg, run, feed, prompt_len, tm)
     last_logits = last.float().cpu()
-    del model, eng, last, enc
+    del eng
+    after = None
+    if then is not None:
+        torch.cuda.empty_cache()
+        after = then(model, cfg, prompt, dict(
+            prefill_s=tm["prefill_s"], decode_ms=decode_ms, last_logits=last))
+    del model, last, enc
     torch.cuda.empty_cache()
     return kern, calls, dict(
         dtype=dname, tokens=out.tolist(), last_logits=last_logits,
@@ -1418,7 +1446,7 @@ def lm_phase(torch, np, mod, all_launches, arch, batch, prompt_len, n_new,
         peak_device_gb=peak_gb, consistency_max_abs=d, check_prefill_s=pre_s,
         check_prefill_plus_one_s=full_s, launches=launches,
         routing_flips=None if flips is None else list(flips),
-        moe_dense_s=moe_s)
+        moe_dense_s=moe_s, then=after)
 
 
 def pricing_grids(api, cfgs, np):
@@ -3550,6 +3578,238 @@ def train_launcher_phase(torch, mod):
                         final_loss=finals["resumed"])
     return out
 
+# ---------------------------------------------------------------------- #
+# the mesh slice on one card: a world-1 process group in this process
+# (NCCL for CUDA tensors, gloo for host ones) and a 1 x 1 rank mesh
+# ---------------------------------------------------------------------- #
+# moe_dispatch with capacity E / top_k (nothing dropped) against
+# moe_dense's last logits, relative to their max |logit|: CONSIST_TOL
+# (1e-3) taken at dbrx-132b's max |logit| on the card, 3.928, where the
+# prefill/decode check of the same 3 layers (float32 sums in other
+# orders) reads 1.08e-4 (PERF.md section 2)
+DISPATCH_REL_TOL = 2.5e-4
+
+
+def rank_mesh_1x1(torch, mod):
+    """Start a world-1 process group in this process (``launch/mesh.py``'s
+    ``init_ranks``: NCCL for the card's tensors, gloo for the host's,
+    over a ``file://`` store in a fresh temporary directory) and return
+    the rules of a 1 x 1 rank mesh over it and the directory (removed by
+    the caller once the group is destroyed)."""
+    import tempfile
+    M = mod("launch.mesh")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    M.init_ranks("cuda", rank=0, world_size=1,
+                 init_method="file://" + os.path.join(tmp, "store"))
+    return (M.mesh_rules(M.make_rank_mesh((1, 1), ("data", "model"),
+                                          "cuda")), tmp)
+
+
+def dispatch_drops(torch, routes, cfg, tokens):
+    """Each layer's dropped share of its (token, expert) slots at the
+    config's capacity, from its top-k expert sets (``capture_routes``):
+    an expert chosen by more than C of the local tokens drops the rest."""
+    import math
+    e = cfg.moe
+    C = min(math.ceil(e.capacity_factor * tokens * e.top_k / e.num_experts),
+            tokens)
+    out = []
+    for r in routes:
+        counts = torch.bincount(r.reshape(-1), minlength=e.num_experts)
+        out.append(float((counts - C).clamp_min(0).sum())
+                   / (tokens * e.top_k))
+    return C, out
+
+
+def moe_dispatch_phase(torch, np, mod, all_launches, rules, model, cfg,
+                       prompt, prompt_len, n_new, batch, dense):
+    """dbrx-132b through ``moe_dispatch`` on the 1 x 1 mesh, on the
+    weights the dense serve built (``lm_phase``'s ``then``): first the
+    prefill at capacity ``E / top_k``, where nothing drops, against the
+    dense prefill's last logits (``[check]``, ``DISPATCH_REL_TOL``
+    relative); then the serve through ``LMEngine(rules=)`` at the
+    config's capacity 1.25 (batch, prompt and new tokens the dense
+    serve's), the flash launches counted from 0, each layer's dropped
+    share of (token, expert) slots in the prefill, and a profiled
+    prefill and decode (``[main] ... serve dispatch``), dense's times
+    beside it.  prefill(T) + decode and prefill(T + 1) drop different
+    tokens at capacity 1.25, so no consistency hold is made there."""
+    t0 = time.perf_counter()
+    T_, L = mod("models.transformer"), mod("models.layers")
+    FL = mod("kernels.flash_attention")
+    e = cfg.moe
+    run = T_.RunCfg(impl="flash", dtype=torch.float32, moe_impl="dispatch")
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=e.num_experts / e.top_k))
+    feed = lambda n: {"tokens": prompt[:, :n]}
+    ((last, cache), routes), chk_s = wall(torch, lambda: capture_routes(
+        L, lambda: T_.prefill(model, feed(prompt_len), nodrop, run,
+                              max_len=prompt_len, rules=rules)))
+    del cache
+    _, nodrop_drops = dispatch_drops(torch, routes, nodrop,
+                                     batch * prompt_len)
+    want = dense["last_logits"].to(last.device)
+    d = float((last - want).abs().max())
+    top = float(want.abs().max())
+    tol = DISPATCH_REL_TOL * top
+    finite = bool(torch.isfinite(last).all())
+    print(f"[check] {cfg.name} dispatch vs dense (1 x 1 mesh, capacity "
+          f"factor {nodrop.moe.capacity_factor:g}: dropped shares "
+          f"{nodrop_drops}): prefill {prompt_len} in {chk_s:.3f} s, last "
+          f"logits max |d| {d:.3e} (tol {tol:.3e} = {DISPATCH_REL_TOL} x "
+          f"max |logit| {top:.3f}), finite {finite}", flush=True)
+    check(finite and d <= tol and not any(nodrop_drops),
+          f"{cfg.name} dispatch vs dense: {d} > {tol} or drops "
+          f"{nodrop_drops}")
+    del last, want
+
+    eng = mod("serve.engine").LMEngine(model, cfg, run, batch=batch,
+                                       max_len=prompt_len + n_new,
+                                       rules=rules)
+    prompt_np = prompt[:, :prompt_len].cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(all_launches)
+    (out, routes), gen_s = wall(torch, lambda: capture_routes(
+        L, lambda: eng.generate(prompt_np, n_new)))
+    launches = {"flash_attention": FL.LAUNCHES["flash_attention"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tm = eng.timings
+    C, drops = dispatch_drops(torch, routes[:cfg.n_layers], cfg,
+                              batch * prompt_len)
+    _, dec_drops = dispatch_drops(torch, routes[cfg.n_layers:], cfg, batch)
+    decode_ms = tm["decode_s"] / tm["decode_steps"] * 1e3
+    print(f"[main] {cfg.name} serve dispatch (1 x 1 mesh; {cfg.n_layers} "
+          f"layers): batch {batch}, prompt {prompt_len}, {n_new} new tokens "
+          f"in {gen_s:.3f} s: prefill {tm['prefill_s']:.3f} s (dense "
+          f"{dense['prefill_s']:.3f} s), decode {decode_ms:.3f} ms/token "
+          f"(dense {dense['decode_ms']:.3f}); capacity {C} of "
+          f"{batch * prompt_len} tokens an expert (factor "
+          f"{e.capacity_factor:g}); dropped share of (token, expert) slots "
+          f"a prefill layer {[round(x, 5) for x in drops]}, in decode "
+          f"{max(dec_drops) if dec_drops else 0.0}; launches "
+          f"{json.dumps(launches)}; peak device memory {peak_gb:.3f} GB",
+          flush=True)
+    n_attn = sum(cfg.block_kind(i) in ("attn", "local")
+                 for i in range(cfg.n_layers))
+    check(launches == {"flash_attention": n_attn},
+          f"{cfg.name} dispatch launches {launches}: want {n_attn} (one "
+          "prefill, none in decode)")
+    check(out.shape == (batch, n_new) and (out >= 0).all()
+          and (out < cfg.vocab).all(), f"{cfg.name} dispatch tokens")
+    check(len(routes) == cfg.n_layers * (n_new + 1),
+          f"{cfg.name}: {len(routes)} routed MoE calls")
+    check(peak_gb < 80.0, f"{cfg.name} dispatch peak memory {peak_gb} GB")
+    prof = lm_profile(torch, T_, model, cfg, run, feed, prompt_len, tm,
+                      rules=rules)
+    return dict(check_max_abs=d, check_tol=tol, check_prefill_s=chk_s,
+                nodrop_capacity_factor=nodrop.moe.capacity_factor,
+                tokens=out.tolist(), prefill_s=tm["prefill_s"],
+                decode_ms_per_token=decode_ms, generate_s=gen_s,
+                capacity=C, dropped_share=drops, decode_dropped_share=dec_drops,
+                launches=launches, peak_device_gb=peak_gb, profile=prof,
+                dense_prefill_s=dense["prefill_s"],
+                dense_decode_ms_per_token=dense["decode_ms"],
+                phase_s=time.perf_counter() - t0)
+
+
+def mesh_train_phase(torch, mod, all_launches, rules):
+    """One ``make_train_step`` step of qwen3-0.6b at its published width
+    and depth through flash (batch 2 x 4096, remat full, AdamW's
+    defaults) without rules and with the 1 x 1 mesh's, from the same
+    weights (seed 0) and batch: the loss, the gradient norm, every
+    gradient and every updated parameter bit-equal (a one-rank
+    ``all_reduce`` and a weight of one change no bit), the flash
+    launches of the mesh step counted."""
+    cfgs, data = mod("configs"), mod("data.pipeline")
+    T_, opt, step_mod = (mod("models.transformer"), mod("optim.adamw"),
+                         mod("train.step"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = cfgs.get_config(FLASH_TRAIN_ARCH)
+    run = T_.RunCfg(impl="flash", remat="full", dtype=torch.float32)
+    src = data.SyntheticSource(cfg.vocab, FLASH_TRAIN_BATCH, FLASH_TRAIN_SEQ)
+    batch = data.to_device(src.batch(0), dev)
+    out, keep = {}, {}
+    for label, r in (("plain", None), ("mesh", rules)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = step_mod.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        step = step_mod.make_train_step(cfg, run, opt.AdamWConfig(), r)
+        zero_counts(all_launches)
+        (state, m), t = wall(torch, lambda: step(state, batch))
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   step_s=t, launches=kernel_counts(mod),
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        named = dict(state.params.named_parameters())
+        if label == "plain":
+            keep = {n: (p.detach().clone(), p.grad.clone())
+                    for n, p in named.items()}
+            keep["loss"], keep["norm"] = m["loss"], m["grad_norm"]
+        else:
+            diff = [n for n, p in named.items()
+                    if not (torch.equal(p, keep[n][0])
+                            and torch.equal(p.grad, keep[n][1]))]
+            rec["bit_equal"] = (not diff and torch.equal(m["loss"],
+                                                         keep["loss"])
+                                and torch.equal(m["grad_norm"],
+                                                keep["norm"]))
+            rec["differing_leaves"] = diff[:8]
+        out[label] = rec
+        del state, step, named, m
+    keep.clear()
+    torch.cuda.empty_cache()
+    mesh = out["mesh"]
+    launches = {k: v for k, v in mesh["launches"].items() if v}
+    print(f"[main] {FLASH_TRAIN_ARCH} train flash on the 1 x 1 mesh: one "
+          f"step of batch {FLASH_TRAIN_BATCH} x {FLASH_TRAIN_SEQ}, "
+          f"{mesh['step_s']:.3f} s (without rules {out['plain']['step_s']:.3f}"
+          f" s), loss {mesh['loss']!r}, grad_norm {mesh['grad_norm']!r}; "
+          f"loss, grad_norm, every gradient and parameter bit-equal to the "
+          f"step without rules: {mesh['bit_equal']}"
+          + (f" (differing: {mesh['differing_leaves']})"
+             if not mesh["bit_equal"] else "")
+          + f"; launches {json.dumps(launches)}; peak device memory "
+          f"{mesh['peak_device_gb']:.3f} GB", flush=True)
+    check(mesh["bit_equal"], "the 1 x 1 mesh step differs from the step "
+          f"without rules: {mesh['differing_leaves']}")
+    n_attn = cfg.n_layers
+    check(launches == {"flash_attention": 2 * n_attn,
+                       "flash_attention_backward": n_attn},
+          f"mesh step launches {launches}")
+    return out
+
+
+def compressed_psum_check(torch, mod, rules):
+    """``compressed_psum`` over the world-1 group on the card's tensors
+    against the same call on host copies (gloo): the reduced gradients
+    and residuals of two calls (the residual fed back), bit for bit
+    (elementwise IEEE operations and a max)."""
+    C = mod("optim.compression")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = {"w": torch.randn(4096, 1024, generator=gen, device="cuda"),
+         "b": torch.randn(1000, generator=gen, device="cuda") * 1e-3}
+
+    def twice(grads):
+        red, ef = C.compressed_psum(grads, None, rules.mesh, rules.dp)
+        red2, ef2 = C.compressed_psum(grads, ef, rules.mesh, rules.dp)
+        return [red, ef.residual, red2, ef2.residual]
+    card = twice(g)
+    host = twice({k: v.cpu() for k, v in g.items()})
+    gap = max(float((a[k].cpu() - b[k]).abs().max())
+              for a, b in zip(card, host) for k in a)
+    equal = all(torch.equal(a[k].cpu(), b[k])
+                for a, b in zip(card, host) for k in a)
+    err = max(float((card[0][k] - g[k]).abs().max() / g[k].abs().max())
+              for k in g)
+    print(f"[check] compressed_psum over the world-1 group (NCCL) vs host "
+          f"(gloo): two calls, reduced gradients and residuals bit-equal "
+          f"{equal} (max |d| {gap:.3e}); the int8 round trip's max error "
+          f"{err:.3e} of max |g|", flush=True)
+    check(equal, f"compressed_psum card vs host: max |d| {gap}")
+    return dict(bit_equal=equal, max_abs=gap, roundtrip_rel=err)
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -3756,12 +4016,23 @@ def main() -> int:
     # the MoE archs (causal attention at G = 6 and G = 5) and the
     # encoder-decoder arch (its encoder's bidirectional attention, the
     # decoder's causal self attention and its cross attention, T != S)
+    # dbrx-132b also through moe_dispatch on a 1 x 1 rank mesh (a world-1
+    # process group in this process), on the dense serve's weights
+    t_mesh = time.perf_counter()
+    rules, ranks_tmp = rank_mesh_1x1(torch, mod)
+    mesh_s = time.perf_counter() - t_mesh
     more = []
     for arch, b, p, n, layers in MOE_SERVES:
+        then = None
+        if arch == DISPATCH_ARCH:
+            then = (lambda model, cfg, prompt, dense, b=b, p=p, n=n:
+                    moe_dispatch_phase(torch, np, mod, all_launches, rules,
+                                       model, cfg, prompt, p, n, b, dense))
         more.append((arch,) + lm_phase(
             torch, np, mod, all_launches, arch, b, p, n,
             lambda seen, arch=arch: {"flash_attention": flash_hold(
-                torch, np, FL, seen, arch + " ")}, n_layers=layers))
+                torch, np, FL, seen, arch + " ")}, n_layers=layers,
+            then=then))
     arch, b, p, n, frames = ENCDEC_SERVE
     more.append((arch,) + lm_phase(
         torch, np, mod, all_launches, arch, b, p, n,
@@ -3808,6 +4079,20 @@ def main() -> int:
     train_flash_bf16 = train_main_phase(torch, mod, all_launches,
                                         dtype=torch.bfloat16, **flash_train)
     lap("qwen3-0.6b training through flash")
+    # the mesh slice: the 1 x 1 mesh train step bit-equal to the step
+    # without rules, compressed_psum card vs host
+    mesh_train = mesh_train_phase(torch, mod, all_launches, rules)
+    mesh_compress = compressed_psum_check(torch, mod, rules)
+    import shutil
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    shutil.rmtree(ranks_tmp, ignore_errors=True)
+    dispatch = next(rec["then"] for arch, _, _, rec in more
+                    if arch == DISPATCH_ARCH)
+    lap("mesh train step and compressed_psum")
+    mesh_s += dispatch["phase_s"] + laps["mesh train step and compressed_psum"]
+    print(f"[time] mesh slice in all: {mesh_s:.1f} s (the group, the dbrx "
+          "dispatch phase, the train step and compressed_psum)", flush=True)
     serve_red = serve_reduced_phase(torch, np, mod)
     lap("serve --reduced")
     for rec in [lm, mamba, gqa] + [r for *_, r in more] + [
@@ -4014,6 +4299,33 @@ def main() -> int:
             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
             bound_share=fwd["bound_share"], main_path=main_path,
             bound_note="4*hd operations per live pair, with lse written"))
+    # the mesh slice's paths: dbrx-132b's serve through moe_dispatch (the
+    # float32 kernel held at dbrx's prefill shape above) and the 1 x 1
+    # mesh train step (the kernels held at the training shape above)
+    dbrx_flash = next(recs["flash_attention"] for arch, recs, _, _ in more
+                      if arch == DISPATCH_ARCH)
+    fbwd_main = fbwd["float32"][FLASH_BWD_MAIN[0][0]]
+    for name, rec, n, source, path in (
+            (f"flash_attention.{DISPATCH_ARCH}.dispatch", dbrx_flash,
+             dispatch["launches"]["flash_attention"], "flash_attention.cu",
+             f"{DISPATCH_ARCH} serve dispatch (1 x 1 mesh)"),
+            (f"flash_attention.{FLASH_TRAIN_ARCH}-train.mesh",
+             fbwd_main["forward"],
+             mesh_train["mesh"]["launches"]["flash_attention"],
+             "flash_attention.cu", f"{FLASH_TRAIN_ARCH} train flash on the "
+             "1 x 1 mesh (one step, remat full)"),
+            ("flash_attention_backward.mesh", fbwd_main,
+             mesh_train["mesh"]["launches"]["flash_attention_backward"],
+             "flash_attention_bwd.cu", f"{FLASH_TRAIN_ARCH} train flash on "
+             "the 1 x 1 mesh (one step, remat full)")):
+        kernels.append(dict(
+            name=name, route="cuda", source=src + source,
+            replaces=notes["flash_attention"][0], launches=n,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            main_path=path, bound_note="the same kernel and shape as the "
+            "entry of its path without the mesh"))
     summary = dict(card=card, build_ok=True,
                    tc_grid_s=tc_s, cb_grid_s=cb_s, notc_grid_s=nt_s,
                    notc_one_s=one_s, peak_device_gb=peak_gb,
@@ -4048,6 +4360,9 @@ def main() -> int:
                    train_flash=train_flash,
                    train_check_flash_bf16=train_chk_flash_bf16,
                    train_flash_bf16=train_flash_bf16,
+                   mesh=dict(dispatch=dispatch, train=mesh_train,
+                             compressed_psum=mesh_compress,
+                             total_s=mesh_s),
                    serve_reduced=serve_red)
     # 5. no process the script started outlives it: the gateways closed
     # their workers; the helper process spawning them started goes too

@@ -41,6 +41,7 @@ from .scenarios import ScenarioGrid
 __all__ = ["to_torch", "pwl_from_numpy", "pwl_to_numpy", "grid_from_columns",
            "layer_trees", "lm_params_from_jax", "load_lm_params",
            "lm_params_to_jax", "lm_named_from_jax", "lm_named_to_jax",
+           "is_expert_leaf",
            "train_state_to_jax", "train_state_from_jax"]
 
 
@@ -118,9 +119,17 @@ def layer_trees(tree, cfg, prefix: str = "", n_layers=None) -> list:
     return out + [pick(tree[f"{prefix}rem{r}"], None) for r in range(rem)]
 
 
+def is_expert_leaf(name: str) -> bool:
+    """Whether a parameter name is an MoE's experts' leaf (``wi``, ``wg``,
+    ``wo``), which a rank of an expert-parallel mesh holds a slice of."""
+    return name.rsplit(".", 2)[-2:-1] == ["moe"] and \
+        name.rsplit(".", 1)[-1] in ("wi", "wg", "wo")
+
+
 def _copy_tree(module, tree, where: str) -> None:
     names = {name for name, _ in module.named_children()} | {
         name for name, _ in module.named_parameters(recurse=False)}
+    experts = getattr(module, "experts", None)
     if set(tree) != names:
         raise KeyError(f"{where}: JAX leaves {sorted(tree)} do not match the "
                        f"port's {sorted(names)}")
@@ -130,6 +139,8 @@ def _copy_tree(module, tree, where: str) -> None:
         else:
             leaf = getattr(module, name)
             src = to_torch(node)
+            if experts is not None and name in ("wi", "wg", "wo"):
+                src = src[experts]           # this rank's experts
             if src.shape != leaf.shape:
                 raise ValueError(f"{where}.{name}: shape {tuple(src.shape)} "
                                  f"!= {tuple(leaf.shape)}")
@@ -168,15 +179,20 @@ def load_lm_params(model: LM, params_np, cfg) -> LM:
     encoder's (``enc_scan``), every block's ``moe`` (with ``shared``),
     ``norm_x`` and ``cross`` leaves, ``enc_norm`` and the embeddings.
     Every leaf is copied with its dtype (a bfloat16 tree gives a bfloat16
-    model), and a leaf that is missing or left over raises."""
+    model), and a leaf that is missing or left over raises.  A model
+    holding a slice of each MoE's experts (``LM(experts=)``) takes that
+    slice of JAX's leaves."""
     _copy_tree(model, _port_tree(params_np, cfg), "model")
     return model
 
 
-def lm_params_from_jax(params_np, cfg, *, device="cpu") -> LM:
+def lm_params_from_jax(params_np, cfg, *, device="cpu",
+                       experts=None) -> LM:
     """The port's model holding the weights of a JAX ``init_lm`` tree (see
-    :func:`load_lm_params`)."""
-    return load_lm_params(LM(cfg, device=device), params_np, cfg)
+    :func:`load_lm_params`), of each MoE's experts the slice ``experts``
+    (all if None)."""
+    return load_lm_params(LM(cfg, device=device, experts=experts),
+                          params_np, cfg)
 
 
 def _flat(node, prefix: str = "") -> dict:
@@ -196,12 +212,13 @@ def lm_named_from_jax(tree, cfg) -> dict:
     return _flat(_port_tree(tree, cfg))
 
 
-def lm_named_to_jax(named: dict, cfg) -> dict:
+def lm_named_to_jax(named: dict, cfg, stack=_stack) -> dict:
     """The inverse of :func:`lm_named_from_jax`: arrays keyed by the port's
     parameter names -> the tree of JAX's ``init_lm``, layer ``r *
     len(pattern) + j`` under ``scan/b{j}`` (stacked over the ``reps``
-    repetitions on a new leading axis when there are several), the rest
-    under ``rem{r}``; the encoder's under ``enc_scan``."""
+    repetitions on a new leading axis when there are several, by
+    ``stack`` of the repetitions' leaves), the rest under ``rem{r}``;
+    the encoder's under ``enc_scan``."""
     pat = len(cfg.block_pattern)
     stacks = {name: (prefix, divmod(n, pat))
               for name, (prefix, n) in _stacks(cfg).items()}
@@ -229,7 +246,7 @@ def lm_named_to_jax(named: dict, cfg) -> dict:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = _stack(arrs)
+        node[path[-1]] = stack(arrs)
     return tree
 
 
@@ -251,26 +268,28 @@ def lm_params_to_jax(model: LM, cfg) -> dict:
                            cfg)
 
 
-def train_state_to_jax(state, cfg):
+def train_state_to_jax(state, cfg, gather=None):
     """A port ``TrainState(model, AdamWState)`` as JAX's ``TrainState``
     of numpy trees (host copies): ``params`` and the moments in JAX's
     ``init_lm`` layout, ``step`` an int32 scalar, ``master`` where the
     optimizer keeps one.  ``checkpoint.ckpt.save`` writes it under JAX's
-    paths."""
+    paths.  ``gather(t)``, where given, makes each experts' leaf whole
+    (a rank mesh's slices gathered: checkpoints hold logical arrays)."""
     from .optim.adamw import AdamWState
     from .train.step import TrainState
     opt = state.opt
-    tree = lambda d: lm_named_to_jax({k: _host(t) for k, t in d.items()},
-                                     cfg)
+    whole = lambda k, t: gather(t) if gather and is_expert_leaf(k) else t
+    tree = lambda d: lm_named_to_jax({k: _host(whole(k, t))
+                                      for k, t in d.items()}, cfg)
     return TrainState(
-        params=lm_params_to_jax(state.params, cfg),
+        params=tree(dict(state.params.named_parameters())),
         opt=AdamWState(step=np.asarray(int(opt.step), np.int32),
                        m=tree(opt.m), v=tree(opt.v),
                        master=None if opt.master is None else
                        tree(opt.master)))
 
 
-def _copy_named(dst: dict, tree, cfg, what: str) -> None:
+def _copy_named(dst: dict, tree, cfg, what: str, experts) -> None:
     src = lm_named_from_jax(tree, cfg)
     if set(src) != set(dst):
         raise KeyError(f"{what}: the leaves {sorted(set(src) ^ set(dst))} "
@@ -278,25 +297,28 @@ def _copy_named(dst: dict, tree, cfg, what: str) -> None:
     with torch.no_grad():
         for name, t in dst.items():
             a = to_torch(src[name])
+            if experts is not None and is_expert_leaf(name):
+                a = a[experts]
             if a.shape != t.shape:
                 raise ValueError(f"{what}.{name}: shape {tuple(a.shape)} != "
                                  f"{tuple(t.shape)}")
             t.copy_(a)
 
 
-def train_state_from_jax(tree, cfg, state):
+def train_state_from_jax(tree, cfg, state, experts=None):
     """Copy a JAX-layout ``TrainState`` of numpy trees (a restored
-    checkpoint of either package) into the port's ``state``, in place;
-    returns the state with the restored step."""
+    checkpoint of either package) into the port's ``state``, in place
+    (of each experts' leaf the slice ``experts``, where the state holds
+    a rank's); returns the state with the restored step."""
     opt = state.opt
     _copy_named(dict(state.params.named_parameters()), tree.params, cfg,
-                "params")
-    _copy_named(opt.m, tree.opt.m, cfg, "m")
-    _copy_named(opt.v, tree.opt.v, cfg, "v")
+                "params", experts)
+    _copy_named(opt.m, tree.opt.m, cfg, "m", experts)
+    _copy_named(opt.v, tree.opt.v, cfg, "v", experts)
     if (opt.master is None) != (tree.opt.master is None):
         raise ValueError("the checkpoint and the state disagree on a "
                          "float32 master copy")
     if opt.master is not None:
-        _copy_named(opt.master, tree.opt.master, cfg, "master")
+        _copy_named(opt.master, tree.opt.master, cfg, "master", experts)
     step = torch.tensor(int(tree.opt.step), dtype=torch.int32)
     return type(state)(state.params, opt._replace(step=step))

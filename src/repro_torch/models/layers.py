@@ -29,9 +29,11 @@ to the kernels where the JAX model calls their references:
   ``ops.lru_scan`` (JAX: ``_linear_scan_chunked``); mamba's state
   ``(B, di, ds)`` is one scan width of ``di * ds`` channels.
 
-The mixture of experts is JAX's ``moe_dense``: every expert on every
-token, then the top-k gate mix.  Its products are batched matrix
-products, as JAX computes them outside any Pallas kernel.  The short
+The mixture of experts is JAX's ``moe_dense`` (every expert on every
+token, then the top-k gate mix) or, on a rank mesh, ``moe_dispatch``
+(each rank's experts on the tokens routed to them, at a capacity).
+Their products are matrix products, as JAX computes them outside any
+Pallas kernel.  The short
 convolutions stay sums of shifted products, as in the JAX package, and
 do not go through ``conv1d`` (cuDNN would run them in TF32 by default).
 """
@@ -50,8 +52,8 @@ from ..kernels.flash_attention import mask_bias as _mask_bias
 
 __all__ = ["DEFAULT_DTYPE", "RMSNorm", "Attention", "MLP", "MoE", "RGLRU",
            "Mamba", "dense_init_", "rmsnorm", "apply_rope", "attention", "mlp",
-           "moe_route", "moe_dense", "router_aux", "rglru_block",
-           "mamba_block"]
+           "moe_route", "moe_dense", "moe_dispatch", "router_aux",
+           "rglru_block", "mamba_block"]
 
 _RGLRU_C = 8.0
 # JAX's DEFAULT_DTYPE: the compute type of every apply function
@@ -85,7 +87,11 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 # --------------------------------------------------------------------- #
 # weight containers
 # --------------------------------------------------------------------- #
+# Each container's ``SPECS``: its leaves' logical axes, JAX's ``init_*``
+# specs (``models/sharding.py`` maps them onto a mesh).
 class RMSNorm(nn.Module):
+    SPECS = {"scale": (None,)}
+
     def __init__(self, d: int, *, device,
                  dtype=torch.float32):
         super().__init__()
@@ -96,6 +102,11 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
+    SPECS = {"wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"),
+             "wv": ("fsdp", "tp"), "wo": ("tp", "fsdp"), "bq": ("tp",),
+             "bk": ("tp",), "bv": ("tp",), "q_norm": (None,),
+             "k_norm": (None,)}
+
     def __init__(self, cfg: ModelConfig, *, device,
                  dtype=torch.float32):
         super().__init__()
@@ -124,6 +135,7 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
     """Gated feed-forward (``swiglu`` or gated ``gelu``)."""
+    SPECS = {"wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
 
     def __init__(self, d: int, f: int, *, device,
                  dtype=torch.float32):
@@ -140,27 +152,47 @@ class MLP(nn.Module):
 class MoE(nn.Module):
     """JAX's ``init_moe`` leaves: ``router (d, E)``, the experts' ``wi``,
     ``wg (E, d, f)`` and ``wo (E, f, d)``, and where the config has one,
-    a ``shared`` gated MLP of ``cfg.d_ff``."""
+    a ``shared`` gated MLP of ``cfg.d_ff``.  ``experts``: the slice of
+    the ``E`` experts this module holds (a rank's under expert
+    parallelism, ``MeshRules.expert_slice``); all of them if None."""
+    SPECS = {"router": ("fsdp", None), "wi": ("tp", "fsdp", None),
+             "wg": ("tp", "fsdp", None), "wo": ("tp", None, "fsdp")}
 
     def __init__(self, cfg: ModelConfig, *, device,
-                 dtype=torch.float32):
+                 dtype=torch.float32, experts: Optional[slice] = None):
         super().__init__()
         d, e = cfg.d_model, cfg.moe
+        self.experts = experts or slice(0, e.num_experts)
+        n = len(range(e.num_experts)[self.experts])
         self.router = _leaf(d, e.num_experts, device=device, dtype=dtype)
         kw = dict(device=device, dtype=dtype)
-        self.wi = _leaf(e.num_experts, d, e.d_ff_expert, **kw)
-        self.wg = _leaf(e.num_experts, d, e.d_ff_expert, **kw)
-        self.wo = _leaf(e.num_experts, e.d_ff_expert, d, **kw)
+        self.wi = _leaf(n, d, e.d_ff_expert, **kw)
+        self.wg = _leaf(n, d, e.d_ff_expert, **kw)
+        self.wo = _leaf(n, e.d_ff_expert, d, **kw)
         if e.shared_expert:
             self.shared = MLP(d, cfg.d_ff, device=device, dtype=dtype)
 
     def init_(self, generator) -> None:
         dense_init_(self.router, generator)
+        n_exp = self.router.shape[1]
         for w in (self.wi, self.wg, self.wo):
-            dense_init_(w, generator, in_axis=1)
+            if w.shape[0] == n_exp:
+                dense_init_(w, generator, in_axis=1)
+                continue
+            # every expert drawn, this module's kept: the weights of an
+            # unsliced model from the same generator
+            full = torch.empty((n_exp,) + w.shape[1:], dtype=w.dtype,
+                               device=w.device)
+            dense_init_(full, generator, in_axis=1)
+            w.copy_(full[self.experts])
+            del full
 
 
 class RGLRU(nn.Module):
+    SPECS = {"w_in": ("fsdp", "tp"), "w_gate": ("fsdp", "tp"),
+             "conv": (None, "tp"), "lam": ("tp",), "w_ig": ("tp",),
+             "w_rg": ("tp",), "w_out": ("tp", "fsdp")}
+
     def __init__(self, cfg: ModelConfig, *, device,
                  dtype=torch.float32):
         super().__init__()
@@ -187,6 +219,10 @@ class Mamba(nn.Module):
     """Mamba-1 selective SSM weights (falcon-mamba), JAX's ``init_mamba``
     leaves: ``di = expand * d``, ``ds = d_state``, ``dtr = dt_rank``
     (default ``ceil(d / 16)``)."""
+    SPECS = {"in_proj": ("fsdp", "tp"), "conv": (None, "tp"),
+             "x_proj": ("tp", None), "dt_proj": (None, "tp"),
+             "dt_bias": ("tp",), "A_log": ("tp", None), "D": ("tp",),
+             "out_proj": ("tp", "fsdp")}
 
     def __init__(self, cfg: ModelConfig, *, device,
                  dtype=torch.float32):
@@ -387,11 +423,13 @@ def moe_route(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
     return probs, top_v, top_i
 
 
-def moe_dense(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
+def moe_dense(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE,
+              rules=None):
     """JAX's ``moe_dense``: every expert on every token of ``x (B, S,
     D)``, mixed by the top-k gates normalised by ``max(sum, 1e-9)`` (in
     float32, rounded to ``dtype`` for the mix), plus the shared expert.
-    Returns ``(out, aux)``, ``aux`` the router's load-balancing loss.
+    Returns ``(out, aux)``, ``aux`` the router's load-balancing loss
+    (over the global batch with ``rules``: :func:`router_aux`).
 
     The expert products are batched matrix products over the experts
     with the tokens broadcast, so each expert's weights are read where
@@ -400,6 +438,9 @@ def moe_dense(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
     ``(E, B * S, f)`` tensors at a time: the gate's activation is formed
     in place."""
     e = cfg.moe
+    if p.wi.shape[0] != e.num_experts:
+        raise ValueError(f"moe_dense runs all {e.num_experts} experts; this "
+                         f"module holds {p.wi.shape[0]}")
     B, S, d = x.shape
     probs, top_v, top_i = moe_route(p, x, cfg, dtype)
     gates = torch.zeros_like(probs).scatter_(-1, top_i, top_v)
@@ -419,17 +460,106 @@ def moe_dense(p: MoE, x, cfg: ModelConfig, dtype=DEFAULT_DTYPE):
                        .to(dtype)).reshape(B, S, d)
     if e.shared_expert:
         out = out + mlp(p.shared, x, cfg.mlp_kind, dtype)
-    return out.to(x.dtype), router_aux(probs, top_i, e.num_experts)
+    return out.to(x.dtype), router_aux(probs, top_i, e.num_experts, rules)
 
 
-def router_aux(probs, top_i, n_exp: int):
+def router_aux(probs, top_i, n_exp: int, rules=None):
     """Switch-style load-balancing loss (JAX's ``_router_aux``): ``E`` times
     the sum over experts of (share of tokens whose first choice it is) x
-    (mean router probability)."""
+    (mean router probability), over the global batch: with ``rules``
+    each rank's means (over its ``dp`` slice; the slices are equal) are
+    averaged over ``dp``, the probabilities' with a gradient that stays
+    each rank's own share (``sharding.sum_forward``)."""
     onehot = F.one_hot(top_i[..., 0], n_exp).float()
     frac = onehot.reshape(-1, n_exp).mean(0)
     mean_probs = probs.reshape(-1, n_exp).mean(0)
+    if rules is not None:
+        from .sharding import psum_, sum_forward
+        n = rules.axis_size(rules.dp)
+        frac = psum_(frac, rules.mesh, rules.dp) / n
+        mean_probs = sum_forward(mean_probs, rules.mesh, rules.dp) / n
     return n_exp * torch.sum(frac * mean_probs)
+
+
+def moe_dispatch(p: MoE, x, cfg: ModelConfig, rules, dtype=DEFAULT_DTYPE,
+                 psum_bf16: bool = False):
+    """Expert-parallel MoE (JAX's ``moe_dispatch``), a rank's share.  The
+    experts are split over the ``tp`` ranks (``p`` holds this rank's
+    ``E / tp``, ``p.experts``); ``x (b_local, S, D)`` is this rank's
+    ``dp`` slice of the batch, replicated over ``tp``, so each rank
+    gathers the tokens routed to *its* experts from its own copy (no
+    all-to-all), computes them at capacity ``C = min(ceil(cf * tokens *
+    k / E), tokens)`` of its local tokens, scatters them back weighted by
+    their gates, and one ``all_reduce`` over ``tp`` combines the ranks'
+    sums (float32, or bfloat16 under ``psum_bf16``).  Each expert takes
+    the tokens that chose it in token order (a ``cumsum`` rank); those
+    past ``C`` are dropped.  ``E % tp != 0`` falls back to
+    :func:`moe_dense` (JAX's).
+
+    Gradients: the combine's is the identity, and ``x`` and the gates
+    enter with their gradients summed over ``tp`` (``sum_forward`` /
+    ``sum_backward``), so each rank's experts get their own gradient and
+    every rank the whole gradient of ``x`` (Megatron's tensor-parallel
+    region)."""
+    from .sharding import sum_backward, sum_forward
+    e = cfg.moe
+    tp = rules.tp
+    if len(tp) != 1:
+        raise ValueError("expert parallelism expects a single tp axis")
+    tp_size = rules.axis_size(tp)
+    if e.num_experts % tp_size != 0:
+        return moe_dense(p, x, cfg, dtype, rules=rules)
+    e_per = e.num_experts // tp_size
+    first = rules.index(tp) * e_per
+    if (p.experts.start, p.wi.shape[0]) != (first, e_per):
+        raise ValueError(
+            f"this rank runs experts [{first}, {first + e_per}) of "
+            f"{e.num_experts} but holds {p.wi.shape[0]} from "
+            f"{p.experts.start} (build the model with "
+            f"experts=rules.expert_slice(E))")
+    B, S, D = x.shape
+    tokens = B * S
+    C = min(int(math.ceil(e.capacity_factor * tokens * e.top_k
+                          / e.num_experts)), tokens)
+    probs, top_v, top_i = moe_route(p, x, cfg, dtype)
+    top_v = top_v / torch.clamp_min(top_v.sum(-1, keepdim=True), 1e-9)
+    aux = router_aux(probs, top_i, e.num_experts, rules)
+
+    xt = sum_backward(x.reshape(tokens, D), rules.mesh, tp).to(dtype)
+    tv = sum_backward(top_v.reshape(tokens, e.top_k), rules.mesh, tp)
+    ti = top_i.reshape(tokens, e.top_k)
+    zero_row = xt.new_zeros(1, D)
+    out = torch.zeros(tokens + 1, D, dtype=torch.float32, device=x.device)
+    for le in range(e_per):
+        hit = ti == first + le
+        sel = hit.any(-1)
+        gate = torch.where(hit, tv, 0.0).sum(-1)
+        rank = torch.cumsum(sel, 0) - 1
+        keep = sel & (rank < C)
+        # slot -> token (``tokens`` where a slot stays empty, a zero row);
+        # the dropped tokens all land in slot C, which is cut off
+        slot = torch.where(keep, rank, C)
+        src = torch.full((C + 1,), tokens, dtype=torch.long,
+                         device=x.device).scatter_(
+            0, slot, torch.arange(tokens, device=x.device))[:C]
+        xe = torch.cat([xt, zero_row])[src]                   # (C, D)
+        up = xe @ p.wi[le].to(dtype)
+        act = xe @ p.wg[le].to(dtype)
+        act = silu(act) if cfg.mlp_kind == "swiglu" else gelu(act)
+        ye = (act * up) @ p.wo[le].to(dtype)                  # (C, D)
+        g = torch.cat([gate, gate.new_zeros(1)])[src]
+        out.index_add_(0, src, ye.float() * g[:, None])
+    out = out[:tokens]
+    if psum_bf16:
+        # the local sums stay float32; only the combine is bfloat16 (each
+        # token adds <= top_k terms: one rounding an expert term)
+        out = sum_forward(out.to(torch.bfloat16), rules.mesh, tp)
+    else:
+        out = sum_forward(out, rules.mesh, tp)
+    y = out.reshape(B, S, D).to(x.dtype)
+    if e.shared_expert:
+        y = y + mlp(p.shared, x, cfg.mlp_kind, dtype)
+    return y, aux
 
 
 # --------------------------------------------------------------------- #

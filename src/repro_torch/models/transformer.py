@@ -21,8 +21,14 @@ KVH, hd)``: the cross K/V, filled once at prefill from the encoder's
 output.  ``decode_step`` updates the cache in place (JAX returns a new
 one): that saves a copy of every KV cache per token.
 
-The MoE runs JAX's ``moe_dense`` (every expert on every token), as JAX
-does without mesh rules; the port has no mesh, so no expert dispatch.
+The MoE runs JAX's ``moe_dense`` (every expert on every token), and
+with ``RunCfg(moe_impl="dispatch")`` and mesh ``rules`` JAX's
+``moe_dispatch`` (experts split over the ``tp`` ranks, each at a
+capacity; ``models/sharding.py``); without rules dispatch runs dense,
+as JAX's ``_apply_block`` does.  Under ``rules`` every function here is
+a rank's share of JAX's (``models/sharding.py``): the batch is this
+rank's ``dp`` slice and the model holds this rank's experts
+(``LM(experts=)``, :func:`local_experts`).
 
 Training: ``lm_loss`` is JAX's causal-LM (or encoder-decoder) cross
 entropy plus ``0.01`` times the MoE's load-balancing term, differentiable
@@ -46,9 +52,11 @@ from torch.utils import checkpoint as _ckpt
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from . import layers as L
+from .sharding import logical
 
-__all__ = ["RunCfg", "Block", "LM", "init_lm", "embed_tokens", "encode",
-           "prefill", "init_cache", "decode_step", "lm_loss"]
+__all__ = ["RunCfg", "local_experts", "Block", "LM", "init_lm",
+           "embed_tokens", "encode", "prefill", "init_cache", "decode_step",
+           "lm_loss"]
 
 _KINDS = ("attn", "local", "rglru", "mamba")
 # the recurrent kinds: the block function of each, whose state is
@@ -74,12 +82,23 @@ class RunCfg:
     ``_attn_flash``); JAX's trainer and launcher, and the port's, keep
     ``"naive"``, and ``train(..., run=RunCfg(impl="flash"))`` takes the
     flash path.
-    ``remat`` and ``moe_impl`` are JAX's training fields; expert
-    dispatch needs a mesh, so ``lm_loss`` refuses ``"dispatch"``."""
+    ``remat``, ``moe_impl`` and ``moe_psum_bf16`` are JAX's:
+    ``"dispatch"`` runs ``moe_dispatch`` where mesh rules are given (dense
+    without them), its combine in bfloat16 under ``moe_psum_bf16``."""
     impl: str = "flash"            # attention: flash | naive
     dtype: torch.dtype = L.DEFAULT_DTYPE
     remat: str = "none"            # backward recompute: none | full | dots
-    moe_impl: str = "dense"        # dense | dispatch (the mesh slice)
+    moe_impl: str = "dense"        # dense | dispatch
+    moe_psum_bf16: bool = False    # bfloat16 cross-rank MoE combine
+
+
+def local_experts(cfg: ModelConfig, run: RunCfg, rules) -> Optional[slice]:
+    """The experts a rank holds: its ``rules.expert_slice`` where
+    ``moe_dispatch`` runs (an MoE config, ``moe_impl="dispatch"``,
+    rules), else None (every expert: ``moe_dense`` needs them all)."""
+    if rules is None or cfg.moe is None or run.moe_impl != "dispatch":
+        return None
+    return rules.expert_slice(cfg.moe.num_experts)
 
 
 class Block(nn.Module):
@@ -88,7 +107,8 @@ class Block(nn.Module):
     MLP or the mixture of experts (JAX's ``_init_block``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, cross: bool = False,
-                 device, dtype=torch.float32):
+                 device, dtype=torch.float32,
+                 experts: Optional[slice] = None):
         super().__init__()
         if kind not in _KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
@@ -107,7 +127,7 @@ class Block(nn.Module):
         if kind != "mamba":
             self.norm2 = L.RMSNorm(cfg.d_model, **kw)
             if cfg.moe is not None:
-                self.moe = L.MoE(cfg, **kw)
+                self.moe = L.MoE(cfg, experts=experts, **kw)
             elif cfg.d_ff:
                 self.mlp = L.MLP(cfg.d_model, cfg.d_ff, **kw)
 
@@ -116,10 +136,13 @@ class LM(nn.Module):
     """The weights of an LM (uninitialised until ``init_lm`` or
     ``convert.lm_params_from_jax`` fills them), every leaf stored in
     ``dtype``: the decoder's blocks and, for an encoder-decoder config,
-    the encoder's (``enc_blocks``, ``enc_norm``; JAX's ``init_lm``)."""
+    the encoder's (``enc_blocks``, ``enc_norm``; JAX's ``init_lm``).
+    ``experts``: the slice of each MoE's experts this rank holds (all if
+    None; :func:`local_experts`)."""
+    SPECS = {"embed": ("tp", "fsdp"), "lm_head": ("fsdp", "tp")}
 
     def __init__(self, cfg: ModelConfig, *, device="cpu",
-                 dtype=torch.float32):
+                 dtype=torch.float32, experts: Optional[slice] = None):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
@@ -128,11 +151,11 @@ class LM(nn.Module):
         self.embed = nn.Parameter(torch.empty(cfg.vocab, d, **kw),
                                   requires_grad=False)
         self.blocks = nn.ModuleList(
-            Block(cfg, cfg.block_kind(i), cross=cross, **kw)
+            Block(cfg, cfg.block_kind(i), cross=cross, experts=experts, **kw)
             for i in range(cfg.n_layers))
         if cross:
             self.enc_blocks = nn.ModuleList(
-                Block(cfg, cfg.block_kind(i), **kw)
+                Block(cfg, cfg.block_kind(i), experts=experts, **kw)
                 for i in range(cfg.n_encoder_layers))
             self.enc_norm = L.RMSNorm(d, **kw)
         self.final_norm = L.RMSNorm(d, **kw)
@@ -146,7 +169,8 @@ class LM(nn.Module):
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
-            device="cuda", dtype=torch.float32) -> LM:
+            device="cuda", dtype=torch.float32,
+            experts: Optional[slice] = None) -> LM:
     """Random weights from ``generator`` (on ``device``), distributed as the
     JAX package's ``init_lm`` draws them, stored in ``dtype``.  Each leaf
     is drawn in float32 and stored rounded, one at a time (JAX's
@@ -154,8 +178,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
     ``param_dtype``): the same generator gives the same weights, rounded,
     in any ``dtype``, and the device holds the model plus one float32
     leaf.  The two packages' generators give different numbers: parity
-    tests copy JAX's weights instead."""
-    model = LM(cfg, device=resolve_device(device), dtype=dtype)
+    tests copy JAX's weights instead.  With ``experts`` (a rank's slice)
+    every expert is drawn and the slice kept, so the ranks of a mesh hold
+    the slices of the one unsliced model."""
+    model = LM(cfg, device=resolve_device(device), dtype=dtype,
+               experts=experts)
     L.dense_init_(model.embed, generator)
     for module in model.modules():
         if hasattr(module, "init_"):
@@ -177,7 +204,7 @@ def _logits(model: LM, x, dtype):
 
 
 def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
-                 causal: bool = True, enc_out=None):
+                 causal: bool = True, enc_out=None, rules=None):
     """Pre-norm block over a whole sequence from position 0 (causal, or
     bidirectional in the encoder), with cross attention to ``enc_out``
     where it is given.  Returns ``(x, cache entry, aux)``: the entry's
@@ -201,23 +228,31 @@ def _apply_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, *,
             blk.cross, hx, cfg, x_kv=enc_out, causal=False, impl=run.impl,
             dtype=run.dtype)
         x = x + out
-    x, aux = _ffn(blk, x, cfg, run.dtype)
+    x, aux = _ffn(blk, x, cfg, run, rules)
     return x, entry, aux
 
 
-def _ffn(blk: Block, x, cfg: ModelConfig, dtype):
+def _ffn(blk: Block, x, cfg: ModelConfig, run: RunCfg, rules):
     """The block's MLP or MoE sub-layer with its residual (none for
-    mamba).  Returns ``(x, aux)``, ``aux`` the MoE's load-balancing loss
-    (None without one): a training term, which JAX's prefill and decode
-    drop, as the port's do."""
-    aux = None
+    mamba), then JAX's ``logical(x, rules, "dp", None, None)``.  Returns
+    ``(x, aux)``, ``aux`` the MoE's load-balancing loss (None without
+    one): a training term, which JAX's prefill and decode drop, as the
+    port's do.  The MoE dispatches where ``run.moe_impl == "dispatch"``
+    and ``rules`` are given (JAX's ``_apply_block``)."""
+    aux, dtype = None, run.dtype
     if hasattr(blk, "moe"):
-        out, aux = L.moe_dense(blk.moe, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
-                               cfg, dtype)
+        h = L.rmsnorm(blk.norm2, x, cfg.norm_eps)
+        if run.moe_impl == "dispatch" and rules is not None:
+            out, aux = L.moe_dispatch(blk.moe, h, cfg, rules, dtype,
+                                      psum_bf16=run.moe_psum_bf16)
+        else:
+            out, aux = L.moe_dense(blk.moe, h, cfg, dtype, rules=rules)
         x = x + out
     elif hasattr(blk, "mlp"):
         x = x + L.mlp(blk.mlp, L.rmsnorm(blk.norm2, x, cfg.norm_eps),
                       cfg.mlp_kind, dtype)
+    if rules is not None:
+        x = logical(x, rules, "dp", None, None)
     return x, aux
 
 
@@ -263,7 +298,7 @@ def _encoder_input(model: LM, batch, cfg: ModelConfig, run: RunCfg):
 
 
 @torch.inference_mode()
-def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg):
+def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg, rules=None):
     """The encoder of an encoder-decoder model: ``batch["enc_embeds"]``
     (B, S_enc, D) (the ``audio_stub`` frontend's frame embeddings) or the
     embedded ``batch["enc_tokens"]``, through the encoder's blocks
@@ -271,13 +306,13 @@ def encode(model: LM, batch, cfg: ModelConfig, run: RunCfg):
     ``enc_norm``."""
     xe = _encoder_input(model, batch, cfg, run)
     for blk in model.enc_blocks:
-        xe, _, _ = _apply_block(blk, xe, cfg, run, causal=False)
+        xe, _, _ = _apply_block(blk, xe, cfg, run, causal=False, rules=rules)
     return L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
 
 
 @torch.inference_mode()
 def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, rules=None):
     """Serve-side prefill.  ``batch["tokens"]``: (B, S) int64, and for an
     encoder-decoder model ``batch["enc_embeds"]`` or
     ``batch["enc_tokens"]`` (:func:`encode`).
@@ -289,12 +324,14 @@ def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
-    enc_out = encode(model, batch, cfg, run) if cfg.n_encoder_layers else None
+    enc_out = (encode(model, batch, cfg, run, rules) if cfg.n_encoder_layers
+               else None)
     x = embed_tokens(model, tokens, run.dtype)
     cache = init_cache(cfg, B, max_len, run.dtype, device=x.device,
                        cross_len=0 if enc_out is None else enc_out.shape[1])
     for blk, c in zip(model.blocks, cache):
-        x, entry, _ = _apply_block(blk, x, cfg, run, enc_out=enc_out)
+        x, entry, _ = _apply_block(blk, x, cfg, run, enc_out=enc_out,
+                                   rules=rules)
         for name, val in entry.items():
             if name in ("k", "v"):
                 c[name][:, :S] = val
@@ -307,8 +344,10 @@ def prefill(model: LM, batch, cfg: ModelConfig, run: RunCfg,
     return _logits(model, x, run.dtype), cache
 
 
-def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int, dtype):
+def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int,
+                  run: RunCfg, rules):
     """One block, T = 1, against its cache entry (updated in place)."""
+    dtype = run.dtype
     h = L.rmsnorm(blk.norm1, x, cfg.norm_eps)
     B = x.shape[0]
     if blk.kind in _RECURRENT:
@@ -340,20 +379,23 @@ def _decode_block(blk: Block, c, x, cfg: ModelConfig, pos: int, dtype):
                              causal=False, impl="naive", dtype=dtype,
                              use_rope=False)
         x = x + out
-    return _ffn(blk, x, cfg, dtype)[0]
+    return _ffn(blk, x, cfg, run, rules)[0]
 
 
 @torch.inference_mode()
 def decode_step(model: LM, cache, tokens, pos: int, cfg: ModelConfig,
-                run: RunCfg):
+                run: RunCfg, rules=None):
     """One decoding step.  ``tokens``: (B, 1); ``pos``: the position of
     ``tokens``.  Returns ``(logits (B, 1, V), cache)``, the cache updated
     in place."""
     x = embed_tokens(model, tokens, run.dtype)
     for blk, c in zip(model.blocks, cache):
-        x = _decode_block(blk, c, x, cfg, pos, run.dtype)
+        x = _decode_block(blk, c, x, cfg, pos, run, rules)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return _logits(model, x, run.dtype), cache
+    logits = _logits(model, x, run.dtype)
+    if rules is not None:
+        logits = logical(logits, rules, "dp", None, "tp")
+    return logits, cache
 
 
 # --------------------------------------------------------------------- #
@@ -371,8 +413,9 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _train_block(blk: Block, x, cfg: ModelConfig, run: RunCfg, causal: bool,
-                 enc_out):
-    x, _, aux = _apply_block(blk, x, cfg, run, causal=causal, enc_out=enc_out)
+                 enc_out, rules=None):
+    x, _, aux = _apply_block(blk, x, cfg, run, causal=causal, enc_out=enc_out,
+                             rules=rules)
     return x, aux
 
 
@@ -390,7 +433,7 @@ def _block_fn(run: RunCfg):
                                           use_reentrant=False, **kw)
 
 
-def lm_loss(model: LM, batch, cfg: ModelConfig, run: RunCfg):
+def lm_loss(model: LM, batch, cfg: ModelConfig, run: RunCfg, rules=None):
     """Causal-LM (or encoder-decoder) cross entropy, JAX's ``lm_loss``:
     ``batch["tokens"]``, ``batch["targets"]`` (B, S), an optional
     float ``batch["mask"]`` and the encoder's input (``enc_embeds`` or
@@ -401,26 +444,27 @@ def lm_loss(model: LM, batch, cfg: ModelConfig, run: RunCfg):
 
     The target's logit is gathered: the same value as JAX's one-hot
     contraction, without a ``(B, S, V)`` one-hot (2.1 GB at batch 2 x
-    1024 and vocab 256000)."""
-    if run.moe_impl != "dense":
-        raise NotImplementedError(
-            f"moe_impl={run.moe_impl!r}: expert dispatch needs a device mesh "
-            "(ROADMAP Queue A, the mesh slice); the port runs 'dense'")
+    1024 and vocab 256000).  With ``rules`` the batch is this rank's
+    ``dp`` slice and the loss its slice's (``train/step.py`` weighs the
+    ranks' losses by their tokens); the MoE's ``aux`` is the global
+    batch's."""
     block = _block_fn(run)
     enc_out = None
     if cfg.n_encoder_layers:
         xe = _encoder_input(model, batch, cfg, run)
         for blk in model.enc_blocks:
-            xe, _ = block(blk, xe, cfg, run, False, None)
+            xe, _ = block(blk, xe, cfg, run, False, None, rules)
         enc_out = L.rmsnorm(model.enc_norm, xe, cfg.norm_eps)
     x = embed_tokens(model, batch["tokens"], run.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
-        x, a = block(blk, x, cfg, run, True, enc_out)
+        x, a = block(blk, x, cfg, run, True, enc_out, rules)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = _logits(model, x, run.dtype)
+    if rules is not None:
+        logits = logical(logits, rules, "dp", None, "tp")
     targets = batch["targets"].long()
     lse = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, -1, targets[..., None])[..., 0]

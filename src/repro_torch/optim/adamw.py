@@ -88,7 +88,8 @@ def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float):
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Dict[str, torch.Tensor],
-                 state: AdamWState, params: Dict[str, torch.Tensor]):
+                 state: AdamWState, params: Dict[str, torch.Tensor], *,
+                 gnorm: Optional[torch.Tensor] = None):
     """One AdamW step.  Returns ``(params, state, metrics)`` as JAX does;
     ``params``, the moments (and the master) are the same tensors, updated
     in place, and ``grads`` are clipped in place where they are already
@@ -96,8 +97,11 @@ def adamw_update(cfg: AdamWConfig, grads: Dict[str, torch.Tensor],
     comes, so no float32 copy of every gradient is held at once).
     ``metrics``: ``grad_norm`` (before clipping, a device tensor) and
     ``lr``.  With ``master_fp32`` the float32 master is updated and each
-    parameter is written back as its cast (JAX's ``pnew.astype``)."""
-    gnorm = global_norm(grads)
+    parameter is written back as its cast (JAX's ``pnew.astype``).
+    ``gnorm``: the global norm where ``grads`` are a rank's part of the
+    gradient (``train/step.py``); ``global_norm(grads)`` if None."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),

@@ -150,15 +150,23 @@ class LMEngine:
     ``prefill_s`` up to the first token on the host (time to first
     token) and ``decode_s`` over the decode steps that follow, each of
     which ends with its token copied to the host.
+
+    ``rules`` (JAX's): a rank mesh's ``MeshRules``.  Every rank of the
+    mesh calls ``generate`` with the whole request batch; each serves
+    its ``dp`` slice (``moe_dispatch`` over ``tp`` where
+    ``run.moe_impl == "dispatch"``, the model holding the rank's experts)
+    and the tokens are gathered over ``dp``, so every rank returns the
+    whole batch's.
     """
 
     def __init__(self, model: LM, cfg: ModelConfig, run: RunCfg, *,
-                 batch: int, max_len: int):
+                 batch: int, max_len: int, rules=None):
         self.model = model
         self.cfg = cfg
         self.run = run
         self.batch = batch
         self.max_len = max_len
+        self.rules = rules
         self.device = model.embed.device
         self.timings = {}
 
@@ -174,24 +182,33 @@ class LMEngine:
                              f"not fit batch {self.batch}, max_len "
                              f"{self.max_len}")
         t0 = time.perf_counter()
-        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+        rows = (slice(None) if self.rules is None
+                else self.rules.dp_slice(B))
+        toks = torch.as_tensor(np.asarray(tokens, np.int64)[rows],
+                               device=self.device)
         batch = {"tokens": toks}
         if enc_embeds is not None:
-            batch["enc_embeds"] = torch.as_tensor(enc_embeds,
-                                                  device=self.device).to(
-                                                      self.run.dtype)
+            batch["enc_embeds"] = torch.as_tensor(
+                enc_embeds, device=self.device)[rows].to(self.run.dtype)
         logits, cache = prefill(self.model, batch, self.cfg, self.run,
-                                max_len=self.max_len)
+                                max_len=self.max_len, rules=self.rules)
         tok = torch.argmax(logits, dim=-1)[:, None]
-        outs = [tok[:, 0].cpu().numpy()]
+        outs = [self._gather(tok)]
         t1 = time.perf_counter()
         for i in range(n_new):
             logits, cache = decode_step(self.model, cache, tok, S0 + i,
-                                        self.cfg, self.run)
+                                        self.cfg, self.run, self.rules)
             tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
-            outs.append(tok[:, 0].cpu().numpy())
+            outs.append(self._gather(tok))
         t2 = time.perf_counter()
         self.timings = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                         "decode_steps": n_new}
         # the last step's token is computed, as in the JAX engine, and dropped
         return np.stack(outs[:n_new], axis=1)
+
+    def _gather(self, tok):
+        """The step's tokens of the whole batch, on the host."""
+        if self.rules is not None:
+            from ..models.sharding import all_gather
+            tok = all_gather(tok, self.rules.mesh, self.rules.dp)
+        return tok[:, 0].cpu().numpy()

@@ -1,6 +1,8 @@
 """Training loop with checkpoint/restart.
 
-The port of the JAX package's ``train/trainer.py`` on one device:
+The port of the JAX package's ``train/trainer.py``, on one device or,
+with mesh ``rules``, as one rank of a mesh (``launch/train.py`` starts
+the ranks):
 
   * **checkpoint/restart**: an ``AsyncCheckpointer`` every
     ``ckpt_every`` steps and at the last step, in JAX's format (a
@@ -10,13 +12,19 @@ The port of the JAX package's ``train/trainer.py`` on one device:
     ``simulate_failure_at`` raises at that step to exercise the path.
   * **straggler log**: per-step wall times feed an EWMA; a step slower
     than ``straggler_factor`` times it is logged.
+  * **mesh**: every rank draws the same weights from the seed (keeping
+    its experts where ``moe_dispatch`` runs, ``local_experts``), reads
+    the same stateless batches and takes its ``dp`` slice
+    (``train/step.py``).  Checkpoints hold whole arrays, as JAX's do:
+    the experts' slices are gathered over ``tp`` and rank 0 writes;
+    a restore takes each rank's slice, so a checkpoint of one mesh
+    resumes on another (elastic restore).
 
 The default ``RunCfg(impl="naive", dtype=torch.float32)`` is JAX's
 trainer's; ``run=RunCfg(impl="flash", ...)`` trains through
 ``flash_attention`` and its backward kernel, as JAX's ``train`` takes a
-flash ``RunCfg``.  Elastic re-meshing and
-compressed data-parallel gradients wait for the mesh slice (ROADMAP
-Queue A).
+flash ``RunCfg``.  JAX's trainer does not call ``compressed_psum``; nor
+does the port's (``optim/compression.py`` has it).
 """
 from __future__ import annotations
 
@@ -33,7 +41,7 @@ from ..checkpoint import ckpt as ckpt_lib
 from ..configs.base import ModelConfig
 from ..core.device import resolve_device
 from ..data.pipeline import SyntheticSource, to_device
-from ..models.transformer import RunCfg
+from ..models.transformer import RunCfg, local_experts
 from ..optim.adamw import AdamWConfig
 from ..optim.schedule import warmup_cosine
 from .step import init_train_state, make_train_step
@@ -59,26 +67,39 @@ class TrainerConfig:
 
 
 def train(cfg: ModelConfig, tc: TrainerConfig, run: Optional[RunCfg] = None,
-          log=print, device="cuda") -> dict:
-    """Runs (or resumes) training on ``device``; returns final metrics:
-    ``final_loss``, ``losses`` (this run's), ``last_step``,
-    ``grad_norm``.  ``run`` defaults to JAX's trainer's
-    ``RunCfg(impl="naive", dtype=torch.float32)``; ``impl="flash"``
-    differentiates ``flash_attention`` (its backward kernel on the
-    card)."""
+          rules=None, log=print, device="cuda") -> dict:
+    """Runs (or resumes) training on ``device`` (with ``rules``, this
+    rank's card); returns final metrics: ``final_loss``, ``losses``
+    (this run's), ``last_step``, ``grad_norm``.  ``run`` defaults to
+    JAX's trainer's ``RunCfg(impl="naive", dtype=torch.float32)``;
+    ``impl="flash"`` differentiates ``flash_attention`` (its backward
+    kernel on the card).  Under ``rules`` only rank 0 logs and writes
+    checkpoints; every rank returns the same metrics."""
     run = run or RunCfg(impl="naive", dtype=torch.float32)
     dev = resolve_device(device)
+    experts = local_experts(cfg, run, rules)
+    gather = None
+    lead = True
+    if rules is not None:
+        import torch.distributed as dist
+        from ..models.sharding import all_gather
+        lead = dist.get_rank() == 0
+        if experts is not None:
+            gather = lambda t: all_gather(t, rules.mesh, rules.tp)
+    if not lead:
+        log = lambda *a, **k: None
     gen = torch.Generator(device=dev).manual_seed(tc.seed)
-    state = init_train_state(cfg, gen, device=dev)
+    state = init_train_state(cfg, gen, device=dev, experts=experts)
     opt_cfg = AdamWConfig(lr=warmup_cosine(tc.peak_lr, tc.warmup, tc.steps))
-    step_fn = make_train_step(cfg, run, opt_cfg)
+    step_fn = make_train_step(cfg, run, opt_cfg, rules)
 
     start_step = 0
     latest = ckpt_lib.latest_step(tc.ckpt_dir)
     if latest is not None:
         tree = ckpt_lib.restore(tc.ckpt_dir, latest,
-                                like=convert.train_state_to_jax(state, cfg))
-        state = convert.train_state_from_jax(tree, cfg, state)
+                                like=convert.train_state_to_jax(state, cfg,
+                                                                gather))
+        state = convert.train_state_from_jax(tree, cfg, state, experts)
         start_step = latest
         log(f"[trainer] resumed from step {start_step}")
 
@@ -107,7 +128,9 @@ def train(cfg: ModelConfig, tc: TrainerConfig, run: Optional[RunCfg] = None,
             log(f"[trainer] step {step} loss {loss:.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} {dt*1e3:.0f}ms")
         if (step + 1) % tc.ckpt_every == 0 or step + 1 == tc.steps:
-            saver.save(step + 1, convert.train_state_to_jax(state, cfg))
+            tree = convert.train_state_to_jax(state, cfg, gather)
+            if lead:
+                saver.save(step + 1, tree)
     saver.wait()
     return {"final_loss": losses[-1] if losses else None,
             "losses": losses, "last_step": tc.steps,

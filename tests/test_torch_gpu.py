@@ -1139,3 +1139,110 @@ def test_train_step_flash_on_card_matches_cpu(no_tf32):
     for name, w in gw.items():
         assert (gg[name] - w).abs().max().item() <= 1e-4 * max(
             w.abs().max().item(), 1e-12), name
+
+
+# --------------------------------------------------------------------- #
+# the mesh slice on one card: a world-1 process group (NCCL for the card's
+# tensors, gloo for the host's) and a 1 x 1 rank mesh
+# --------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def rank_rules(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_rank_mesh, mesh_rules
+    store = tmp_path_factory.mktemp("ranks") / "store"
+    init_ranks("cuda", rank=0, world_size=1, init_method=f"file://{store}")
+    yield mesh_rules(make_rank_mesh((1, 1), ("data", "model"), "cuda"))
+    dist.destroy_process_group()
+
+
+def test_moe_dispatch_on_card_matches_dense_and_host(no_tf32, rank_rules):
+    """``moe_dispatch`` on the 1 x 1 mesh (NCCL): at capacity factor 8,
+    where nothing drops, within JAX's 3e-4 of ``moe_dense`` (its
+    ``test_moe_dispatch_matches_dense_on_mesh``); at the config's 1.25,
+    which drops tokens here (the tokens share a common component, as a
+    model's hidden states do, so most choose the same experts), within
+    1e-5 of max |out| of the same call on the host (gloo)."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    cfg = reduced_config(get_config("dbrx-132b"))
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    p = L.MoE(cfg, device="cpu")
+    p.init_(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    x = 0.3 * torch.randn(2, 64, cfg.d_model, generator=gen) + torch.randn(
+        cfg.d_model, generator=gen)
+    pc, xc = p.to(no_tf32), x.to(no_tf32)
+    want, _ = L.moe_dense(pc, xc, cfg, torch.float32)
+    got, _ = L.moe_dispatch(pc, xc, cfg8, rank_rules, torch.float32)
+    assert (got - want).abs().max().item() <= 3e-4
+    card, _ = L.moe_dispatch(pc, xc, cfg, rank_rules, torch.float32)
+    host, _ = L.moe_dispatch(p.cpu(), x, cfg, rank_rules, torch.float32)
+    assert (card.cpu() - want.cpu()).abs().max().item() > 1e-3  # drops
+    assert (card.cpu() - host).abs().max().item() <= \
+        1e-5 * host.abs().max().item()
+
+
+@pytest.mark.parametrize("arch,impl", [("qwen3-0.6b", "flash"),
+                                       ("dbrx-132b", "naive")])
+def test_mesh_train_step_on_card_bit_equals_unmeshed(no_tf32, rank_rules,
+                                                     arch, impl):
+    """One ``make_train_step`` step on the card with the 1 x 1 mesh's rules
+    and without, same weights and batch: the loss, the gradient norm,
+    every gradient and parameter bit-equal (a one-rank ``all_reduce``
+    and a weight of one change no bit); qwen3-0.6b reduced (head dim 16)
+    through both flash kernels, dbrx-132b reduced with its MoE's
+    load-balancing term reduced over the data axis (dense MoE: dispatch
+    with rules computes another function, at a capacity)."""
+    from repro_torch.data.pipeline import SyntheticSource, to_device
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step, train_state
+    cfg = reduced_config(get_config(arch), n_layers=3)
+    run = TT.RunCfg(dtype=torch.float32, impl=impl)
+    batch = to_device(SyntheticSource(cfg.vocab, 2, 100, n_micro=1).batch(0),
+                      no_tf32)
+    out = []
+    for rules in (None, rank_rules):
+        model = TT.init_lm(cfg, torch.Generator().manual_seed(1),
+                           device="cpu").to(no_tf32)
+        _, m = make_train_step(cfg, run, AdamWConfig(), rules)(
+            train_state(model), batch)
+        out.append((m, dict(model.named_parameters())))
+    (m0, p0), (m1, p1) = out
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    for name, p in p0.items():
+        assert torch.equal(p, p1[name]) and torch.equal(p.grad,
+                                                        p1[name].grad), name
+
+
+def test_compressed_psum_on_card_equals_host(cuda, rank_rules):
+    """``compressed_psum`` over the world-1 group on the card's tensors
+    and on host copies: two calls (the residual fed back), the reduced
+    gradients and residuals bit for bit."""
+    from repro_torch.optim.compression import compressed_psum
+    g = torch.randn(300, 70, generator=torch.Generator().manual_seed(2))
+    outs = []
+    for dev in (cuda, "cpu"):
+        red, ef = compressed_psum({"w": g.to(dev)}, None, rank_rules.mesh,
+                                  rank_rules.dp)
+        red2, ef2 = compressed_psum({"w": g.to(dev)}, ef, rank_rules.mesh,
+                                    rank_rules.dp)
+        outs.append([t["w"].cpu() for t in (red, ef.residual, red2,
+                                            ef2.residual)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_train_launcher_refuses_too_few_cards(cuda, tmp_path):
+    """``launch.train`` with more ranks than the host has cards raises,
+    naming both counts, rather than share a card or fall back."""
+    from repro_torch.launch import train as launch_train
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match=f"{n} ranks on device 'cuda' need "
+                       f"{n} cards, one a rank; this process sees {n - 1}"):
+        launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps",
+                           "1", "--data", str(n), "--device", "cuda",
+                           "--ckpt", str(tmp_path)])

@@ -239,7 +239,10 @@ def test_training_refuses_flash_and_dispatch(refs):
     """``impl="flash"`` trains (``flash_attention``'s Function): its loss
     and gradients equal ``impl="naive"``'s within 1e-5 (relative; each
     gradient of its leaf's max |g|), and it still runs under
-    ``no_grad``.  Expert dispatch and an unknown ``remat`` are refused."""
+    ``no_grad``.  Expert dispatch without mesh rules runs dense, as
+    JAX's ``_apply_block`` does: reduced dbrx-132b's loss and gradients
+    equal ``moe_impl="dense"``'s bit for bit, and JAX's loss.  An unknown
+    ``remat`` is refused."""
     ref = refs("internlm2-1.8b")
     cfg = ref["cfg"]
     model = _port_model(ref["params"], cfg)
@@ -255,9 +258,17 @@ def test_training_refuses_flash_and_dispatch(refs):
     with torch.no_grad():            # serving-style calls still run it
         T.lm_loss(model, batch, cfg,
                   T.RunCfg(dtype=torch.float32, impl="flash"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.lm_loss(model, batch, cfg, T.RunCfg(
-            dtype=torch.float32, impl="naive", moe_impl="dispatch"))
+    moe = refs("dbrx-132b")
+    mcfg = moe["cfg"]
+    mmodel = _port_model(moe["params"], mcfg)
+    mbatch = _torch_batch(moe["batch"])
+    dense = _port_grads(mmodel, mbatch, mcfg)
+    loss, _, grads = _port_grads(mmodel, mbatch, mcfg, T.RunCfg(
+        dtype=torch.float32, impl="naive", moe_impl="dispatch"))
+    assert torch.equal(loss, dense[0])
+    assert abs(float(loss) - moe["loss"]) <= LOSS_RTOL * abs(moe["loss"])
+    for name, g in grads.items():
+        assert torch.equal(g, dense[2][name]), name
     with pytest.raises(ValueError, match="remat"):
         T.lm_loss(model, batch, cfg, T.RunCfg(
             dtype=torch.float32, impl="naive", remat="all"))
